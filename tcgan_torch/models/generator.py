@@ -1,0 +1,198 @@
+"""SSN tuning-curve generator.
+
+Port of :mod:`tcgan_tpu.models.generator`. The generator is the circuit
+parameter set theta = (J, D, S) (2x2 blocks each) plus per-connection noise
+z. A forward pass draws z ~ N(0, 1)^{B x 2N x 2N} (or takes an injected z),
+builds Dale-constrained weight matrices, solves the SSN fixed point under the
+bandwidth x contrast battery and reads out tuning curves at probe neurons.
+
+Not yet ported: gradients through the fixed point (``ops/ift.py``), the
+unrolled BPTT solver (``ops/euler.py``) and mesh sharding; each raises
+``NotImplementedError`` naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from tcgan_torch.ops import fixed_point, stimulus, weights
+from tcgan_torch.ops.ssn import (
+    DEFAULT_BANDWIDTHS,
+    DEFAULT_CONTRASTS,
+    DEFAULT_D,
+    DEFAULT_J,
+    DEFAULT_S,
+    SSNConfig,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class GeneratorConfig:
+    """Static generator configuration (same fields as the reference)."""
+
+    ssn: SSNConfig = SSNConfig()
+    bandwidths: Tuple[float, ...] = DEFAULT_BANDWIDTHS
+    contrasts: Tuple[float, ...] = DEFAULT_CONTRASTS
+    sample_sites: int = 1
+    track_offset_identity: bool = False
+    include_inhibitory_neurons: bool = False
+    solver: str = "ift"  # "ift" (fixed point + implicit grad) | "bptt"
+    grad_method: str = "iterative"  # backward solve for the ift path
+    bptt_checkpoint_chunk: int = 0  # 0 = no remat
+    param_space: str = "log"  # "log" | "raw"
+    dtype: Any = torch.float32
+    # Mesh axes of the reference's sharded generator; not ported yet.
+    mesh_axis: str | None = None
+    model_axis: str | None = None
+    # Antithetic quenched noise: batch/2 z-draws used as (+z, -z) pairs.
+    antithetic: bool = False
+
+    @property
+    def n_stim(self) -> int:
+        return len(self.bandwidths) * len(self.contrasts)
+
+    @property
+    def n_probe(self) -> int:
+        return self.sample_sites * (2 if self.include_inhibitory_neurons else 1)
+
+    @property
+    def tc_dim(self) -> int:
+        """Length of one tuning-curve sample vector as seen by the critic."""
+        if self.track_offset_identity:
+            return self.n_stim * self.n_probe
+        return self.n_stim
+
+    def samples_per_circuit(self) -> int:
+        """How many critic samples one sampled circuit yields."""
+        return 1 if self.track_offset_identity else self.n_probe
+
+    def probe_indices(self, device=None) -> torch.Tensor:
+        """Neuron indices read out as tuning curves: ``sample_sites``
+        consecutive E sites from the grid center, then the I cells at the
+        same sites when ``include_inhibitory_neurons``."""
+        N = self.ssn.N
+        base = N // 2 + torch.arange(self.sample_sites, device=device)
+        if self.include_inhibitory_neurons:
+            return torch.cat([base, base + N])
+        return base
+
+    def stimulus_battery(self, device=None) -> torch.Tensor:
+        x = self.ssn.site_pos(dtype=self.dtype, device=device)
+        return stimulus.stimulus_battery(
+            self.bandwidths, self.contrasts, x, self.ssn.smoothness)
+
+    def condition_features(self, device=None) -> torch.Tensor:
+        return stimulus.condition_features(
+            self.bandwidths, self.contrasts, dtype=self.dtype, device=device)
+
+
+def init_params(cfg: GeneratorConfig, J=DEFAULT_J, D=DEFAULT_D, S=DEFAULT_S,
+                device=None) -> Dict[str, torch.Tensor]:
+    """Initial generator parameters in the unconstrained optimization space."""
+    vals = {name: torch.as_tensor(v, dtype=cfg.dtype, device=device)
+            for name, v in (("J", J), ("D", D), ("S", S))}
+    if cfg.param_space == "log":
+        return {name: torch.log(v) for name, v in vals.items()}
+    return vals
+
+
+def params_from_numpy(np_params, device=None, dtype=torch.float32
+                      ) -> Dict[str, torch.Tensor]:
+    """The port's parameters from a dict of arrays, such as the reference's
+    ``init_params`` passed through ``np.asarray`` (copied: arrays that come
+    out of JAX are read-only)."""
+    return {name: torch.tensor(np.array(v, copy=True), dtype=dtype,
+                               device=device)
+            for name, v in np_params.items()}
+
+
+def param_values(cfg: GeneratorConfig, params: Dict[str, torch.Tensor]):
+    """Map unconstrained params to the positive circuit values (J, D, S)."""
+    if cfg.param_space == "log":
+        return tuple(torch.exp(params[k]) for k in ("J", "D", "S"))
+    return params["J"], params["D"], params["S"]
+
+
+def param_values_np(cfg: GeneratorConfig, host_params):
+    """Host-NumPy twin of :func:`param_values`."""
+    vals = tuple(np.asarray(host_params[k]) for k in ("J", "D", "S"))
+    if cfg.param_space == "log":
+        return tuple(np.exp(v) for v in vals)
+    return vals
+
+
+class GeneratorOutput(NamedTuple):
+    """Forward-pass output.
+
+    tc:        critic-ready tuning-curve samples,
+               (B, n_stim * n_probe) when track_offset_identity else
+               (B * n_probe, n_stim).
+    rates:     (B, S, 2N) full rates (for penalties/analysis).
+    converged: (B, S) bool; diverged: (B, S) bool; iters: (B, S) int32.
+    """
+
+    tc: torch.Tensor
+    rates: torch.Tensor
+    converged: torch.Tensor
+    diverged: torch.Tensor
+    iters: torch.Tensor
+
+
+def sample_tuning_curves(cfg: GeneratorConfig, params: Dict[str, torch.Tensor],
+                         batch: int, *, z=None,
+                         generator: torch.Generator | None = None
+                         ) -> GeneratorOutput:
+    """Sample ``batch`` circuits and return their tuning curves.
+
+    The noise is ``z`` when given (an array or tensor shaped as
+    :func:`weights.sample_z` would draw it: (batch // 2, 2N, 2N) in
+    antithetic mode, else (batch, 2N, 2N)), otherwise one draw from
+    ``generator``. Everything runs on the device of ``params``.
+    """
+    if cfg.solver == "bptt":
+        raise NotImplementedError(
+            "solver='bptt' needs ops/euler.py, not ported yet (ROADMAP "
+            "Queue 1, ops/euler.py and run/bptt_wgan.py)")
+    if cfg.solver != "ift":
+        raise ValueError(f"unknown solver {cfg.solver!r}")
+    if cfg.mesh_axis or cfg.model_axis:
+        raise NotImplementedError(
+            "mesh sharding is not ported yet (ROADMAP Queue 1, "
+            "parallel/mesh.py)")
+    if torch.is_grad_enabled() and any(p.requires_grad
+                                       for p in params.values()):
+        raise NotImplementedError(
+            "gradients through the fixed point need ops/ift.py, not ported "
+            "yet (ROADMAP Queue 1, ops/ift.py); call under torch.no_grad()")
+    J, D, S = param_values(cfg, params)
+    device = J.device
+    n_draw = batch // 2 if cfg.antithetic else batch
+    if cfg.antithetic and batch % 2:
+        raise ValueError("antithetic sampling needs an even batch")
+    if z is None:
+        z = weights.sample_z(generator, (n_draw,), cfg.ssn.N, device=device,
+                             dtype=cfg.dtype)
+    else:
+        z = torch.as_tensor(z, dtype=cfg.dtype, device=device)
+    if cfg.antithetic:
+        z = torch.cat([z, -z], dim=0)
+    x = cfg.ssn.site_pos(dtype=cfg.dtype, device=device)
+    W = weights.build_weight(J, D, S, z, x)
+    res = fixed_point.solve_any(cfg.ssn, W, cfg.stimulus_battery(device))
+
+    tc = res.r[..., cfg.probe_indices(device)]  # (B, S, P)
+    if cfg.track_offset_identity:
+        tc = tc.reshape(batch, -1)  # (B, S*P)
+    else:
+        tc = tc.transpose(-1, -2).reshape(batch * cfg.n_probe, cfg.n_stim)
+    return GeneratorOutput(tc, res.r, res.converged, res.diverged, res.iters)
+
+
+def rate_penalty(cfg: GeneratorConfig, rates: torch.Tensor) -> torch.Tensor:
+    """Quadratic penalty on rates above ``rate_soft_bound``, zero below."""
+    excess = torch.clamp(rates - cfg.ssn.rate_soft_bound, min=0.0)
+    return torch.mean(excess**2) / cfg.ssn.rate_soft_bound**2

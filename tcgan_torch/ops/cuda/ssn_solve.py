@@ -1,0 +1,142 @@
+"""The fused SSN fixed-point solver on Hopper: wrapper of ``csrc/ssn_solve.cu``.
+
+Replaces the Pallas TPU kernel
+``tcgan_tpu/ops/pallas/ssn_solve.py::_solver_kernel`` (launched by
+``solve_fixed_point_pallas`` through ``pl.pallas_call``). One thread block
+per circuit iterates until all of its stimulus rows resolve, with the
+circuit's W resident in shared memory for the whole solve; the io function,
+the stepper gain, the feedforward init, the ceiling clamp, the per-row
+residual and peak reductions, the flag and ``iters`` bookkeeping and
+Anderson(1) are fused into it. On this card it is bound by a small
+latency- and sync-bound mat-vec per substep, read from shared memory and not
+from HBM (see the note at the top of the CUDA source).
+
+Precision: every substep runs in fp32 (``KERNEL_PRECISION``). The TPU
+kernel's two-phase precision, refinement tail and reopen margin exist to get
+fp32 answers out of bf16 matrix-unit passes; this kernel computes directly
+what they approximate, so ``SSNConfig.pallas_two_phase``,
+``pallas_refine``, ``pallas_reopen_margin`` and ``pallas_block_b`` are not
+read here.
+
+On CPU tensors :func:`solve_fixed_point_cuda` runs the plain version,
+:func:`solve_fixed_point_plain` (the lockstep solver in fp32, which has the
+same per-row semantics: frozen resolved rows, flags from the plain chunk,
+the same ``iters`` clamp). On CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import torch
+
+from tcgan_torch.ops import fixed_point, io_funs
+from tcgan_torch.ops.ssn import SSNConfig
+
+KERNEL_PRECISION = "fp32"
+# Largest dynamic shared memory a block may use on Hopper (227 KB).
+MAX_SMEM_BYTES = 232448
+ROW_CHUNK = 8  # kRowChunk in the CUDA source
+_IO_CODES = {"asym_power": 0, "asym_tanh": 1, "asym_linear": 2}
+
+# Kernel launches since import (or since a caller reset it to 0).
+launches = 0
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def smem_bytes(n2: int, S: int, accel: bool) -> int:
+    """Dynamic shared memory of one block: the layout in ``ssn_solve.cu``."""
+    ld, rows = _round_up(n2, 4), _round_up(S, ROW_CHUNK)
+    floats = ld * n2 + rows * ld * (7 if accel else 4)
+    return 4 * floats + 4 * (2 * S + 1)
+
+
+def solve_fixed_point_plain(cfg: SSNConfig, W: torch.Tensor,
+                            I_ext: torch.Tensor, check_every: int = 1,
+                            accel: bool = False
+                            ) -> fixed_point.FixedPointResult:
+    """The kernel's function in plain torch: the lockstep solve in fp32."""
+    cfg = dataclasses.replace(cfg, accel="anderson" if accel else "none")
+    return fixed_point.solve_fixed_point(
+        cfg, W.to(torch.float32), I_ext.to(torch.float32),
+        check_every=check_every)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """Build (at first use) and bind ``csrc/ssn_solve.cu``."""
+    from tcgan_torch.ops.cuda import build
+
+    lib = ctypes.CDLL(str(build.build("ssn_solve").path))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ssn_solve_launch.argtypes = ([p] * 7 + [i] * 4 + [f] * 9 + [i] * 4
+                                     + [p])
+    lib.ssn_solve_launch.restype = i
+    lib.ssn_solve_error_string.argtypes = [i]
+    lib.ssn_solve_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
+                           I_ext: torch.Tensor, check_every: int = 1,
+                           accel: bool = False
+                           ) -> fixed_point.FixedPointResult:
+    """Fixed-point solve of W (B, 2N, 2N) under a shared battery I (S, 2N).
+
+    Returns fp32 rates (B, S, 2N), bool converged/diverged (B, S) and int32
+    iters (B, S), on the inputs' device. Raises ``ValueError`` when one
+    circuit's state does not fit in shared memory (2N beyond about 220).
+    """
+    global launches
+    if (W.ndim != 3 or I_ext.ndim != 2 or W.shape[1] != W.shape[2]
+            or I_ext.shape[1] != W.shape[2]):
+        raise ValueError("expected W (B, 2N, 2N) and I_ext (S, 2N); got "
+                         f"{tuple(W.shape)} and {tuple(I_ext.shape)}")
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1; got {check_every}")
+    B, n2 = W.shape[0], W.shape[2]
+    S = I_ext.shape[0]
+    need = smem_bytes(n2, S, accel)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"2N={n2}, S={S} needs {need} bytes of shared memory per block; "
+            f"the limit is {MAX_SMEM_BYTES}")
+    if W.device.type == "cpu" and I_ext.device.type == "cpu":
+        return solve_fixed_point_plain(cfg, W, I_ext, check_every, accel)
+    if W.device.type != "cuda" or I_ext.device != W.device:
+        raise ValueError("W and I_ext must both be CPU tensors or both lie on "
+                         f"one CUDA device; got {W.device} and "
+                         f"{I_ext.device}")
+
+    device = W.device
+    W32 = W.to(torch.float32).contiguous()
+    I32 = I_ext.to(torch.float32).contiguous()
+    alpha = cfg.step_gain(dtype=torch.float32, device=device).contiguous()
+    r = torch.empty((B, S, n2), dtype=torch.float32, device=device)
+    conv = torch.empty((B, S), dtype=torch.bool, device=device)
+    div = torch.empty((B, S), dtype=torch.bool, device=device)
+    iters = torch.empty((B, S), dtype=torch.int32, device=device)
+    if B == 0 or S == 0:
+        return fixed_point.FixedPointResult(r, conv, div, iters)
+    u0, slope = io_funs.linear_knee(cfg.k, cfg.n, cfg.rate_soft_bound)
+    lib = _library()
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    with torch.cuda.device(device):
+        err = lib.ssn_solve_launch(
+            ptr(W32), ptr(I32), ptr(alpha), ptr(r), ptr(conv), ptr(div),
+            ptr(iters), B, n2, S, _IO_CODES[cfg.io_type], cfg.k, cfg.n,
+            cfg.rate_soft_bound, cfg.rate_hard_bound, u0, slope, cfg.atol,
+            cfg.rate_stop_at, 10.0 * cfg.rate_stop_at, cfg.max_iter,
+            check_every, int(cfg.init == "feedforward"), int(accel),
+            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    if err:
+        raise RuntimeError(
+            f"ssn_solve launch failed: cudaError {err} "
+            f"({lib.ssn_solve_error_string(err).decode()})")
+    launches += 1
+    return fixed_point.FixedPointResult(r, conv, div, iters)

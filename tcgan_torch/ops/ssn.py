@@ -1,0 +1,153 @@
+"""SSN model configuration and the recurrent drive.
+
+Port of :mod:`tcgan_tpu.ops.ssn`. The continuous dynamics are
+
+    tau_a * dr_i/dt = -r_i + f(u_i),   u = W @ r + I_ext
+
+with per-population time constants tau_E (first N neurons) / tau_I (last N)
+and io nonlinearity f from :mod:`tcgan_torch.ops.io_funs`. One step is
+
+    r <- r + alpha * (-r + f(W @ r + I_ext))
+
+with alpha = dt/tau (forward Euler) or 1 - exp(-dt/tau) (exponential Euler).
+The stimulus-condition axis S stays a leading matrix dimension, so the drive
+is one batched matmul ``u = r @ W^T + I`` with r: (..., S, 2N).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from tcgan_torch.ops import io_funs
+
+# Full-fp32 matmuls are load-bearing for the fixed-point solve: the
+# reference measured 21% of samples stuck above atol=1e-4 when the drive
+# ran at reduced matmul precision (tcgan_tpu/ops/ssn.py recurrent_drive).
+# TF32 keeps ~3 decimal digits, the same hazard on this card, so it is
+# switched off for matmuls and for cuDNN.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+DEFAULT_J = ((0.0957, 0.0638), (0.1197, 0.0479))
+DEFAULT_D = ((0.7660, 0.5106), (0.9575, 0.3830))
+DEFAULT_S = ((0.2500, 0.0918), (0.2500, 0.0918))
+DEFAULT_BANDWIDTHS = (0.0, 0.0625, 0.125, 0.1875, 0.25, 0.5, 0.75, 1.0)
+DEFAULT_CONTRASTS = (20.0,)
+
+BACKENDS = ("torch", "cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class SSNConfig:
+    """Static SSN + solver configuration (same fields as the reference)."""
+
+    N: int = 51  # sites per population (2N neurons total)
+    k: float = 0.01
+    n: float = 2.2
+    tau_E: float = 0.016  # seconds
+    tau_I: float = 0.002
+    dt: float = 0.0005
+    io_type: str = "asym_power"
+    rate_soft_bound: float = 100.0
+    rate_hard_bound: float = 200.0
+    L: float = 1.0  # grid extent; sites span [-L/2, L/2]
+    smoothness: float = 0.03125  # stimulus edge smoothing
+    # Solver:
+    max_iter: int = 10000
+    atol: float = 1e-5  # convergence: max|dr/dt_scaled| < atol
+    rate_stop_at: float = 200.0  # divergence ceiling on any rate
+    seqlen: int = 4000  # BPTT path: number of unrolled Euler steps
+    # Forward-solver backend: "torch" = lockstep batched solve (the
+    # reference's "xla"); "cuda" = the fused SSN solver kernel (the
+    # reference's "pallas"), used for a (B, 2N, 2N) W and a shared (S, 2N)
+    # battery, the lockstep solve otherwise.
+    backend: str = "torch"
+    # The pallas_* fields keep the reference's flags parseable. The CUDA
+    # kernel computes every substep in fp32 and reads none of them: the
+    # two-phase, refine and reopen-margin strategies exist to get fp32
+    # answers out of bf16 matmul passes.
+    pallas_block_b: int = 8
+    pallas_two_phase: bool = True
+    pallas_refine: bool = True
+    pallas_reopen_margin: float = 0.0
+    check_every: int = 1  # convergence-check stride (both backends)
+    # "euler" (r += (dt/tau)(-r + f(u))) or "expo" (exponential Euler,
+    # r += (1-exp(-dt/tau))(-r + f(u)); same fixed point)
+    stepper: str = "euler"
+    # Initial rates: "zero" or "feedforward" (r0 = f(I_ext))
+    init: str = "zero"
+    # Fixed-point acceleration: "none" or "anderson" (Anderson(1) once per
+    # check chunk; same fixed point and residual criterion)
+    accel: str = "none"
+
+    def __post_init__(self):
+        if self.io_type not in io_funs.IO_TYPES:
+            raise ValueError(f"io_type must be one of {io_funs.IO_TYPES}")
+        # init/accel/backend are compared by string downstream; a typo
+        # would silently fall back to zero-init / plain iteration / torch
+        if self.init not in ("zero", "feedforward"):
+            raise ValueError("init must be 'zero' or 'feedforward'; "
+                             f"got {self.init!r}")
+        if self.accel not in ("none", "anderson"):
+            raise ValueError("accel must be 'none' or 'anderson'; "
+                             f"got {self.accel!r}")
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}; "
+                             f"got {self.backend!r}")
+        # asym_tanh saturates over the (soft, hard) band: a zero-width band
+        # divides by zero
+        if (self.io_type == "asym_tanh"
+                and not self.rate_hard_bound > self.rate_soft_bound):
+            raise ValueError(
+                "asym_tanh requires rate_hard_bound > rate_soft_bound; "
+                f"got soft={self.rate_soft_bound}, "
+                f"hard={self.rate_hard_bound}")
+
+    @property
+    def num_neurons(self) -> int:
+        return 2 * self.N
+
+    def io_fun(self):
+        return io_funs.make_io_fun(
+            self.io_type, self.k, self.n, self.rate_soft_bound, self.rate_hard_bound
+        )
+
+    def io_deriv(self):
+        return io_funs.make_io_deriv(
+            self.io_type, self.k, self.n, self.rate_soft_bound, self.rate_hard_bound
+        )
+
+    def tau_vector(self, dtype=torch.float32, device=None) -> torch.Tensor:
+        """(2N,) per-neuron time constants."""
+        return torch.cat([
+            torch.full((self.N,), self.tau_E, dtype=dtype, device=device),
+            torch.full((self.N,), self.tau_I, dtype=dtype, device=device),
+        ])
+
+    def step_gain(self, dtype=torch.float32, device=None) -> torch.Tensor:
+        """(2N,) per-neuron update gain alpha: r += alpha * (-r + f(u)).
+
+        "euler": alpha = dt/tau. "expo": alpha = 1 - exp(-dt/tau).
+        """
+        ratio = self.dt / self.tau_vector(dtype=dtype, device=device)
+        if self.stepper == "euler":
+            return ratio
+        if self.stepper == "expo":
+            return 1.0 - torch.exp(-ratio)
+        raise ValueError(f"unknown stepper {self.stepper!r}")
+
+    def site_pos(self, dtype=torch.float32, device=None) -> torch.Tensor:
+        from tcgan_torch.ops.weights import site_positions
+
+        return site_positions(self.N, self.L, dtype=dtype, device=device)
+
+
+def recurrent_drive(W: torch.Tensor, r: torch.Tensor,
+                    I_ext: torch.Tensor) -> torch.Tensor:
+    """u = r @ W^T + I_ext with r: (..., S, 2N), W: (..., 2N, 2N).
+
+    Runs in full fp32 (or f64): TF32 is off, see the module header.
+    """
+    return torch.matmul(r, W.transpose(-1, -2)) + I_ext

@@ -1,0 +1,144 @@
+"""C1: forward-only SSN fixed-point solve + bandwidth tuning-curve sweep.
+
+Port of :mod:`tcgan_tpu.run.forward`, the serving/data-generation mode:
+solves batches of sampled circuits under the full bandwidth x contrast
+battery and writes tuning curves and solver diagnostics into the datastore.
+With ``--solver-backend cuda`` the solve runs in the fused CUDA kernel, which
+computes every substep in fp32 (``info.json`` records
+``"kernel_precision": "fp32"``).
+
+Usage:
+    python -m tcgan_torch.run.forward --datastore /tmp/run1 --batch-size 512 \
+        --device cuda --solver-backend cuda --total-samples 4096
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import sys
+
+import numpy as np
+import torch
+
+from tcgan_torch.run import common
+
+
+def make_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    common.add_ssn_flags(p)
+    common.add_stimulus_flags(p)
+    common.add_run_flags(p)
+    p.add_argument("--batch-size", type=int, default=32,
+                   help="number of sampled circuits per solver batch")
+    p.add_argument("--total-samples", type=int, default=0,
+                   help="serving/data-generation mode: loop the batch until "
+                        "this many circuits are generated (rounded up to a "
+                        "--batch-size multiple; 0 = one batch)")
+    p.add_argument("--solver", choices=("ift", "bptt"), default="ift",
+                   help="fixed-point solve vs fixed-length Euler scan "
+                        "(bptt not ported yet)")
+    return p
+
+
+def main(argv=None):
+    args = make_parser().parse_args(argv)
+    from tcgan_torch.models import generator as gen_lib
+    from tcgan_torch.ops.cuda import ssn_solve
+    from tcgan_torch.train.datastore import DataStore
+    from tcgan_torch.utils.stopwatch import StopWatch
+
+    if args.parallel == "mesh":
+        raise NotImplementedError(
+            "--parallel mesh is not ported yet (ROADMAP Queue 1, "
+            "parallel/mesh.py)")
+    if args.solver == "bptt":
+        raise NotImplementedError(
+            "--solver bptt is not ported yet (ROADMAP Queue 1, ops/euler.py "
+            "and run/bptt_wgan.py)")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device is "
+                           "visible (there is no CPU fallback; pass "
+                           "--device cpu to run on the CPU)")
+    gen_cfg = common.generator_config_from_args(args, solver=args.solver)
+    params = gen_lib.init_params(gen_cfg, common.as22(args.J),
+                                 common.as22(args.D), common.as22(args.S),
+                                 device=device)
+    store = DataStore(args.datastore)
+    extra = ({"kernel_precision": ssn_solve.KERNEL_PRECISION}
+             if args.solver_backend == "cuda" else None)
+    store.write_info({"entry": "forward", **vars(args)}, extra=extra)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    watch = StopWatch()
+    generator = torch.Generator(device).manual_seed(args.seed)
+    fwd = lambda: gen_lib.sample_tuning_curves(  # noqa: E731
+        gen_cfg, params, args.batch_size, generator=generator)
+    n_batches = max(1, math.ceil((args.total_samples or args.batch_size)
+                                 / args.batch_size))
+    launches0 = ssn_solve.launches
+    with torch.no_grad():
+        # the first batch pays the one-time costs (the kernel's build and
+        # load); the timed batches after it are warm
+        with watch.time("compile+solve"):
+            out0 = fwd()
+            sync()
+        if n_batches == 1:
+            # single-batch mode: solve once more so "solve" is warm
+            with watch.time("solve"):
+                outs = [fwd()]
+                sync()
+            batches_timed = 1
+        else:
+            # serving mode: the first batch is kept as data; throughput is
+            # measured over the remaining warm batches
+            outs = [out0]
+            with watch.time("solve"):
+                for _ in range(n_batches - 1):
+                    outs.append(fwd())
+                sync()
+            batches_timed = n_batches - 1
+
+    def cat(name):
+        t = torch.cat([getattr(o, name) for o in outs]).cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    tc, converged, diverged, iters = (cat(n) for n in (
+        "tc", "converged", "diverged", "iters"))
+    np.savez(
+        store.file("tuning_curves.npz"),
+        tuning_curves=tc,
+        rates=cat("rates"),
+        converged=converged,
+        diverged=diverged,
+        iters=iters,
+    )
+    solve_s = max(watch.last("solve"), 1e-9)
+    summary = {
+        "n_samples": int(tc.shape[0]),
+        "tc_dim": int(tc.shape[1]),
+        "n_devices": 1,
+        "frac_converged": float(converged.mean()),
+        "frac_diverged": float(diverged.mean()),
+        "mean_iters": float(iters.mean()),
+        "solve_seconds": watch.last("solve"),
+        "compile_plus_solve_seconds": watch.last("compile+solve"),
+        "circuits_per_sec": batches_timed * args.batch_size / solve_s,
+        "stim_solves_per_sec": (batches_timed * args.batch_size
+                                * gen_cfg.n_stim / solve_s),
+        "kernel_launches": ssn_solve.launches - launches0,
+    }
+    store.finalize("finished", {"summary": summary})
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

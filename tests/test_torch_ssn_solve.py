@@ -1,0 +1,213 @@
+"""Port parity for the fused SSN solver: the CPU path of
+``tcgan_torch.ops.cuda.ssn_solve.solve_fixed_point_cuda`` (its plain torch
+version) against the Pallas kernel ``solve_fixed_point_pallas`` run in
+interpret mode, in f32 on identical NumPy inputs.
+
+Tolerance: flags equal, rates rtol 1e-4 atol 1e-5 (the kernel-vs-lockstep
+tolerance of tests/test_pallas_solver.py), iters within a few steps (the
+mat-vec summation order differs, which can move the atol crossing).
+
+The kernel itself runs in tests/test_torch_ssn_solve_cuda.py, on a card.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tcgan_tpu.ops import ssn as jssn
+from tcgan_tpu.ops import stimulus as jstim
+from tcgan_tpu.ops import weights as jw
+from tcgan_tpu.ops.pallas import solve_fixed_point_pallas
+from tcgan_torch.ops import fixed_point as tfp
+from tcgan_torch.ops import ssn as tssn
+from tcgan_torch.ops.cuda import build
+from tcgan_torch.ops.cuda import ssn_solve
+
+BASE = dict(N=8, k=0.01, n=2.2, dt=0.001, max_iter=4000, atol=1e-6)
+RTOL, ATOL = 1e-4, 1e-5
+
+
+def _problem(B=5, seed=11):
+    """f32 NumPy W (B, 2N, 2N) and battery I (2, 2N), as in
+    tests/test_pallas_solver.py::_problem."""
+    N = BASE["N"]
+    z = np.random.default_rng(seed).standard_normal((B, 2 * N, 2 * N))
+    x = np.linspace(-0.5, 0.5, N)
+    W = jw.build_weight(np.array([[0.025, 0.02], [0.025, 0.015]]),
+                        np.array([[0.1, 0.08], [0.1, 0.08]]),
+                        np.array([[0.25, 0.1], [0.25, 0.1]]), z, x)
+    I = jstim.stimulus_battery((0.25, 1.0), (5.0,), jnp.asarray(x), 0.03125)
+    return (np.asarray(W, dtype=np.float32), np.asarray(I, dtype=np.float32))
+
+
+def _runaway_problem():
+    """Hard divergers, shaped like tests/test_pallas_solver.py:192-197."""
+    W = 8.0 * np.abs(np.random.default_rng(0).standard_normal((2, 8, 8)))
+    return W.astype(np.float32), 50.0 * np.ones((1, 8), np.float32)
+
+
+SATURATING = dict(rate_soft_bound=0.15, rate_hard_bound=0.8,
+                  rate_stop_at=50.0)
+CASES = {
+    # name: (SSNConfig overrides, check_every, accel, batch)
+    "plain": ({}, 1, False, 5),
+    "check8": ({}, 8, False, 5),
+    "asym_tanh": (dict(io_type="asym_tanh", **SATURATING), 1, False, 4),
+    "asym_linear": (dict(io_type="asym_linear", **SATURATING), 1, False, 4),
+    "expo": (dict(stepper="expo", dt=0.004, max_iter=2000), 1, False, 4),
+    "feedforward": (dict(init="feedforward"), 1, False, 4),
+    "anderson": ({}, 8, True, 5),
+    "ragged": ({}, 4, False, 3),
+    "diverge": (dict(N=4, k=0.05, n=2.2, dt=0.002, max_iter=512,
+                     rate_stop_at=200.0), 32, False, 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cpu_path_matches_pallas_interpret(case):
+    cfg_kw, check_every, accel, B = CASES[case]
+    W, I = _runaway_problem() if case == "diverge" else _problem(B)
+    jcfg = jssn.SSNConfig(**{**BASE, **cfg_kw})
+    ref = solve_fixed_point_pallas(jcfg, jnp.asarray(W), jnp.asarray(I),
+                                   block_b=4, check_every=check_every,
+                                   interpret=True, two_phase=False,
+                                   accel=accel)
+    tcfg = tssn.SSNConfig(**{**BASE, **cfg_kw})
+    out = ssn_solve.solve_fixed_point_cuda(
+        tcfg, torch.tensor(W), torch.tensor(I), check_every=check_every,
+        accel=accel)
+    assert out.r.dtype == torch.float32 and out.iters.dtype == torch.int32
+    np.testing.assert_array_equal(out.converged.numpy(),
+                                  np.asarray(ref.converged))
+    np.testing.assert_array_equal(out.diverged.numpy(),
+                                  np.asarray(ref.diverged))
+    np.testing.assert_allclose(out.r.numpy(), np.asarray(ref.r), rtol=RTOL,
+                               atol=ATOL)
+    d_iters = np.abs(out.iters.numpy().astype(np.int64)
+                     - np.asarray(ref.iters, np.int64))
+    assert d_iters.max() <= max(4, 2 * check_every)
+    if case == "diverge":
+        assert out.diverged.all() and torch.isfinite(out.r).all()
+        assert float(out.r.max()) <= 10.0 * jcfg.rate_stop_at
+    else:
+        assert out.converged.all()
+    if case.startswith("asym_"):  # the saturating branch is exercised
+        assert float(out.r.max()) > SATURATING["rate_soft_bound"]
+
+
+def test_cpu_path_matches_pallas_two_phase_refine():
+    """Against the TPU kernel's default two-phase precision with the
+    refinement tail: same fixed point; iters within the phase-boundary
+    quantization of tests/test_pallas_solver.py:183-184."""
+    W, I = _problem(B=4)
+    ref = solve_fixed_point_pallas(jssn.SSNConfig(**BASE), jnp.asarray(W),
+                                   jnp.asarray(I), block_b=4, check_every=8,
+                                   interpret=True)
+    out = ssn_solve.solve_fixed_point_cuda(
+        tssn.SSNConfig(**BASE), torch.tensor(W), torch.tensor(I),
+        check_every=8)
+    np.testing.assert_array_equal(out.converged.numpy(),
+                                  np.asarray(ref.converged))
+    np.testing.assert_allclose(out.r.numpy(), np.asarray(ref.r), rtol=RTOL,
+                               atol=ATOL)
+    assert np.max(np.abs(out.iters.numpy().astype(np.int64)
+                         - np.asarray(ref.iters, np.int64))) <= 24
+
+
+def test_cpu_path_is_the_plain_version_and_launches_nothing():
+    W, I = _problem(B=3)
+    cfg = tssn.SSNConfig(**BASE, init="feedforward")
+    before = ssn_solve.launches
+    out = ssn_solve.solve_fixed_point_cuda(cfg, torch.tensor(W),
+                                           torch.tensor(I), check_every=4,
+                                           accel=True)
+    ref = tfp.solve_fixed_point(dataclasses.replace(cfg, accel="anderson"),
+                                torch.tensor(W), torch.tensor(I),
+                                check_every=4)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert ssn_solve.launches == before
+
+
+def test_f64_inputs_give_f32_results():
+    W, I = _problem(B=2)
+    out = ssn_solve.solve_fixed_point_cuda(
+        tssn.SSNConfig(**BASE), torch.tensor(W, dtype=torch.float64),
+        torch.tensor(I, dtype=torch.float64), check_every=4)
+    assert out.r.dtype == torch.float32
+
+
+def test_solve_any_dispatches_cuda_backend(monkeypatch):
+    """backend='cuda' with W (B, 2N, 2N) and I (S, 2N) goes to the kernel
+    wrapper with the config's check stride and accel; other layouts take
+    the lockstep solve."""
+    seen = []
+    real = ssn_solve.solve_fixed_point_cuda
+
+    def spy(cfg, W, I, check_every, accel):
+        seen.append((check_every, accel))
+        return real(cfg, W, I, check_every, accel)
+
+    monkeypatch.setattr(ssn_solve, "solve_fixed_point_cuda", spy)
+    W, I = _problem(B=2)
+    cfg = tssn.SSNConfig(**BASE, backend="cuda", check_every=8,
+                         accel="anderson")
+    tfp.solve_any(cfg, torch.tensor(W), torch.tensor(I))
+    assert seen == [(8, True)]
+    tfp.solve_any(cfg, torch.tensor(W[0]), torch.tensor(I))  # 2-D W
+    assert len(seen) == 1
+
+
+def test_shape_and_device_errors():
+    cfg = tssn.SSNConfig(**BASE)
+    W, I = _problem(B=2)
+    with pytest.raises(ValueError, match="expected W"):
+        ssn_solve.solve_fixed_point_cuda(cfg, torch.tensor(W[0]),
+                                         torch.tensor(I))
+    with pytest.raises(ValueError, match="expected W"):
+        ssn_solve.solve_fixed_point_cuda(cfg, torch.tensor(W),
+                                         torch.tensor(I[:, :5]))
+    with pytest.raises(ValueError, match="check_every"):
+        ssn_solve.solve_fixed_point_cuda(cfg, torch.tensor(W),
+                                         torch.tensor(I), check_every=0)
+    # a tensor that is neither on the CPU nor on a CUDA device is refused,
+    # never solved somewhere else
+    with pytest.raises(ValueError, match="CUDA device"):
+        ssn_solve.solve_fixed_point_cuda(
+            cfg, torch.empty(W.shape, device="meta"),
+            torch.empty(I.shape, device="meta"))
+
+
+def test_shared_memory_limit_raises():
+    """One circuit's state must fit in a block's shared memory: 2N=102
+    fits with the 24-row battery and Anderson, 2N=240 does not."""
+    assert ssn_solve.smem_bytes(102, 24, True) <= ssn_solve.MAX_SMEM_BYTES
+    assert ssn_solve.smem_bytes(240, 8, False) > ssn_solve.MAX_SMEM_BYTES
+    cfg = tssn.SSNConfig(N=120)
+    with pytest.raises(ValueError, match=str(ssn_solve.MAX_SMEM_BYTES)):
+        ssn_solve.solve_fixed_point_cuda(cfg, torch.zeros(1, 240, 240),
+                                         torch.zeros(8, 240))
+
+
+def test_failed_build_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "find_nvcc", lambda: "false")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        build.build("ssn_solve")
+    assert not list(tmp_path.glob("*.so"))
+
+
+def test_find_nvcc_search_order(monkeypatch, tmp_path):
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text("#!/bin/sh\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    assert build.find_nvcc() == str(nvcc)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "none"))
+    monkeypatch.setenv("PATH", str(tmp_path / "bin"))
+    assert build.find_nvcc() == str(nvcc)
+

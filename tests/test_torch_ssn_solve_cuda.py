@@ -1,0 +1,132 @@
+"""The SSN solver kernel on a CUDA device against its plain torch version.
+
+Every test here carries the ``cuda`` marker and skips where no CUDA device
+is visible. The file imports no jax, so the machine with the card runs it
+as it is:
+
+    python -m pytest tests/test_torch_ssn_solve_cuda.py -m cuda -q
+
+Tolerance: flags equal, rates rtol 1e-4 atol 1e-5 (the kernel-vs-lockstep
+tolerance of tests/test_pallas_solver.py), iters within two check strides
+(the mat-vec summation order differs, which can move the atol crossing by a
+chunk).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from tcgan_torch.ops import stimulus, weights
+from tcgan_torch.ops.cuda import ssn_solve
+from tcgan_torch.ops.ssn import SSNConfig
+
+BASE = dict(N=8, k=0.01, n=2.2, dt=0.001, max_iter=4000, atol=1e-6)
+RTOL, ATOL = 1e-4, 1e-5
+SATURATING = dict(rate_soft_bound=0.15, rate_hard_bound=0.8,
+                  rate_stop_at=50.0)
+CASES = {
+    # name: (SSNConfig overrides, check_every, accel)
+    "plain": ({}, 1, False),
+    "check8": ({}, 8, False),
+    "asym_tanh": (dict(io_type="asym_tanh", **SATURATING), 4, False),
+    "asym_linear": (dict(io_type="asym_linear", **SATURATING), 4, False),
+    "expo": (dict(stepper="expo", dt=0.004, max_iter=2000), 4, False),
+    "feedforward": (dict(init="feedforward"), 4, False),
+    "anderson": ({}, 8, True),
+}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _problem(device, B=5, seed=11):
+    N = BASE["N"]
+    z = np.random.default_rng(seed).standard_normal((B, 2 * N, 2 * N))
+    x = torch.linspace(-0.5, 0.5, N, device=device)
+    t = lambda v: torch.tensor(v, device=device)  # noqa: E731
+    W = weights.build_weight(t([[0.025, 0.02], [0.025, 0.015]]),
+                             t([[0.1, 0.08], [0.1, 0.08]]),
+                             t([[0.25, 0.1], [0.25, 0.1]]),
+                             torch.tensor(z, dtype=torch.float32,
+                                          device=device), x)
+    I = stimulus.stimulus_battery((0.25, 1.0), (5.0,), x, 0.03125)
+    return W, I
+
+
+def _check(cfg, W, I, check_every, accel):
+    before = ssn_solve.launches
+    out = ssn_solve.solve_fixed_point_cuda(cfg, W, I, check_every, accel)
+    ref = ssn_solve.solve_fixed_point_plain(cfg, W, I, check_every, accel)
+    torch.cuda.synchronize()
+    assert ssn_solve.launches == before + 1
+    assert out.r.device == W.device and out.r.dtype == torch.float32
+    assert torch.equal(out.converged, ref.converged)
+    assert torch.equal(out.diverged, ref.diverged)
+    torch.testing.assert_close(out.r, ref.r, rtol=RTOL, atol=ATOL)
+    d_iters = (out.iters.long() - ref.iters.long()).abs().max()
+    assert int(d_iters) <= 2 * check_every
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_matches_plain_on_card(cuda_device, case):
+    cfg_kw, check_every, accel = CASES[case]
+    W, I = _problem(cuda_device)
+    out = _check(SSNConfig(**{**BASE, **cfg_kw}), W, I, check_every, accel)
+    assert out.converged.all()
+
+
+@pytest.mark.cuda
+def test_kernel_ragged_and_wide_battery(cuda_device):
+    """Batch and row counts that fill no row chunk evenly: B=3, S=11."""
+    W, _ = _problem(cuda_device, B=3)
+    x = torch.linspace(-0.5, 0.5, BASE["N"], device=cuda_device)
+    I = stimulus.stimulus_battery(tuple(np.linspace(0, 1, 11)), (5.0,), x,
+                                  0.03125)
+    _check(SSNConfig(**BASE), W, I, 4, False)
+
+
+@pytest.mark.cuda
+def test_kernel_flags_runaway_divergence(cuda_device):
+    cfg = SSNConfig(N=4, k=0.05, n=2.2, dt=0.002, max_iter=512,
+                    rate_stop_at=200.0, atol=1e-6)
+    W = 8.0 * torch.tensor(
+        np.abs(np.random.default_rng(0).standard_normal((2, 8, 8))),
+        dtype=torch.float32, device=cuda_device)
+    I = 50.0 * torch.ones((1, 8), device=cuda_device)
+    out = _check(cfg, W, I, 32, False)
+    assert out.diverged.all() and torch.isfinite(out.r).all()
+    assert float(out.r.max()) <= 10.0 * cfg.rate_stop_at
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_never_falls_back(cuda_device, monkeypatch):
+    """A CUDA tensor goes to the kernel or raises: a library that cannot be
+    built is an error, not a reason to run the plain version."""
+    def broken():
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(ssn_solve, "_library", broken)
+    W, I = _problem(cuda_device, B=2)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ssn_solve.solve_fixed_point_cuda(SSNConfig(**BASE), W, I)
+
+
+@pytest.mark.cuda
+def test_solve_any_cuda_backend_launches(cuda_device):
+    from tcgan_torch.ops import fixed_point
+
+    W, I = _problem(cuda_device, B=2)
+    cfg = dataclasses.replace(SSNConfig(**BASE), backend="cuda",
+                              check_every=4)
+    before = ssn_solve.launches
+    res = fixed_point.solve_any(cfg, W.double(), I.double())
+    assert ssn_solve.launches == before + 1
+    assert res.r.dtype == torch.float32 and res.converged.all()
