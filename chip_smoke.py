@@ -14,24 +14,44 @@ no result line):
    circuits for each io type, the expo stepper, feedforward init,
    Anderson(1), a ragged batch and a batch of hard divergers; median times
    of the kernel and the plain version at 512 circuits;
-4. the main path: ``python -m tcgan_torch.run.forward`` (through its
+4. the serving path: ``python -m tcgan_torch.run.forward`` (through its
    ``main``) with the CUDA backend, 8 batches of 512 circuits, checked for
    launches, shapes, convergence and agreement with the plain solver; then
-   one batch on the 24-stimulus battery.
+   one batch on the 24-stimulus battery;
+5. implicit gradients on the card: at N=51, 256 circuits and the GAN
+   battery (8 bandwidths x contrasts 5, 10), the gradient of the mean probe
+   rate with respect to the log-space (J, D, S), with the kernel forward
+   and with the plain forward under the same adjoint, held to a relative
+   tolerance; the adjoint's iterations and host syncs; the times of the
+   forward kernel and of the adjoint; the kernel's blocks per SM at that
+   battery and the waves a 256-circuit batch takes;
+6. the training path: ``python -m tcgan_torch.run.gan`` (through its
+   ``main``) at the round-2 GAN configuration (N=51, 16 conditions, 256
+   circuits per batch, fake truth, start +30% J and -30% D off truth) for 6
+   steps with a checkpoint every 3, then ``--resume`` for 2 more, then 2
+   steps with the moment anchor (2 updates); checked for launches against
+   the step schedule, finite losses, one row per step, the start
+   parameters, checkpoints, the parameter export and convergence; then
+   ``wgan_step_ms`` at the bench configuration of the JAX package
+   (``bench.py::_wgan_step_ms``) and the step's device-time split from
+   ``torch.profiler``.
 
 The line before the last is a JSON object describing the kernel (route,
-source, the TPU kernel it replaces, launches on the main path, error and
+source, the TPU kernel it replaces, launches on the main paths, error and
 times); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 # The forward slice's benchmark circuit: N=51 sites per population, the
@@ -50,6 +70,22 @@ SEED = 0
 # within two check strides (the summation order of the mat-vec differs, so
 # the atol crossing can land one chunk apart).
 RTOL, ATOL = 1e-4, 1e-5
+
+# The round-2 GAN fit (BASELINE.md "Round-2 GAN fit"): N=51, 8 bandwidths x
+# contrasts (5, 10), 256 circuits per batch, fake truth at TRUE_*, the
+# generator started +30% off in J and -30% in D.
+GAN_SSN = dict(N=51, max_iter=10000, atol=1e-5, check_every=CHECK_EVERY)
+GAN_CONTRASTS = (5.0, 10.0)
+GAN_BATCH = 256
+TRUE_J, TRUE_D, TRUE_S = SLICE_J, SLICE_D, SLICE_S
+START_J = tuple(round(1.3 * v, 6) for v in TRUE_J)
+START_D = tuple(round(0.7 * v, 6) for v in TRUE_D)
+# Phase 5: kernel-forward gradients against plain-forward gradients under
+# the same adjoint, max |dg| / max |g|. The forward rates agree to rtol
+# 1e-4 and the adjoint stops at an absolute 1e-6; 1e-2 leaves room for
+# the adjoint to amplify the forward difference near criticality.
+GRAD_RTOL = 1e-2
+DEVICE = "cuda"
 
 
 def _line(*parts):
@@ -304,11 +340,367 @@ def phase_main_path() -> int:
     return launches
 
 
+def _gan_problem(batch, ssn_kw, contrasts, seed=SEED):
+    """Log-space (J, D, S) leaves at the fake truth and one z draw."""
+    import torch
+
+    from tcgan_torch.models import generator as gen_lib
+    from tcgan_torch.ops import weights
+    from tcgan_torch.ops.ssn import SSNConfig
+
+    dev = torch.device(DEVICE)
+    cfg = gen_lib.GeneratorConfig(
+        ssn=SSNConfig(**ssn_kw), bandwidths=BANDWIDTHS, contrasts=contrasts)
+    as22 = lambda v: ((v[0], v[1]), (v[2], v[3]))  # noqa: E731
+    params = gen_lib.init_params(cfg, as22(TRUE_J), as22(TRUE_D),
+                                 as22(TRUE_S), device=dev)
+    z = weights.sample_z(torch.Generator(dev).manual_seed(seed), (batch,),
+                         cfg.ssn.N, device=dev)
+    return cfg, params, z
+
+
+def phase_ift(card: str) -> None:
+    import torch
+
+    from tcgan_torch.models import generator as gen_lib
+    from tcgan_torch.ops import ift, weights
+    from tcgan_torch.ops.cuda import ssn_solve
+
+    cfg, params, z = _gan_problem(GAN_BATCH, GAN_SSN, GAN_CONTRASTS)
+
+    def grads(backend):
+        c = dataclasses.replace(
+            cfg, ssn=dataclasses.replace(cfg.ssn, backend=backend))
+        leaves = {k: v.clone().requires_grad_(True)
+                  for k, v in params.items()}
+        out = gen_lib.sample_tuning_curves(c, leaves, GAN_BATCH, z=z)
+        ift.adjoint_iterations = ift.host_syncs = 0
+        g = torch.autograd.grad(out.tc.mean(), list(leaves.values()))
+        torch.cuda.synchronize()
+        return (out, torch.cat([t.reshape(-1) for t in g]),
+                (ift.adjoint_iterations, ift.host_syncs))
+
+    out_k, g_k, (iters_k, syncs_k) = grads("cuda")
+    out_p, g_p, (iters_p, syncs_p) = grads("torch")
+    if not torch.isfinite(g_k).all():
+        raise AssertionError("ift: non-finite gradient through the kernel")
+    if not torch.equal(out_k.converged, out_p.converged):
+        raise AssertionError("ift: kernel and plain forward flags differ")
+    rel = float((g_k - g_p).abs().max() / g_p.abs().max())
+    _line(f"[ift] B={GAN_BATCH} S={cfg.n_stim} N={cfg.ssn.N}: "
+          f"frac_converged {float(out_k.converged.float().mean()):.4f}, "
+          f"d(mean probe rate)/d(log J, D, S) kernel-forward vs "
+          f"plain-forward max rel err {rel:.3e} (tolerance {GRAD_RTOL}); "
+          f"adjoint iterations {iters_k} / {iters_p}, host syncs "
+          f"{syncs_k} / {syncs_p} (stride {ift.DEFAULT_CHECK_STRIDE})")
+    _line(f"[ift] grad kernel-forward {g_k.tolist()}")
+    if not rel <= GRAD_RTOL:
+        raise AssertionError(f"ift: gradient rel err {rel} > {GRAD_RTOL}")
+
+    # times: the forward kernel alone, and the adjoint alone on the saved
+    # fixed point with the cotangent of the mean probe rate
+    c, dev = cfg.ssn, z.device
+    with torch.no_grad():
+        W = weights.build_weight(*gen_lib.param_values(cfg, params), z,
+                                 c.site_pos(device=dev))
+        I = cfg.stimulus_battery(dev)
+        res = ssn_solve.solve_fixed_point_cuda(c, W, I, CHECK_EVERY)
+    g = torch.zeros_like(res.r)
+    g[..., cfg.probe_indices(dev)] = 1.0 / (GAN_BATCH * cfg.n_stim)
+    fwd_ms = _median_ms(lambda: ssn_solve.solve_fixed_point_cuda(
+        c, W, I, CHECK_EVERY), reps=3)
+    adj_ms = _median_ms(lambda: ift._bwd(
+        c, "iterative", 20000, 1e-6, (W, I, res.r, res.converged), g),
+        reps=3)
+    _line(f"[ift] forward kernel {fwd_ms:.3f} ms, iterative adjoint "
+          f"{adj_ms:.3f} ms (median of 3; B={GAN_BATCH} S={cfg.n_stim}; "
+          f"{card})")
+
+    # Waves at the GAN battery, read from the card: the runtime's blocks
+    # per SM, then copies of one circuit (every block the same work) at
+    # one block per SM, at the predicted one-wave capacity and one past it.
+    # A second wave shows as a jump of about one block's time.
+    n2, S = W.shape[-1], I.shape[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm = ssn_solve.blocks_per_sm(n2, S, device=dev)
+    cap = per_sm * sms
+
+    def copies_ms(b):
+        Wb = W[:1].expand(b, -1, -1).contiguous()
+        return _median_ms(lambda: ssn_solve.solve_fixed_point_cuda(
+            c, Wb, I, CHECK_EVERY), reps=3)
+
+    t_one, t_cap, t_over = copies_ms(sms), copies_ms(cap), copies_ms(cap + 1)
+    _line(f"[ift] occupancy at 2N={n2} S={S}: "
+          f"{ssn_solve.smem_bytes(n2, S, False)} B of shared memory per "
+          f"block, {per_sm} blocks per SM (CUDA occupancy API), {sms} SMs: "
+          f"{GAN_BATCH} circuits in {math.ceil(GAN_BATCH / cap)} wave(s); "
+          f"copies of one circuit {t_one:.3f} ms at {sms}, {t_cap:.3f} ms at "
+          f"{cap}, {t_over:.3f} ms at {cap + 1} (median of 3; {card})")
+
+
+def _gan_argv(datastore, n_steps, *extra):
+    flat = lambda v: [str(x) for x in v]  # noqa: E731
+    return [
+        "--device", DEVICE, "--solver-backend", "cuda",
+        "--datastore", str(datastore), "--seed", str(SEED),
+        "--N", str(GAN_SSN["N"]), "--bandwidths", *flat(BANDWIDTHS),
+        "--contrasts", *flat(GAN_CONTRASTS),
+        "--batch-size", str(GAN_BATCH), "--normalize-input",
+        "--clip-grad", "1.0",
+        "--true-J", *flat(TRUE_J), "--true-D", *flat(TRUE_D),
+        "--true-S", *flat(TRUE_S),
+        "--J", *flat(START_J), "--D", *flat(START_D), "--S", *flat(TRUE_S),
+        "--n-steps", str(n_steps), *extra,
+    ]
+
+
+def _read_csv(path):
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def _run_gan(store, n_steps, steps_before, *extra, anchor_updates=0):
+    """``run.gan`` once; checks its launches against the step schedule and
+    returns (launches, learning rows)."""
+    from tcgan_torch.ops.cuda import ssn_solve
+    from tcgan_torch.run import gan
+    from tcgan_torch.train.driver import DriverConfig
+
+    argv = _gan_argv(store, n_steps, *extra)
+    args = gan.make_parser().parse_args(argv)
+    ssn_solve.launches = 0
+    t0 = time.perf_counter()
+    rc = gan.main(argv)
+    launches = ssn_solve.launches
+    if rc != 0:
+        raise AssertionError(f"gan.main returned {rc}")
+    info = json.loads((store / "info.json").read_text())
+    truth = info["kernel_launches_fake_truth"]
+    min_truth = math.ceil(args.truth_samples / args.truth_batch)
+    steps = range(steps_before, steps_before + n_steps)
+    warmup = DriverConfig().n_critic0_steps
+    expected = sum((args.n_critic0 if s < warmup else args.n_critic) + 1
+                   + anchor_updates for s in steps)
+    expected += sum(1 for s in steps if s % args.tc_mean_every == 0)
+    _line(f"[gan] {store.name}: {n_steps} steps from {steps_before} in "
+          f"{time.perf_counter() - t0:.1f} s; kernel launches {launches} = "
+          f"fake truth {truth} + training {launches - truth} (schedule "
+          f"implies {expected}); status {info.get('status')}")
+    if launches - truth != expected or truth < min_truth:
+        raise AssertionError("gan: kernel launches do not match the step "
+                             "schedule")
+    if info.get("status") != "finished":
+        raise AssertionError(f"gan: status {info.get('status')}")
+    return launches, _read_csv(store / "learning.csv")
+
+
+def _check_learning(rows, n_rows, name):
+    steps = [int(r["step"]) for r in rows]
+    if steps != list(range(n_rows)):
+        raise AssertionError(f"{name}: learning.csv steps {steps}")
+    for r in rows:
+        for k in ("d_loss", "g_loss", "wasserstein", "gp", "rate_penalty"):
+            if not math.isfinite(float(r[k])):
+                raise AssertionError(f"{name}: step {r['step']} {k}={r[k]}")
+        if float(r["frac_converged"]) < 0.99:
+            raise AssertionError(f"{name}: step {r['step']} frac_converged "
+                                 f"{r['frac_converged']}")
+
+
+def phase_gan(card: str) -> int:
+    import numpy as np
+
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        store = Path(tmp) / "gan"
+        n, rows = _run_gan(store, 6, 0, "--checkpoint-every", "3")
+        launches += n
+        _check_learning(rows, 6, "gan")
+        first = _read_csv(store / "generator.csv")[0]
+        start = dict(zip(("J", "D", "S"), (START_J, START_D, TRUE_S)))
+        for name, vals in start.items():
+            got = [float(first[f"{name}_{a}{b}"]) for a in "EI" for b in "EI"]
+            # one Adam step at lr 1e-4 in log space moves a value by
+            # about 1e-4 of itself
+            if not np.allclose(got, vals, rtol=2e-3):
+                raise AssertionError(f"gan: generator.csv row 0 {name} {got} "
+                                     f"is not the start point {vals}")
+        if not (store / "ckpt" / "6.pt").exists() or \
+                not (store / "ckpt" / "3.pt").exists():
+            raise AssertionError("gan: checkpoints 3 and 6 missing")
+        export = np.load(store / "disc_params.npz")
+        if int(export["step"]) != 6 or not all(
+                np.isfinite(export[k]).all() for k in export.files):
+            raise AssertionError("gan: disc_params.npz wrong or non-finite")
+        train_ms = [1e3 * float(r["train_time"]) for r in rows[1:]]
+        n, rows = _run_gan(store, 2, 6, "--resume")
+        launches += n
+        _check_learning(rows, 8, "gan --resume")
+        _line(f"[gan] steps 1-5 train_time {statistics.median(train_ms):.1f} "
+              f"ms median (B={GAN_BATCH}, 16 conditions, n_critic 5; {card})")
+        n, rows = _run_gan(Path(tmp) / "anchor", 2, 0, "--moment-anchor",
+                           "1e-3", "--anchor-updates", "2",
+                           anchor_updates=2)
+        launches += n
+        _check_learning(rows, 2, "gan anchor")
+        with open(Path(tmp) / "anchor" / "learning.jsonl") as f:
+            res = [json.loads(line)["anchor_residual"] for line in f]
+        if not all(isinstance(v, float) and math.isfinite(v) for v in res):
+            raise AssertionError(f"gan anchor: anchor_residual {res}")
+    phase_wgan_step(card)
+    return launches
+
+
+def _step_setup(batch, ssn_kw, contrasts, **wgan_kw):
+    """A WGAN state at the fake truth on the card, with real data
+    1 + 0.1 N(0, 1) as ``bench.py::_wgan_step_ms`` makes it."""
+    import torch
+
+    from tcgan_torch.models import wgan
+
+    dev = torch.device(DEVICE)
+    cfg, params, _ = _gan_problem(batch, dict(ssn_kw, backend="cuda"),
+                                  contrasts)
+    wcfg = wgan.WGANConfig(gen=cfg, batch_size=batch, n_critic=5,
+                           n_critic0=5, **wgan_kw)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    state = wgan.init_state(wcfg, generator=gen, gen_init=params)
+    real = 1.0 + 0.1 * torch.randn(
+        (wcfg.n_critic, wcfg.critic_batch, cfg.tc_dim), generator=gen,
+        device=dev)
+    return wcfg, state, real, gen
+
+
+def _time_steps(name, card, wcfg, state, real, gen):
+    """Marginal time of warm steps, (t9 - t3) / 6 as in
+    ``bench.py::_wgan_step_ms`` (median of three), then the device-time
+    split of 3 more steps under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tcgan_torch.models import wgan
+    from tcgan_torch.ops import ift
+
+    def run(reps):
+        nonlocal state
+        t0 = time.perf_counter()
+        m = None
+        for _ in range(reps):
+            state, m = wgan.train_step(wcfg, wcfg.n_critic, state, real,
+                                       generator=gen)
+        _ = float(m.d_loss)
+        return time.perf_counter() - t0
+
+    run(1)  # warm-up
+    ift.adjoint_iterations = ift.host_syncs = 0
+    reps = []
+    for _ in range(3):  # the host clock spreads: three measurements
+        t3, t9 = run(3), run(9)
+        reps.append((t9 - t3) / 6 * 1e3)
+    step_ms = statistics.median(reps)
+    g = wcfg.gen
+    _line(f"[wgan] {name}: {step_ms:.3f} ms per step, median of "
+          f"{', '.join(f'{r:.3f}' for r in reps)} (each the marginal of "
+          f"warm steps, (t9 - t3) / 6; B={wcfg.batch_size}, S={g.n_stim}, "
+          f"N={g.ssn.N}, atol {g.ssn.atol}, n_critic {wcfg.n_critic}; "
+          f"{card}); adjoint {ift.adjoint_iterations / 36:.1f} iterations "
+          f"and {ift.host_syncs / 36:.1f} host syncs per step")
+    n_prof = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            state, m = wgan.train_step(wcfg, wcfg.n_critic, state, real,
+                                       generator=gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
+    split = _device_split(prof, wcfg.n_critic + 1, n_prof)
+    split["idle_vs_step"] = round(step_ms - split["device_busy"], 3)
+    split["idle_share_vs_step"] = round(1 - split["device_busy"] / step_ms, 4)
+    split["profiled_step_wall"] = round(wall_ms, 3)
+    _line(f"[wgan] {name} device-time split per step (ms; torch.profiler "
+          f"over {n_prof} warm steps; {card}): {json.dumps(split)}")
+    return step_ms
+
+
+def phase_wgan_step(card: str):
+    # bench.py::_wgan_step_ms: N=51, 8 bandwidths at contrast 10, atol
+    # 1e-4, max_iter 8000, 32 circuits, n_critic 5, critic (128, 128)
+    step_ms = _time_steps("wgan_step_ms", card, *_step_setup(
+        32, dict(SLICE_SSN, check_every=CHECK_EVERY), (CONTRAST,)))
+    # the round-2 fit's shapes: 16 conditions, 256 circuits, atol 1e-5
+    _time_steps("round-2 GAN step", card, *_step_setup(
+        GAN_BATCH, GAN_SSN, GAN_CONTRASTS, clip_grad=1.0))
+    return step_ms
+
+
+def _device_split(prof, solves_per_step, n_steps):
+    """Device time per step by phase: the solver kernel's launches split by
+    their place in the step (critic-phase solves, then the generator
+    forward), other device activity by the phase annotation
+    (``wgan.*``, ``ift.adjoint``) whose host time span holds the op that
+    launched it (the adjoint's span first: it runs inside the generator's
+    backward). One stream, so device activities do not overlap and their
+    sum is the device's busy time."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    spans = {}
+    for e in events:
+        # host spans only: the profiler also mirrors each annotation on
+        # the device timeline, where it lags the host
+        if e.device_type == DeviceType.CPU and (
+                e.name.startswith("wgan.") or e.name == "ift.adjoint"):
+            spans.setdefault(e.name, []).append(
+                (e.time_range.start, e.time_range.end))
+
+    def phase_of(t):
+        for name in ("ift.adjoint",) + tuple(
+                n for n in spans if n != "ift.adjoint"):
+            if any(a <= t <= b for a, b in spans.get(name, ())):
+                return name
+        return "other"
+
+    us = {}
+    solver = []
+    for e in events:
+        for k in e.kernels:
+            if "ssn_solve" in k.name:
+                solver.append((e.time_range.start, k.duration))
+            else:
+                key = phase_of(e.time_range.start)
+                us[key] = us.get(key, 0.0) + k.duration
+    device_solver = sorted((e.time_range.start,
+                            e.time_range.end - e.time_range.start)
+                           for e in events if e.device_type == DeviceType.CUDA
+                           and "ssn_solve" in e.name)
+    if len(device_solver) > len(solver):
+        solver = device_solver  # launches the host ops did not claim
+    solver.sort()
+    for i, (_, dur) in enumerate(solver):
+        key = ("solve.critic" if i % solves_per_step < solves_per_step - 1
+               else "solve.gen_forward")
+        us[key] = us.get(key, 0.0) + dur
+    busy = sum(us.values())
+    out = {k: round(v / n_steps / 1e3, 3) for k, v in sorted(us.items())}
+    out["device_busy"] = round(busy / n_steps / 1e3, 3)
+    out["solver_launches"] = len(solver)
+    out["solver_ms_each"] = [round(d / 1e3, 3) for _, d in solver]
+    return out
+
+
 def main() -> int:
     card = phase_environment()
     phase_build()
     kernel = phase_kernel(card)
-    kernel["launches"] = phase_main_path()
+    fwd_launches = phase_main_path()
+    phase_ift(card)
+    gan_launches = phase_gan(card)
+    kernel["launches"] = fwd_launches + gan_launches
+    kernel["launches_by_path"] = {"run.forward": fwd_launches,
+                                  "run.gan": gan_launches}
     import torch
 
     _line(json.dumps({"kernels": [kernel]}))

@@ -8,7 +8,10 @@ port's tests compare against.
 
 Ported so far: the forward/serving path ``python -m tcgan_torch.run.forward``
 (weights, stimulus battery, fixed-point solve, probe readout), with the
-fused SSN solver as a hand-written CUDA kernel (``ops/cuda``).
+fused SSN solver as a hand-written CUDA kernel (``ops/cuda``), and the
+fixed-point WGAN-GP fit ``python -m tcgan_torch.run.gan`` (implicit
+gradients, critic, optimizers, fake-truth data, driver, recorders,
+checkpoints).
 """
 
 __version__ = "0.1.0"

@@ -279,6 +279,9 @@ size_t smem_bytes(int n2, int S, int accel) {
   return floats * sizeof(float) + (2 * (size_t)S + 1) * sizeof(int);
 }
 
+// One thread per neuron, whole warps.
+int block_threads(int n2) { return round_up(n2 > 32 ? n2 : 32, 32); }
+
 }  // namespace
 
 extern "C" {
@@ -314,13 +317,27 @@ int ssn_solve_launch(const void* W, const void* I, const void* alpha, void* r,
   cudaError_t err = cudaFuncSetAttribute(
       ssn_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  const int threads = round_up(n2 > 32 ? n2 : 32, 32);
+  const int threads = block_threads(n2);
   ssn_solve_kernel<<<B, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(W), static_cast<const float*>(I),
       static_cast<const float*>(alpha), static_cast<float*>(r),
       static_cast<uint8_t*>(conv), static_cast<uint8_t*>(div),
       static_cast<int*>(iters), p);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the compiled kernel that one SM of the current device holds at
+// this shape (the runtime's occupancy calculation: registers, threads and
+// dynamic shared memory); minus the cudaError_t on failure.
+int ssn_solve_blocks_per_sm(int n2, int S, int accel) {
+  const size_t bytes = smem_bytes(n2, S, accel);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssn_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, ssn_solve_kernel, block_threads(n2), bytes);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 const char* ssn_solve_error_string(int err) {

@@ -1,1 +1,2 @@
-"""Model layer: the SSN tuning-curve generator."""
+"""Model layer: the SSN tuning-curve generator, the critic and the WGAN-GP
+step."""

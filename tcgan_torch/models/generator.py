@@ -6,9 +6,10 @@ z. A forward pass draws z ~ N(0, 1)^{B x 2N x 2N} (or takes an injected z),
 builds Dale-constrained weight matrices, solves the SSN fixed point under the
 bandwidth x contrast battery and reads out tuning curves at probe neurons.
 
-Not yet ported: gradients through the fixed point (``ops/ift.py``), the
-unrolled BPTT solver (``ops/euler.py``) and mesh sharding; each raises
-``NotImplementedError`` naming its ROADMAP item.
+Gradients flow to the parameters through the fixed point by the implicit
+function theorem (:mod:`tcgan_torch.ops.ift`, ``solver="ift"``). Not yet
+ported: the unrolled BPTT solver (``ops/euler.py``) and mesh sharding; each
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from tcgan_torch.ops import fixed_point, stimulus, weights
+from tcgan_torch.ops import ift, stimulus, weights
 from tcgan_torch.ops.ssn import (
     DEFAULT_BANDWIDTHS,
     DEFAULT_CONTRASTS,
@@ -151,7 +152,8 @@ def sample_tuning_curves(cfg: GeneratorConfig, params: Dict[str, torch.Tensor],
     The noise is ``z`` when given (an array or tensor shaped as
     :func:`weights.sample_z` would draw it: (batch // 2, 2N, 2N) in
     antithetic mode, else (batch, 2N, 2N)), otherwise one draw from
-    ``generator``. Everything runs on the device of ``params``.
+    ``generator``. Everything runs on the device of ``params``;
+    differentiable with respect to ``params`` through the implicit solve.
     """
     if cfg.solver == "bptt":
         raise NotImplementedError(
@@ -163,11 +165,6 @@ def sample_tuning_curves(cfg: GeneratorConfig, params: Dict[str, torch.Tensor],
         raise NotImplementedError(
             "mesh sharding is not ported yet (ROADMAP Queue 1, "
             "parallel/mesh.py)")
-    if torch.is_grad_enabled() and any(p.requires_grad
-                                       for p in params.values()):
-        raise NotImplementedError(
-            "gradients through the fixed point need ops/ift.py, not ported "
-            "yet (ROADMAP Queue 1, ops/ift.py); call under torch.no_grad()")
     J, D, S = param_values(cfg, params)
     device = J.device
     n_draw = batch // 2 if cfg.antithetic else batch
@@ -182,7 +179,8 @@ def sample_tuning_curves(cfg: GeneratorConfig, params: Dict[str, torch.Tensor],
         z = torch.cat([z, -z], dim=0)
     x = cfg.ssn.site_pos(dtype=cfg.dtype, device=device)
     W = weights.build_weight(J, D, S, z, x)
-    res = fixed_point.solve_any(cfg.ssn, W, cfg.stimulus_battery(device))
+    res = ift.solve_fixed_point_implicit(
+        cfg.ssn, W, cfg.stimulus_battery(device), grad_method=cfg.grad_method)
 
     tc = res.r[..., cfg.probe_indices(device)]  # (B, S, P)
     if cfg.track_offset_identity:

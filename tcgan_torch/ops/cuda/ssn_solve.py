@@ -79,7 +79,23 @@ def _library() -> ctypes.CDLL:
     lib.ssn_solve_launch.restype = i
     lib.ssn_solve_error_string.argtypes = [i]
     lib.ssn_solve_error_string.restype = ctypes.c_char_p
+    lib.ssn_solve_blocks_per_sm.argtypes = [i, i, i]
+    lib.ssn_solve_blocks_per_sm.restype = i
     return lib
+
+
+def blocks_per_sm(n2: int, S: int, accel: bool = False,
+                  device: torch.device | str = "cuda") -> int:
+    """Blocks of the compiled kernel that one SM of ``device`` holds at this
+    shape, by the CUDA runtime's occupancy calculation; a batch of B
+    circuits runs in ceil(B / (blocks_per_sm * SMs)) waves."""
+    lib = _library()
+    with torch.cuda.device(device):
+        n = lib.ssn_solve_blocks_per_sm(n2, S, int(accel))
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {-n} "
+                           f"({lib.ssn_solve_error_string(-n).decode()})")
+    return n
 
 
 def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,

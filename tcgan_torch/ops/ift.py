@@ -1,0 +1,170 @@
+"""Implicit-function-theorem gradients through the SSN fixed point.
+
+Port of :mod:`tcgan_tpu.ops.ift`. The fixed point satisfies r* = F(r*, W, I)
+with F(r, W, I) = f(W r + I). For a downstream cotangent g = dL/dr* the IFT
+gives
+
+    lam solves  (I - dF/dr)^T lam = g,
+    W_bar = (dF/dW)^T lam,   I_bar = (dF/dI)^T lam,
+
+with dF/dr = diag(f'(u*)) W at u* = W r* + I. :class:`FixedPointRates` is a
+``torch.autograd.Function`` (``forward`` + ``setup_context``, so a ``vmap``
+rule can be added later) whose forward is :func:`fixed_point.solve_any`, the
+CUDA solver kernel on CUDA tensors, and whose backward solves the adjoint
+system by one of three methods:
+
+- ``"iterative"`` (default): damped Richardson on the adjoint,
+  lam <- lam + alpha * (-lam + (dF/dr)^T lam + g), until the GLOBAL
+  max |delta| over the whole batch drops below ``bwd_atol`` or
+  ``bwd_max_iter`` iterations ran. The reference tests its stop rule on
+  every iteration on the device; here the loop runs ``check_stride``
+  iterations per host sync, and an iteration after the stop rule held
+  leaves lam unchanged, so the result does not depend on the stride.
+- ``"direct"``: batched dense solve of the transposed system.
+- ``"jfb"``: Jacobian-free backprop, lam = g.
+
+Cotangents, io slopes, adjoints and rates of samples whose forward solve did
+not converge are zeroed with ``torch.where`` (not a multiply: NaN * 0 is
+NaN), so an excluded sample is inert in every method and cannot poison the
+batch gradient. The backward runs in ``W.dtype`` whatever dtype the forward
+returned (the kernel returns fp32 rates).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tcgan_torch.ops.fixed_point import FixedPointResult, solve_any
+from tcgan_torch.ops.ssn import SSNConfig, recurrent_drive
+
+GRAD_METHODS = ("iterative", "direct", "jfb")
+# Adjoint iterations per host sync of the iterative method's stop test.
+DEFAULT_CHECK_STRIDE = 64
+
+# Iterative-adjoint iterations and stop-test host syncs since import (or
+# since a caller reset them to 0).
+adjoint_iterations = 0
+host_syncs = 0
+
+
+def _bwd(cfg: SSNConfig, grad_method: str, bwd_max_iter: int,
+         bwd_atol: float, residuals, g: torch.Tensor,
+         check_stride: int = DEFAULT_CHECK_STRIDE):
+    """(W_bar, I_bar) for the rates' cotangent ``g`` at the saved fixed point
+    ``residuals = (W, I_ext, r_star, converged)``."""
+    global adjoint_iterations, host_syncs
+    W, I_ext, r_star, converged = residuals
+    dtype = W.dtype
+    r_star = r_star.to(dtype)
+    g = g.to(dtype)
+    phi = cfg.io_deriv()(recurrent_drive(W, r_star, I_ext))  # (..., S, 2N)
+    ok = converged[..., None]
+    zero = torch.zeros((), dtype=dtype, device=W.device)
+    g = torch.where(ok, g, zero)
+    phi = torch.where(ok, phi, zero)
+
+    if grad_method == "jfb":
+        lam = g
+    elif grad_method == "direct":
+        n2 = W.shape[-1]
+        eye = torch.eye(n2, dtype=dtype, device=W.device)
+        A = eye - phi[..., :, None] * W[..., None, :, :]  # (..., S, 2N, 2N)
+        # solve_ex: a singular system yields non-finite values, as in the
+        # reference, instead of raising
+        lam = torch.linalg.solve_ex(A.transpose(-1, -2), g[..., None])[0]
+        lam = torch.where(ok, lam[..., 0], zero)
+    elif grad_method == "iterative":
+        if check_stride < 1:
+            raise ValueError(f"check_stride must be >= 1; got {check_stride}")
+        alpha = cfg.step_gain(dtype=dtype, device=W.device)
+        lam = g
+        delta_norm = torch.full((), float("inf"), dtype=dtype, device=W.device)
+        iters = torch.zeros((), dtype=dtype, device=W.device)
+        done, n_it = 0, 0.0
+        while done < bwd_max_iter:
+            for _ in range(min(check_stride, bwd_max_iter - done)):
+                active = delta_norm >= bwd_atol
+                delta = -lam + torch.matmul(phi * lam, W) + g
+                lam = torch.where(active, lam + alpha * delta, lam)
+                delta_norm = torch.where(active, delta.abs().amax(),
+                                         delta_norm)
+                iters = iters + active
+            done += check_stride
+            host_syncs += 1
+            more, n_it = torch.stack(
+                [(delta_norm >= bwd_atol).to(dtype), iters]).tolist()
+            if not more:
+                break
+        adjoint_iterations += int(n_it)
+        # a non-finite lam of a trusted sample is left in place, so the
+        # optimizer's finite-update guard skips the step visibly
+        lam = torch.where(ok, lam, zero)
+    else:
+        raise ValueError(f"grad_method must be one of {GRAD_METHODS}")
+
+    philam = phi * lam
+    r_ok = torch.where(ok, r_star, zero)
+    W_bar = torch.matmul(philam.transpose(-1, -2), r_ok)
+    return _unbroadcast(W_bar, W.shape), _unbroadcast(philam, I_ext.shape)
+
+
+def _unbroadcast(bar: torch.Tensor, shape) -> torch.Tensor:
+    """Reduce a cotangent to the primal's shape: sum over leading axes the
+    primal lacks and over axes where it had size 1 (e.g. I_ext (1, S, 2N)
+    against W (B, 2N, 2N))."""
+    shape = tuple(shape)
+    if tuple(bar.shape) == shape:
+        return bar
+    extra = bar.ndim - len(shape)
+    if extra:
+        bar = bar.sum(dim=tuple(range(extra)))
+    keep = tuple(ax for ax, (b, p) in enumerate(zip(bar.shape, shape))
+                 if b != p and p == 1)
+    if keep:
+        bar = bar.sum(dim=keep, keepdim=True)
+    return bar
+
+
+class FixedPointRates(torch.autograd.Function):
+    """Differentiable fixed-point solve: gradients flow through the rates
+    only (the flags and iters are diagnostics)."""
+
+    @staticmethod
+    def forward(W, I_ext, cfg, grad_method, bwd_max_iter, bwd_atol,
+                check_stride):
+        return tuple(solve_any(cfg, W, I_ext))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        W, I_ext, cfg, grad_method, bwd_max_iter, bwd_atol, stride = inputs
+        r, converged, diverged, iters = output
+        ctx.save_for_backward(W, I_ext, r, converged)
+        ctx.mark_non_differentiable(converged, diverged, iters)
+        ctx.args = (cfg, grad_method, bwd_max_iter, bwd_atol)
+        ctx.check_stride = stride
+
+    @staticmethod
+    def backward(ctx, g_r, _g_conv, _g_div, _g_iters):
+        W, I_ext, r, converged = ctx.saved_tensors
+        with torch.profiler.record_function("ift.adjoint"):
+            W_bar, I_bar = _bwd(*ctx.args, (W, I_ext, r, converged), g_r,
+                                ctx.check_stride)
+        return (W_bar if ctx.needs_input_grad[0] else None,
+                I_bar.to(I_ext.dtype) if ctx.needs_input_grad[1] else None,
+                None, None, None, None, None)
+
+
+def solve_fixed_point_implicit(
+    cfg: SSNConfig,
+    W: torch.Tensor,
+    I_ext: torch.Tensor,
+    grad_method: str = "iterative",
+    bwd_max_iter: int = 20000,
+    bwd_atol: float = 1e-6,
+    check_stride: int = DEFAULT_CHECK_STRIDE,
+) -> FixedPointResult:
+    """User-facing differentiable fixed-point solve (see module docstring)."""
+    if grad_method not in GRAD_METHODS:
+        raise ValueError(f"grad_method must be one of {GRAD_METHODS}")
+    return FixedPointResult(*FixedPointRates.apply(
+        W, I_ext, cfg, grad_method, bwd_max_iter, bwd_atol, check_stride))

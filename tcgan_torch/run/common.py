@@ -1,16 +1,17 @@
-"""Shared CLI flag machinery (the subset the forward entry point needs).
+"""Shared CLI flag machinery of the forward and GAN entry points.
 
-Port of :mod:`tcgan_tpu.run.common`: the same option strings and dests, so a
-command line of ``tcgan_tpu.run.forward`` parses here too, with two
-differences: ``--solver-backend`` takes ``torch`` or ``cuda`` (for the
-reference's ``xla`` and ``pallas``), and ``--device`` names the torch
-device. The GAN and data flags come with the GAN slice.
+Port of :mod:`tcgan_tpu.run.common`: the same option strings, dests and
+defaults, so a command line of ``tcgan_tpu.run.forward`` or
+``tcgan_tpu.run.gan`` parses here too, with two differences:
+``--solver-backend`` takes ``torch`` or ``cuda`` (for the reference's
+``xla`` and ``pallas``), and ``--device`` names the torch device.
 """
 
 from __future__ import annotations
 
 import argparse
 
+import numpy as np
 import torch
 
 from tcgan_torch.models.generator import GeneratorConfig
@@ -129,13 +130,188 @@ def add_run_flags(p: argparse.ArgumentParser):
                    help="'mesh': shard the sample batch over all devices "
                         "(not ported yet)")
     g.add_argument("--profile-dir", type=str, default=None,
-                   help="write a device trace of the run here (read by the "
-                        "training entry points, not ported yet)")
+                   help="write a torch.profiler trace of the run here "
+                        "(training entry points)")
     g.add_argument("--dtype", choices=("float32", "bfloat16", "float64"),
                    default="float32")
     g.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on; 'cuda' with no visible "
                         "GPU is an error, never a CPU fallback")
+
+
+def add_gan_flags(p: argparse.ArgumentParser):
+    g = p.add_argument_group("GAN")
+    g.add_argument("--disc-layers", type=int, nargs="+", default=[128, 128],
+                   help="critic MLP hidden layer sizes")
+    g.add_argument("--batch-size", type=int, default=64,
+                   help="circuits sampled per generator batch")
+    g.add_argument("--WGAN_lambda", type=float, default=10.0,
+                   dest="gp_lambda")
+    g.add_argument("--WGAN_n_critic", type=int, default=5, dest="n_critic")
+    g.add_argument("--WGAN_n_critic0", type=int, default=50,
+                   dest="n_critic0")
+    g.add_argument("--disc-learn-rate", type=float, default=1e-3,
+                   dest="lr_critic")
+    g.add_argument("--gen-learn-rate", type=float, default=1e-4,
+                   dest="lr_gen")
+    g.add_argument("--adam-beta1", type=float, default=0.5)
+    g.add_argument("--adam-beta2", type=float, default=0.9)
+    g.add_argument("--rate-cost", type=float, default=0.01)
+    g.add_argument("--normalize-input", action="store_true",
+                   help="scale critic inputs by 1/mean dataset tuning curve")
+    g.add_argument("--normalize-input-mode", choices=("mean", "std"),
+                   default=None,
+                   help="per-feature scale for --normalize-input (implies "
+                        "it): 'mean' = 1/|mean TC|, 'std' = 1/std with a "
+                        "5%%-of-mean-|TC| degeneracy floor")
+    g.add_argument("--normalize-per-condition", nargs="?", const="mean",
+                   choices=("mean", "std"), default=None,
+                   help="(conditional WGAN) per-(condition, probe) critic "
+                        "input scale")
+    g.add_argument("--contrast-weights", type=float, nargs="+", default=None,
+                   help="(conditional WGAN) per-contrast loss weights in "
+                        "--contrasts order")
+    g.add_argument("--moment-anchor", type=float, default=0.0,
+                   help="hybrid objective: per GAN step, extra Adam "
+                        "update(s) on the survivor-masked EMA-averaged "
+                        "moment residual with this learn rate (0 = off)")
+    g.add_argument("--anchor-ema", type=float, default=0.995,
+                   help="EMA decay for the anchor's generated moments")
+    g.add_argument("--anchor-ema-late", type=float, default=0.0,
+                   help="two-phase anchor gamma: switch the anchor EMA "
+                        "decay to this value at --anchor-ema-switch-step "
+                        "(0 = off)")
+    g.add_argument("--anchor-ema-switch-step", type=int, default=0,
+                   help="GAN step at which --anchor-ema-late takes over "
+                        "(0 = off)")
+    g.add_argument("--anchor-ema-switch-drift", type=float, default=0.0,
+                   help="drift-latched late gamma (not ported yet; "
+                        "ROADMAP Queue 1, item 9)")
+    g.add_argument("--anchor-ema-switch-vel", type=float, default=0.0,
+                   help="velocity-latched late gamma (not ported yet; "
+                        "ROADMAP Queue 1, item 9)")
+    g.add_argument("--anchor-drift-ema", type=float, default=0.995,
+                   help="decay for the drift detector's delta EMAs")
+    g.add_argument("--anchor-updates", type=int, default=1,
+                   help="anchor Adam updates per GAN step (fresh generator "
+                        "batch each)")
+    g.add_argument("--anchor-beta1", type=float, default=None,
+                   help="beta1 for the anchor's own Adam (default: "
+                        "--adam-beta1)")
+    g.add_argument("--critic-lr-decay-steps", type=int, default=-1,
+                   help="critic-side lr decay horizon: -1 = follow "
+                        "--lr-decay-steps, 0 = constant critic lr")
+    g.add_argument("--reject-unconverged", action="store_true",
+                   help="drop non-converged fake samples from the critic "
+                        "objective (the fake-truth dataset's survivor "
+                        "selection)")
+    g.add_argument("--clip-grad", type=float, default=0.0,
+                   help="global-norm gradient clip for both nets (0 = off)")
+    g.add_argument("--lr-decay-steps", type=int, default=0,
+                   help="exponential lr decay horizon in steps (0 = off)")
+    g.add_argument("--lr-decay-rate", type=float, default=0.5,
+                   help="decay factor applied every --lr-decay-steps")
+    g.add_argument("--gen-lr-floor", type=float, default=0.0,
+                   help="critic-cooling endgame floor for the adversarial "
+                        "generator lr")
+    g.add_argument("--gen-lr-switch-step", "--phase-switch-at", type=int,
+                   default=0, dest="gen_lr_switch_step",
+                   help="hard-switch the adversarial generator lr to "
+                        "--gen-lr-floor at this step (0 = off)")
+    g.add_argument("--gen-lr-switch-residual", type=float, default=0.0,
+                   help="latch the adversarial lr to --gen-lr-floor once "
+                        "the anchor's debiased EMA residual first drops "
+                        "below this value (requires --moment-anchor)")
+    g.add_argument("--gen-lr-switch-min-step", type=int, default=0,
+                   help="arm the residual trigger only from this step on")
+    g.add_argument("--adaptive-max-iter", choices=("on", "off"),
+                   default="on",
+                   help="adaptive train-time solver budget: cap max_iter "
+                        "at ~4x the healthy-step mean iteration count "
+                        "(power-of-2 buckets)")
+    g.add_argument("--adaptive-margin", type=float, default=4.0,
+                   help="safety margin for --adaptive-max-iter")
+    g.add_argument("--gen-ema", type=float, default=0.0,
+                   help="EMA decay for generator params (0 = off); exported "
+                        "to disc_params.npz as J_ema/D_ema/S_ema")
+
+
+def add_data_flags(p: argparse.ArgumentParser):
+    g = p.add_argument_group("data (real tuning curves)")
+    g.add_argument("--dataset", type=str, default=None,
+                   help=".npz/.npy/.mat tuning-curve dataset; if omitted, a "
+                        "fake-truth dataset is generated from --true-J/D/S")
+    g.add_argument("--true-J", type=float, nargs=4, default=None)
+    g.add_argument("--true-D", type=float, nargs=4, default=None)
+    g.add_argument("--true-S", type=float, nargs=4, default=None)
+    g.add_argument("--truth-samples", type=int, default=1024,
+                   help="fake-truth dataset size")
+    g.add_argument("--truth-seed", type=int, default=42)
+    g.add_argument("--truth-batch", type=int, default=64,
+                   help="circuits per fake-truth solver batch")
+    g.add_argument("--truth-tries-factor", type=int, default=4,
+                   help="abort fake-truth generation below ~1/factor "
+                        "per-circuit yield")
+
+
+def critic_input_scales(args, gen_cfg, dataset, conditional):
+    """Critic input-normalization scales from the dataset: honors
+    ``--normalize-per-condition`` (conditional runs only) and
+    ``--normalize-input`` / ``--normalize-input-mode`` (an explicit mode
+    implies the switch; ``args`` is updated in place so info.json records
+    what ran). Returns ``(input_scale, cond_input_scale)``, flat tuples or
+    None."""
+    if getattr(args, "normalize_input_mode", None) is not None:
+        args.normalize_input = True
+    per_cond = getattr(args, "normalize_per_condition", None)
+    if per_cond is not None and not conditional:
+        raise SystemExit(
+            "--normalize-per-condition requires a conditional run; for the "
+            "unconditional critic use --normalize-input "
+            "[--normalize-input-mode std]")
+    input_scale = None
+    cond_input_scale = None
+    tc = dataset.tc.detach().cpu().numpy()
+    if conditional and per_cond is not None:
+        tc = tc.reshape(dataset.num_samples, gen_cfg.n_stim, gen_cfg.n_probe)
+        denom = tc.std(axis=0) if per_cond == "std" else \
+            np.abs(tc.mean(axis=0))
+        # floor at 5% of the global TC magnitude: near-silent conditions
+        # would otherwise amplify pure noise
+        floor = 0.05 * float(np.abs(tc).mean())
+        sp_scale = 1.0 / np.maximum(denom, max(floor, 1e-6))
+        feats = gen_cfg.condition_features().numpy()
+        tag_scale = 1.0 / np.maximum(np.abs(feats).max(axis=0), 1e-6)
+        cond_input_scale = tuple(
+            float(s) for s in np.concatenate([sp_scale.ravel(), tag_scale]))
+    elif getattr(args, "normalize_input", False):
+        if getattr(args, "normalize_input_mode", "mean") == "std":
+            floor = 0.05 * float(np.abs(tc).mean())
+            scale = 1.0 / np.maximum(tc.std(axis=0), max(floor, 1e-6))
+        else:
+            scale = 1.0 / np.maximum(np.abs(tc.mean(axis=0)), 1e-6)
+        if conditional:
+            probe_scale = scale.reshape(gen_cfg.n_stim,
+                                        gen_cfg.n_probe).mean(axis=0)
+            scale = np.concatenate([probe_scale, np.ones(2)])
+        input_scale = tuple(float(s) for s in scale)
+    return input_scale, cond_input_scale
+
+
+def contrast_cond_weight(args, conditional):
+    """Per-condition loss weights from ``--contrast-weights`` (conditional
+    runs), expanded across bandwidths in the battery's contrast-major
+    order and normalized to mean 1; None otherwise."""
+    if not (conditional and getattr(args, "contrast_weights", None)):
+        return None
+    cw = np.asarray(args.contrast_weights, dtype=np.float64)
+    if cw.shape[0] != len(args.contrasts):
+        raise SystemExit(
+            f"--contrast-weights needs {len(args.contrasts)} values "
+            f"(one per --contrasts entry), got {cw.shape[0]}")
+    per_stim = np.repeat(cw, len(args.bandwidths))
+    per_stim = per_stim / per_stim.mean()
+    return tuple(float(w) for w in per_stim)
 
 
 def ssn_config_from_args(args) -> SSNConfig:
@@ -175,3 +351,28 @@ def generator_config_from_args(args, solver: str) -> GeneratorConfig:
 
 def as22(flat) -> tuple:
     return ((flat[0], flat[1]), (flat[2], flat[3]))
+
+
+def resolve_true_params(args):
+    tj = as22(args.true_J) if args.true_J else DEFAULT_J
+    td = as22(args.true_D) if args.true_D else DEFAULT_D
+    ts = as22(args.true_S) if args.true_S else DEFAULT_S
+    return tj, td, ts
+
+
+def load_or_generate_dataset(args, gen_cfg: GeneratorConfig, device=None):
+    """Real tuning curves on ``device``: from file, or fake truth solved at
+    the known params (``--true-J/D/S``) on that device."""
+    from tcgan_torch.data.datasets import (
+        TuningCurveDataset, generate_fake_truth, load_tuning_curves,
+    )
+
+    if args.dataset:
+        arr = load_tuning_curves(args.dataset)
+    else:
+        tj, td, ts = resolve_true_params(args)
+        arr = generate_fake_truth(
+            gen_cfg, tj, td, ts, args.truth_samples, seed=args.truth_seed,
+            batch=args.truth_batch, tries_factor=args.truth_tries_factor,
+            device=device)
+    return TuningCurveDataset.from_array(arr, device=device)

@@ -1,0 +1,129 @@
+"""Shared main() logic of the WGAN entry points.
+
+Port of :mod:`tcgan_tpu.run.gan_common`, the unconditional path: load or
+generate the real data, build the WGAN config, init or resume the state and
+run the driver. ``--parallel mesh`` and the conditional WGAN are not ported
+yet and raise ``NotImplementedError`` naming their ROADMAP items.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from tcgan_torch.run import common
+
+
+def make_gan_parser(doc: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description=doc, formatter_class=argparse.RawDescriptionHelpFormatter)
+    common.add_ssn_flags(p)
+    common.add_stimulus_flags(p)
+    common.add_gan_flags(p)
+    common.add_data_flags(p)
+    common.add_run_flags(p)
+    return p
+
+
+def run_gan(args, solver: str, conditional: bool) -> int:
+    from tcgan_torch.models import generator as gen_lib
+    from tcgan_torch.models import wgan as wgan_lib
+    from tcgan_torch.ops.cuda import ssn_solve
+    from tcgan_torch.train.checkpoint import CheckpointManager
+    from tcgan_torch.train.datastore import DataStore
+    from tcgan_torch.train.driver import DriverConfig, GANDriver
+    from tcgan_torch.utils.profiling import maybe_trace
+
+    if args.parallel == "mesh":
+        raise NotImplementedError(
+            "--parallel mesh is not ported yet (ROADMAP Queue 1, item 20, "
+            "parallel/mesh.py)")
+    if conditional:
+        raise NotImplementedError(
+            "the conditional WGAN is not ported yet (ROADMAP Queue 1, item "
+            "14, models/cwgan.py)")
+    if solver != "ift":
+        raise NotImplementedError(
+            f"solver {solver!r} is not ported yet (ROADMAP Queue 1, "
+            "ops/euler.py and run/bptt_wgan.py)")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device is "
+                           "visible (there is no CPU fallback; pass "
+                           "--device cpu to run on the CPU)")
+    gen_cfg = common.generator_config_from_args(args, solver=solver)
+
+    # real data first (also needed for the input-normalization scale)
+    launches0 = ssn_solve.launches
+    dataset = common.load_or_generate_dataset(args, gen_cfg, device=device)
+    truth_launches = ssn_solve.launches - launches0
+    input_scale, _ = common.critic_input_scales(args, gen_cfg, dataset,
+                                                conditional)
+    cfg = wgan_lib.WGANConfig(
+        gen=gen_cfg,
+        input_scale=input_scale,
+        critic_lr_decay_steps=args.critic_lr_decay_steps,
+        critic_layers=tuple(args.disc_layers),
+        batch_size=args.batch_size,
+        gp_lambda=args.gp_lambda,
+        n_critic=args.n_critic,
+        n_critic0=args.n_critic0,
+        lr_gen=args.lr_gen,
+        lr_critic=args.lr_critic,
+        beta1=args.adam_beta1,
+        beta2=args.adam_beta2,
+        rate_cost=args.rate_cost,
+        clip_grad=args.clip_grad,
+        lr_decay_steps=args.lr_decay_steps,
+        lr_decay_rate=args.lr_decay_rate,
+        gen_lr_floor=args.gen_lr_floor,
+        gen_lr_switch_step=args.gen_lr_switch_step,
+        gen_lr_switch_residual=args.gen_lr_switch_residual,
+        gen_lr_switch_min_step=args.gen_lr_switch_min_step,
+        ema_decay=args.gen_ema,
+        reject_unconverged=args.reject_unconverged,
+        moment_anchor=args.moment_anchor,
+        moment_ema=args.anchor_ema,
+        anchor_ema_late=args.anchor_ema_late,
+        anchor_ema_switch_step=args.anchor_ema_switch_step,
+        anchor_ema_switch_drift=args.anchor_ema_switch_drift,
+        anchor_ema_switch_vel=args.anchor_ema_switch_vel,
+        anchor_drift_ema=args.anchor_drift_ema,
+        anchor_beta1=args.anchor_beta1,
+        anchor_updates=args.anchor_updates,
+        seed=args.seed,
+    )
+
+    store = DataStore(args.datastore)
+    extra = {"kernel_launches_fake_truth": truth_launches}
+    if args.solver_backend == "cuda":
+        extra["kernel_precision"] = ssn_solve.KERNEL_PRECISION
+    store.write_info({"entry": "wgan", "solver": solver, **vars(args)},
+                     extra=extra)
+    driver_cfg = DriverConfig(
+        n_steps=args.n_steps,
+        checkpoint_every=args.checkpoint_every,
+        tc_mean_every=args.tc_mean_every,
+        timing_every=args.timing_every,
+        divergence_abort=args.divergence_abort,
+        divergence_patience=args.divergence_patience,
+        seed=args.seed,
+        adaptive_max_iter=(args.adaptive_max_iter == "on"),
+        adaptive_margin=args.adaptive_margin,
+    )
+    gen_init = gen_lib.init_params(
+        cfg.gen, common.as22(args.J), common.as22(args.D),
+        common.as22(args.S), device=device)
+    state = wgan_lib.init_state(
+        cfg, gen_init=gen_init,
+        data_moments=dataset.moments() if cfg.moment_anchor > 0 else None)
+    ckpt = CheckpointManager(store.subdir("ckpt"))
+    if args.resume and ckpt.latest_step() is not None:
+        state = ckpt.restore(state)
+    driver = GANDriver(cfg, driver_cfg, store, wgan_lib.train_step, state,
+                       dataset.sample_stack, checkpoints=ckpt,
+                       gen_loss_fn=wgan_lib.gen_loss_fn)
+    with maybe_trace(args.profile_dir):
+        driver.run()
+    return 0

@@ -1,1 +1,1 @@
-"""Run plumbing: datastore (run directory and ``info.json``)."""
+"""Run plumbing: datastore, recorder streams, checkpoints, the GAN driver."""

@@ -1,9 +1,10 @@
 """Run-directory management: datastore and run manifest.
 
-Port of :mod:`tcgan_tpu.train.datastore`: creates the run directory and
+Port of :mod:`tcgan_tpu.train.datastore`: creates the run directory,
 writes ``info.json`` (config, git revision, library versions, timing)
-atomically. The error taxonomy (``KnownError``) comes with the training
-driver.
+atomically, and defines the ``KnownError`` taxonomy of recoverable
+numerical failures (pervasive SSN divergence aborts a run as a
+``KnownError``, not a crash).
 """
 
 from __future__ import annotations
@@ -16,6 +17,15 @@ import sys
 import time
 from pathlib import Path
 from typing import Any, Dict
+
+
+class KnownError(Exception):
+    """A recoverable, expected failure mode (numerical divergence etc.)."""
+
+
+class PervasiveDivergenceError(KnownError):
+    """Raised when SSN divergence exceeds the tolerated rate for several
+    consecutive steps."""
 
 
 def _git_revision(repo_root: Path) -> str:

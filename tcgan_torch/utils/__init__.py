@@ -1,1 +1,1 @@
-"""Shared utilities (timing)."""
+"""Shared utilities (timing, profiler traces)."""

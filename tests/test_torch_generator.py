@@ -136,14 +136,23 @@ def test_params_config_and_penalty_match_jax():
         float(jgen.rate_penalty(jcfg, jnp.asarray(rates))), rtol=1e-12)
 
 
+def test_gradients_flow_through_the_fixed_point():
+    """solver="ift": the parameters get gradients through the implicit
+    solve (parity with the reference: tests/test_torch_wgan.py)."""
+    _, tcfg = _configs("xla", "plain")
+    params = {k: v.clone().requires_grad_() for k, v in
+              tgen.init_params(tcfg, J, D, S).items()}
+    z = np.random.default_rng(5).standard_normal((B, 12, 12))
+    out = tgen.sample_tuning_curves(tcfg, params, B, z=z)
+    out.tc.sum().backward()
+    for v in params.values():
+        assert torch.isfinite(v.grad).all() and v.grad.abs().max() > 0
+
+
 def test_unported_paths_raise():
     _, tcfg = _configs("xla", "plain")
     params = tgen.init_params(tcfg, J, D, S)
     z = np.zeros((B, 12, 12))
-    # no silent gradient-free rates: IFT gradients are not ported yet
-    grad_params = {k: v.clone().requires_grad_() for k, v in params.items()}
-    with pytest.raises(NotImplementedError, match="ops/ift.py"):
-        tgen.sample_tuning_curves(tcfg, grad_params, B, z=z)
     with pytest.raises(NotImplementedError, match="ops/euler.py"):
         tgen.sample_tuning_curves(dataclasses.replace(tcfg, solver="bptt"),
                                   params, B, z=z)

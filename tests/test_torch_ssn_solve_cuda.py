@@ -120,6 +120,21 @@ def test_cuda_tensor_never_falls_back(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_blocks_per_sm_fits_shared_memory(cuda_device):
+    """The runtime's occupancy figure at the GAN battery (2N=102, S=16): at
+    least one block per SM, no more than the SM's shared memory holds, and
+    Anderson's extra planes never raise it."""
+    per_sm = getattr(torch.cuda.get_device_properties(cuda_device),
+                     "shared_memory_per_multiprocessor", None)
+    n = {accel: ssn_solve.blocks_per_sm(102, 16, accel, cuda_device)
+         for accel in (False, True)}
+    assert 1 <= n[True] <= n[False]
+    if per_sm:
+        for accel, blocks in n.items():
+            assert blocks * ssn_solve.smem_bytes(102, 16, accel) <= per_sm
+
+
+@pytest.mark.cuda
 def test_solve_any_cuda_backend_launches(cuda_device):
     from tcgan_torch.ops import fixed_point
 
