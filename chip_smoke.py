@@ -9,11 +9,19 @@ no result line):
 
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build the SSN solver kernel (``tcgan_torch/csrc/ssn_solve.cu``) with nvcc;
-3. kernel against its plain PyTorch version on the card, at the forward
-   slice's full width (N=51, 8-stimulus battery, 512 circuits), then at 32
-   circuits for each io type, the expo stepper, feedforward init,
-   Anderson(1), a ragged batch and a batch of hard divergers; median times
-   of the kernel and the plain version at 512 circuits;
+3. kernel against its plain PyTorch version on the card at the shapes of
+   the main paths (``tcgan_torch/tools/ssn_solve_ab.py::SHAPES``: N=51 with
+   the 8-stimulus battery at 512 and 32 circuits, the 16-stimulus GAN
+   battery at 256 circuits and atol 1e-5) and at the shared-memory limit
+   (2N=224, 8 stimuli), each with its time (median of 5), its bound from
+   the run's own iters (the mat-vec as 3 TF32 passes at the tensor cores'
+   peak; the fp32-peak figure beside), the share of that bound and the
+   slowest circuit's time per substep; then 2N=224 with the slice's J and
+   D unscaled, where a row outside rtol/atol is held to the fp32
+   trajectory at its own iters (the float64 solve printed beside); then at
+   32 circuits for each io type, the expo stepper, feedforward init,
+   Anderson(1), a ragged batch and a batch of hard divergers; the plain
+   version's time at 512 circuits;
 4. the serving path: ``python -m tcgan_torch.run.forward`` (through its
    ``main``) with the CUDA backend, 8 batches of 512 circuits, checked for
    launches, shapes, convergence and agreement with the plain solver; then
@@ -48,28 +56,23 @@ import dataclasses
 import json
 import math
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
 
-# The forward slice's benchmark circuit: N=51 sites per population, the
-# 8-bandwidth battery at contrast 10, 512 circuits per solve.
-SLICE_SSN = dict(N=51, k=0.01, n=2.2, dt=5e-4, max_iter=8000, atol=1e-4)
-SLICE_J = (0.045, 0.04, 0.05, 0.035)
-SLICE_D = (0.1, 0.08, 0.1, 0.08)
-SLICE_S = (0.25, 0.1, 0.25, 0.1)
-BANDWIDTHS = (0.0, 0.0625, 0.125, 0.1875, 0.25, 0.5, 0.75, 1.0)
-CONTRAST = 10.0
+from tcgan_torch.tools import ssn_solve_ab as ab
+from tcgan_torch.tools.ssn_solve_ab import (ATOL, BANDWIDTHS, CHECK_EVERY,
+                                            CONTRAST, RTOL, SLICE_D, SLICE_J,
+                                            SLICE_S, SLICE_SSN)
+from tcgan_torch.tools.ssn_solve_ab import card as _card
+from tcgan_torch.tools.ssn_solve_ab import median_ms as _median_ms
+
+# The forward slice's benchmark circuit (``ssn_solve_ab``: N=51 sites per
+# population, the 8-bandwidth battery at contrast 10), 512 circuits per
+# solve.
 BATCH = 512
-CHECK_EVERY = 32
 SEED = 0
-# Kernel against plain version: flags equal; rates of converged rows within
-# the kernel-vs-reference tolerance of tests/test_pallas_solver.py; iters
-# within two check strides (the summation order of the mat-vec differs, so
-# the atol crossing can land one chunk apart).
-RTOL, ATOL = 1e-4, 1e-5
 
 # The round-2 GAN fit (BASELINE.md "Round-2 GAN fit"): N=51, 8 bandwidths x
 # contrasts (5, 10), 256 circuits per batch, fake truth at TRUE_*, the
@@ -92,48 +95,11 @@ def _line(*parts):
     print(*parts, flush=True)
 
 
-def _card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
-def _median_ms(fn, reps: int = 5) -> float:
-    import torch
-
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def _slice_problem(batch, cfg, contrasts=(CONTRAST,)):
-    import torch
-
-    from tcgan_torch.ops import stimulus, weights
-
-    dev = torch.device("cuda")
-    as22 = lambda v: torch.tensor(v, device=dev).reshape(2, 2)  # noqa: E731
-    gen = torch.Generator(dev).manual_seed(SEED)
-    z = weights.sample_z(gen, (batch,), cfg.N, device=dev)
-    x = cfg.site_pos(device=dev)
-    W = weights.build_weight(as22(SLICE_J), as22(SLICE_D), as22(SLICE_S),
-                             z, x)
-    I = stimulus.stimulus_battery(BANDWIDTHS, contrasts, x, cfg.smoothness)
-    return W, I
-
-
 def _compare(name, cfg, W, I, check_every, accel=False):
-    """Kernel against plain on the same inputs; returns max |dr| on rows
-    both converged."""
+    """Kernel against plain on the same inputs: flags equal, rates of rows
+    both converged within RTOL/ATOL, iters within two check strides (the
+    mat-vec's summation order differs, so the atol crossing can land one
+    chunk apart); returns max |dr| on rows both converged."""
     import torch
 
     from tcgan_torch.ops.cuda import ssn_solve
@@ -193,18 +159,122 @@ def phase_build():
     _line(res.log.strip())
 
 
+def _wide_witness(card: str) -> None:
+    """The shared-memory path (2N=224, S=8) at the slice's own J and D, not
+    scaled to N=112: a third of the rows diverge and some converge so slowly
+    that the chunk at which |delta| crosses atol depends on the order of
+    the sums, and a row stopped one chunk later has moved on by more than
+    rtol 1e-4. The kernel must give the fp32 plain solve's flags and iters
+    within two strides, and every row whose rates differ from it beyond
+    rtol/atol must agree with the plain fp32 trajectory run to the kernel's
+    own iteration count for that row (atol 0): then the kernel computed
+    the trajectory right and stopped it one chunk apart. The float64 plain
+    solve's difference from the fp32 one on the same rows is printed
+    beside."""
+    import torch
+
+    from tcgan_torch.ops import fixed_point
+    from tcgan_torch.ops.cuda import ssn_solve
+
+    c, W, I = ab.problem(ab.WIDE_BATCH, (CONTRAST,), {}, N=ab.WIDE_N,
+                         seed=SEED, rescale=False)
+    out = ssn_solve.solve_fixed_point_cuda(c, W, I, CHECK_EVERY)
+    p32 = ssn_solve.solve_fixed_point_plain(c, W, I, CHECK_EVERY)
+    p64 = fixed_point.solve_fixed_point(c, W.double(), I.double(),
+                                        check_every=CHECK_EVERY)
+    torch.cuda.synchronize()
+    n_flag = int((out.converged != p32.converged).sum()
+                 + (out.diverged != p32.diverged).sum())
+    n_flag64 = int((p64.converged != p32.converged).sum()
+                   + (p64.diverged != p32.diverged).sum())
+    d_iters = int((out.iters.long() - p32.iters.long()).abs().max())
+    tol = ATOL + RTOL * p32.r.abs()
+    both = out.converged & p32.converged
+    bad = both & ((out.r - p32.r).abs() > tol).any(-1)
+    _line(f"[kernel] wide 2N=224 S=8 unscaled J, D: B={ab.WIDE_BATCH} "
+          f"conv={float(out.converged.float().mean()):.4f} "
+          f"div={float(out.diverged.float().mean()):.4f} "
+          f"flag_mismatch={n_flag} (f64 plain vs fp32 plain: {n_flag64}) "
+          f"max_d_iters={d_iters}(limit {2 * CHECK_EVERY}) "
+          f"rows_out_of_tol={int(bad.sum())}")
+    unexplained = 0
+    for b, s_ in bad.nonzero().tolist():
+        it = int(out.iters[b, s_])
+        rerun = ssn_solve.solve_fixed_point_plain(
+            dataclasses.replace(c, atol=0.0, max_iter=it), W[b:b + 1],
+            I[s_:s_ + 1], CHECK_EVERY).r[0, 0]
+        d_same = float((out.r[b, s_] - rerun).abs().max())
+        ok = bool(((out.r[b, s_] - rerun).abs() <= tol[b, s_]).all())
+        unexplained += not ok
+        _line(f"[kernel]   row (circuit {b}, stimulus {s_}): iters kernel "
+              f"{it} fp32 {int(p32.iters[b, s_])} f64 "
+              f"{int(p64.iters[b, s_])} (f64 converged "
+              f"{bool(p64.converged[b, s_])}); max |dr| kernel vs fp32 "
+              f"{float((out.r[b, s_] - p32.r[b, s_]).abs().max()):.3e}, "
+              f"f64 vs fp32 "
+              f"{float((p64.r[b, s_].float() - p32.r[b, s_]).abs().max()):.3e}"
+              f", kernel vs fp32 run to {it} substeps {d_same:.3e} "
+              f"({'within' if ok else 'OUTSIDE'} rtol {RTOL} atol {ATOL}; "
+              f"{card})")
+    if n_flag:
+        raise AssertionError(f"wide unscaled: {n_flag} flags differ")
+    if d_iters > 2 * CHECK_EVERY:
+        raise AssertionError(f"wide unscaled: iters differ by {d_iters}")
+    if unexplained:
+        raise AssertionError(f"wide unscaled: {unexplained} rows differ from "
+                             f"the fp32 trajectory at their own iters")
+
+
 def phase_kernel(card: str) -> dict:
     import torch
 
     from tcgan_torch.ops.cuda import ssn_solve
     from tcgan_torch.ops.ssn import SSNConfig
 
-    cfg = SSNConfig(**SLICE_SSN)
-    W, I = _slice_problem(BATCH, cfg)
-    out, max_err = _compare("slice", cfg, W, I, CHECK_EVERY)
+    # The main paths' shapes and the shared-memory limit (2N=224, S=8, the
+    # slice's circuit with J and D scaled to N=112): agreement with the
+    # plain version, then the kernel's time against its bound from this
+    # run's iters (3 TF32 passes at the tensor cores' peak; the same
+    # arithmetic at the fp32 peak beside it), and the slowest circuit's
+    # time per substep (launch time / max iters).
+    shapes = [(name, batch, contrasts, kw, SLICE_SSN["N"])
+              for name, (batch, contrasts, kw) in ab.SHAPES.items()]
+    shapes.append(("wide 2N=224 S=8", ab.WIDE_BATCH, (CONTRAST,), {},
+                   ab.WIDE_N))
+    rows, max_err, fwd = [], 0.0, None
+    for name, batch, contrasts, kw, N in shapes:
+        c, Wk, Ik = ab.problem(batch, contrasts, kw, N=N, seed=SEED)
+        out, err = _compare(name, c, Wk, Ik, CHECK_EVERY)
+        fwd = fwd or (c, Wk, Ik, out)
+        max_err = max(max_err, err)
+        ms = _median_ms(lambda: ssn_solve.solve_fixed_point_cuda(
+            c, Wk, Ik, CHECK_EVERY))
+        bound_ms, bound_by = ab.bound(Wk, Ik, out.iters)
+        fp32_ms = 1e3 * ab.matvec_flops(Wk, out.iters) / ab.PEAK_FP32_FLOPS
+        max_iters = int(out.iters.max())
+        rows.append({"shape": name, "B": batch, "S": Ik.shape[0],
+                     "2N": Wk.shape[-1], "atol": c.atol, "ms": ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "share_of_bound": bound_ms / ms,
+                     "fp32_bound_ms": fp32_ms,
+                     "max_iters": max_iters,
+                     "us_per_substep_slowest": 1e3 * ms / max_iters,
+                     "max_abs_err": err})
+        _line(f"[time] ssn_solve {name} (2N={Wk.shape[-1]}, atol {c.atol}): "
+              f"kernel {ms:.3f} ms (median of 5), bound {bound_ms:.4f} ms "
+              f"({bound_by}: 3xTF32 at {ab.PEAK_TF32_FLOPS:.3g} FLOP/s; "
+              f"sum iters {int(out.iters.sum())}), share "
+              f"{bound_ms / ms:.4f}; at the fp32 peak "
+              f"{ab.PEAK_FP32_FLOPS:.3g} FLOP/s {fp32_ms:.4f} ms, share "
+              f"{fp32_ms / ms:.4f}; slowest circuit "
+              f"{1e3 * ms / max_iters:.3f} us per substep over {max_iters} "
+              f"iters ({card})")
+    _wide_witness(card)
 
-    # soft bounds under the slice's peak rate, so the saturating branches
-    # of asym_tanh and asym_linear are exercised
+    # variants on the forward slice (N=51, S=8); soft bounds under the
+    # slice's peak rate, so the saturating branches of asym_tanh and
+    # asym_linear are exercised
+    cfg, W, I, out = fwd
     soft = float(out.r.max()) / 4
     Ws = W[:32].contiguous()
     variants = {
@@ -235,16 +305,19 @@ def phase_kernel(card: str) -> dict:
     if not bool(out.diverged.all()) or float(out.r.max()) > 10 * 200.0:
         raise AssertionError("diverge: not all diverged under the ceiling")
 
-    ms = _median_ms(lambda: ssn_solve.solve_fixed_point_cuda(
-        cfg, W, I, CHECK_EVERY))
+    fwd_row = rows[0]
     plain_ms = _median_ms(lambda: ssn_solve.solve_fixed_point_plain(
         cfg, W, I, CHECK_EVERY))
-    _line(f"[time] ssn_solve B={BATCH} S={I.shape[0]} N={cfg.N}: kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms (median of 5; {card})")
+    _line(f"[time] ssn_solve B={W.shape[0]} S={I.shape[0]} N={cfg.N}: "
+          f"kernel {fwd_row['ms']:.3f} ms, plain {plain_ms:.3f} ms (median "
+          f"of 5; {card})")
     return {"name": "ssn_solve", "route": "cuda",
             "source": "tcgan_torch/csrc/ssn_solve.cu",
             "replaces": "tcgan_tpu/ops/pallas/ssn_solve.py:82",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": max_err, "ms": fwd_row["ms"],
+            "plain_ms": plain_ms, "bound_ms": fwd_row["bound_ms"],
+            "bound_by": fwd_row["bound_by"],
+            "library_ms": None, "shapes": rows}
 
 
 def _forward_argv(datastore, contrasts, total):

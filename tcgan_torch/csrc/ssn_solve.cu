@@ -14,34 +14,72 @@
 // map, with the same safeguards as the lockstep solver
 // (tcgan_torch/ops/fixed_point.py).
 //
-// Design. One thread block per circuit loops until all S rows of that
-// circuit resolve or max_iter is reached (per-circuit early exit). W stays
-// resident in shared memory, transposed (Wt[j * n2 + i] = W[i, j]), for the
-// whole solve, so each substep reads W from shared memory and never from
-// HBM. Thread i owns neuron i of every row: it accumulates u[s, i] for
-// kRowChunk rows at once, so one shared load of W[i, j] feeds kRowChunk
-// FMAs, and the rates are read as broadcast float4 (rows padded to ld, a
-// multiple of 4, with zeros). The rates are double-buffered, so a substep
-// costs one __syncthreads. Every substep runs in fp32 on CUDA cores; the
-// io function uses exact expf/logf/tanhf (build without --use_fast_math:
-// the flags at the atol crossing depend on them).
+// What bounds it. The work is 2 (2N)^2 FLOP per row and substep, summed
+// over the substeps each row needs (4.05e10 FLOP at N=51, S=8, B=512 with
+// mean 475 iterations). The kernel runs it as 3 TF32 products (3xTF32,
+// below), 1.2e11 FLOP: 0.245 ms at the 495 TFLOP/s dense TF32 peak of the
+// tensor cores, the bound chip_smoke.py reports (the 4.05e10 FLOP at the 67
+// TFLOP/s fp32 peak outside them would take 0.60 ms). Device-memory
+// traffic is O(W + r) per solve (~23 MB there, ~7 us), so the bound is the
+// arithmetic. A block runs until its slowest row resolves (1,100-1,800
+// substeps against a mean of 475), so the launch time is the slowest
+// circuit's substep latency times its substeps: at small B, where most SMs
+// idle, that latency is all there is; at B=512 two blocks share an SM and
+// the batch runs in two waves.
 //
-// What bounds it: a small latency- and sync-bound mat-vec per substep
-// (2N x 2N by S rows, ~83k FMAs at N=51, S=8), read from shared memory;
-// HBM traffic is O(W) per solve instead of O(iters * W).
+// Design. One thread block per circuit loops until all S rows of that
+// circuit resolve or max_iter is reached. Per substep the block computes
+// U = W R^T (neurons x rows) on the tensor cores with warp-level
+// mma.sync.m16n8k8 TF32 (not wgmma: the tiles are tiny and each substep is
+// a short dependent chain): each warp owns one m16 slab of neurons (2N=102:
+// 7 warps) and every n8 tile of rows, so no sum crosses a warp. The io
+// function (on the fragment's four elements at once, so that their exp/log
+// chains overlap), the step gain, the ceiling clamp and the chunk's |delta|
+// are computed on the accumulator fragments; the new rates go to the other
+// rate buffer, one __syncthreads per substep. An n8 tile whose rows have all
+// resolved is skipped. W is loaded once per solve. Up to 2N=112 (N=51
+// included) the high TF32 parts of each thread's W fragments stay in
+// registers (56) and shared memory holds the low parts, so a k-step costs
+// four shared loads for W and no arithmetic; two blocks fit an SM (128
+// registers). Past 2N=112 the high parts would not fit beside the rest (4
+// registers per k-step, 112 at 2N=224), so shared memory holds W in fp32
+// and each fragment is split as it is loaded; storing hi and lo planes
+// would halve the largest N.
+//
+// Where the time goes: a substep is a chain of 13-14 dependent k-steps of
+// three mma.sync each per n8 tile, then the io function's exact exp/log on
+// the fragments, then the barrier; the slowest circuit's substep takes
+// 1.8-3.3 us on an H100 at 700 W against 3.9-5.9 us for the fp32
+// CUDA-core kernel this design replaced (PERF.md), far from the
+// bound: the mma chain's latency and issue rate, not its FLOP, set it.
+//
+// Precision: 3xTF32. Each operand x is split into x_hi = rna_tf32(x) and
+// x_lo = rna_tf32(x - x_hi); hi*hi, hi*lo and lo*hi go to three fp32
+// accumulators (three independent mma chains), summed as hh + (hl + lh) at
+// the end. One TF32 pass is not enough: at N=51, 16 circuits, the 16-row
+// GAN battery and atol 1e-5, the lockstep solver with that rounding
+// changes 38 flags and leaves 14.8% of the rows unconverged (iterations off
+// by up to 9,520), where 3xTF32 changes none (max |dr| 7.4e-6, iterations
+// within one check stride; tests/test_torch_ssn_solve_tf32.py replays both
+// on the CPU). On the card the kernel gives the fp32 lockstep solver's
+// flags at every shape tested. The io function uses exact expf/logf/tanhf
+// (build without --use_fast_math: the flags at the atol crossing depend on
+// them).
 //
 // Shared-memory layout (floats, then ints), mirrored by
 // tcgan_torch/ops/cuda/ssn_solve.py::smem_bytes:
-//   Wt   ld * n2        transposed weights, rows j >= n2 zero
-//   Is   rows * ld      stimulus battery
-//   rA   rows * ld      rates, double buffer
+//   Ws   n2 * ld       weights, row-major (Ws[i * ld + j] = W[i, j])
+//   Is   rows * ld     stimulus battery
+//   rA   rows * ld     rates, double buffer
 //   rB   rows * ld
-//   dab  rows * ld      |delta| of the chunk's last substep
 //   [accel] rst, rip, fpv  rows * ld each: chunk input, previous chunk
 //                          input, previous chunk displacement
 //   flag S ints (0 active, 1 converged, 2 diverged), iters S ints,
-//   n_active 1 int
-// with ld = round_up(n2, 4) and rows = round_up(S, kRowChunk).
+//   err rows ints (max |delta| of the chunk's last substep, as float bits),
+//   live rows / 8 ints (active rows per n8 tile), n_active 1 int
+// with rows = round_up(S, 8) and ld the least stride >= n2 that is 4 mod 8,
+// so the fragment loads and the rate stores hit 32 distinct banks
+// (round_up(n2, 4) where that padding would not fit).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -49,10 +87,18 @@
 
 namespace {
 
-constexpr int kRowChunk = 8;
+constexpr int kTileM = 16, kTileN = 8, kTileK = 8;  // mma.m16n8k8
+constexpr int kMaxGroupN = 4;  // n8 tiles a warp accumulates at once
+constexpr int kMaxThreads = 512;
+// Register path, 2N <= 8 * kRegK: the high TF32 parts of a warp's W
+// fragments stay in registers (4 per k-step) and shared memory holds the low
+// parts. Beyond, shared memory holds W in fp32 and each fragment is split as
+// it is loaded.
+constexpr int kRegK = 14;
+constexpr size_t kMaxSmemBytes = 232448;  // a block's dynamic shared memory on Hopper
 
 struct Params {
-  int n2, S, ld, rows;
+  int n2, S, ld, rows, ktiles, ntiles;
   int io_type;  // 0 asym_power, 1 asym_tanh, 2 asym_linear
   float k, n, r0, r1, u0, slope;
   float atol, rate_stop_at, ceiling;
@@ -93,41 +139,110 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__global__ void ssn_solve_kernel(const float* __restrict__ W,
-                                 const float* __restrict__ I,
-                                 const float* __restrict__ alpha,
-                                 float* __restrict__ r_out,
-                                 uint8_t* __restrict__ conv_out,
-                                 uint8_t* __restrict__ div_out,
-                                 int* __restrict__ iters_out, Params p) {
+// Round to TF32 (10-bit mantissa), to nearest, ties away from zero: what
+// cvt.rna.tf32.f32 computes for finite x, in two integer operations (the cvt
+// lowers to four, with a check for inf and NaN that finite rates never
+// need).
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo to about 21 bits: hi = rna_tf32(x), lo = rna_tf32(x - hi).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = rna_tf32(x);
+  lo = rna_tf32(x - __uint_as_float(hi));
+}
+
+// d += a (16x8, row) * b (8x8, col), TF32 inputs, fp32 accumulators.
+// Fragments (g = lane / 4, t = lane % 4): a = A[g][t], A[g+8][t], A[g][t+4],
+// A[g+8][t+4]; b = B[t][g], B[t+4][g]; d = D[g][2t], D[g][2t+1],
+// D[g+8][2t], D[g+8][2t+1].
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One k-step of U += W R^T for NT n8 tiles of rows in 3xTF32: the A
+// fragments (this warp's 16 neurons, 8 columns) come split; each B fragment
+// (rows g of the tiles, columns t and t + 4 from rb) is split here.
+// in4: column t + 4 lies inside 2N (else it reads as zero).
+template <int NT>
+__device__ __forceinline__ void mma_kstep(float (&hh)[NT][4], float (&hl)[NT][4],
+                                          float (&lh)[NT][4], const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], const float* rb,
+                                          int tile_stride, bool in4, const bool (&on)[NT]) {
+#pragma unroll
+  for (int q = 0; q < NT; ++q) {
+    if (!on[q]) continue;
+    uint32_t bh0, bl0, bh1, bl1;
+    split_tf32(rb[q * tile_stride], bh0, bl0);
+    split_tf32(in4 ? rb[q * tile_stride + 4] : 0.0f, bh1, bl1);
+    mma_tf32(hh[q], ah, bh0, bh1);
+    mma_tf32(hl[q], ah, bl0, bl1);
+    mma_tf32(lh[q], al, bh0, bh1);
+  }
+}
+
+// io_fun on four independent inputs in one straight line, so that their
+// exp/log chains overlap.
+__device__ __forceinline__ void io_fun4(const float (&u)[4], float (&f)[4], const Params& p) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) f[c] = power_io(u[c], p);
+  if (p.io_type == 1) {
+    const float d = p.r1 - p.r0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float arg = fminf(fmaxf(fmaxf(f[c] - p.r0, 0.0f) / d, 0.0f), 30.0f);
+      f[c] = f[c] <= p.r0 ? f[c] : p.r0 + d * tanhf(arg);
+    }
+  } else if (p.io_type == 2) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) f[c] = u[c] <= p.u0 ? f[c] : p.r0 + p.slope * (u[c] - p.u0);
+  }
+}
+
+// NT: n8 tiles of rows accumulated together (min(rows / 8, kMaxGroupN));
+// more rows are taken in groups of NT. kRegA: the register path, at most
+// kRegK / 2 warps, two blocks to an SM.
+template <int NT, bool kRegA>
+__global__ void __launch_bounds__(kRegA ? 32 * kRegK / 2 : kMaxThreads, kRegA ? 2 : 1)
+ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
+                 const float* __restrict__ alpha, float* __restrict__ r_out,
+                 uint8_t* __restrict__ conv_out, uint8_t* __restrict__ div_out,
+                 int* __restrict__ iters_out, Params p) {
   extern __shared__ float4 smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
   const int n2 = p.n2, S = p.S, ld = p.ld, rows = p.rows;
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.x;
   const size_t plane = (size_t)rows * ld;
 
-  float* Wt = smem;
-  float* Is = Wt + (size_t)ld * n2;
+  float* Ws = smem;
+  float* Is = Ws + (size_t)n2 * ld;
   float* cur = Is + plane;
   float* nxt = cur + plane;
-  float* dab = nxt + plane;
-  float* rst = dab + plane;  // the three Anderson planes exist only if accel
+  float* rst = nxt + plane;  // the three Anderson planes exist only if accel
   float* rip = rst + plane;
   float* fpv = rip + plane;
   int* flag = reinterpret_cast<int*>(p.accel ? fpv + plane : rst);
   int* iters = flag + S;
-  int* n_active = iters + S;
+  int* err = iters + S;
+  int* live = err + rows;
+  int* n_active = live + p.ntiles;
 
-  const size_t n_floats = (size_t)ld * n2 + plane * (p.accel ? 7 : 4);
+  const size_t n_floats = (size_t)n2 * ld + plane * (p.accel ? 6 : 3);
   for (size_t e = tid; e < n_floats; e += nthreads) smem[e] = 0.0f;
   __syncthreads();
 
   const float* Wb = W + (size_t)b * n2 * n2;
   for (int e = tid; e < n2 * n2; e += nthreads) {
     int i = e / n2, j = e - i * n2;
-    Wt[j * n2 + i] = Wb[e];
+    Ws[i * ld + j] = Wb[e];
   }
   for (int e = tid; e < S * n2; e += nthreads) {
     int s = e / n2, i = e - s * n2;
@@ -135,12 +250,46 @@ __global__ void ssn_solve_kernel(const float* __restrict__ W,
     Is[s * ld + i] = x;
     cur[s * ld + i] = p.init_ff ? io_fun(x, p) : 0.0f;
   }
-  for (int s = tid; s < S; s += nthreads) {
-    flag[s] = 0;
-    iters[s] = p.max_iter;
+  for (int s = tid; s < rows; s += nthreads) {
+    err[s] = 0;
+    if (s < S) {
+      flag[s] = 0;
+      iters[s] = p.max_iter;
+    }
   }
+  for (int q = tid; q < p.ntiles; q += nthreads) live[q] = min(kTileN, S - q * kTileN);
   if (tid == 0) *n_active = S;
-  const float a_i = tid < n2 ? alpha[tid] : 0.0f;
+
+  // This thread's two neurons of the warp's m16 slab (rows g and g + 8 of
+  // the accumulator fragment); neurons past n2 read W as zero and write
+  // nothing.
+  const int i0 = warp * kTileM + g, i1 = i0 + 8;
+  const bool in0 = i0 < n2, in1 = i1 < n2;
+  const float a0 = in0 ? alpha[i0] : 0.0f, a1 = in1 ? alpha[i1] : 0.0f;
+  float* w0 = Ws + (size_t)(in0 ? i0 : 0) * ld + t;
+  float* w1 = Ws + (size_t)(in1 ? i1 : 0) * ld + t;
+  __syncthreads();
+
+  // Register path: split this thread's W fragments once; the high parts
+  // stay in registers, the low parts replace W in shared memory (each
+  // element belongs to one thread, which alone reads and writes it).
+  uint32_t ahr[kRegA ? kRegK : 1][4];
+  if constexpr (kRegA) {
+#pragma unroll
+    for (int kt = 0; kt < kRegK; ++kt) {
+      const int j = kt * kTileK;
+      const bool live_k = kt < p.ktiles, in4 = j + t + 4 < n2;
+      float* wp[4] = {w0 + j, w1 + j, w0 + j + 4, w1 + j + 4};
+      const bool ok[4] = {live_k && in0, live_k && in1, live_k && in0 && in4,
+                          live_k && in1 && in4};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        uint32_t lo;
+        split_tf32(ok[c] ? *wp[c] : 0.0f, ahr[kt][c], lo);
+        if (ok[c]) *wp[c] = __uint_as_float(lo);
+      }
+    }
+  }
   __syncthreads();
 
   int it = 0;
@@ -148,53 +297,98 @@ __global__ void ssn_solve_kernel(const float* __restrict__ W,
   while (it < p.max_iter && *n_active > 0) {
     for (int sub = 0; sub < p.check_every; ++sub) {
       const bool last = sub == p.check_every - 1;
-      if (tid < n2) {
-        for (int s0 = 0; s0 < rows; s0 += kRowChunk) {
-          bool any = false;
-          for (int c = 0; c < kRowChunk && s0 + c < S; ++c) any |= flag[s0 + c] == 0;
-          if (!any) {
-            for (int c = 0; c < kRowChunk && s0 + c < S; ++c)
-              nxt[(s0 + c) * ld + tid] = cur[(s0 + c) * ld + tid];
-            continue;
+      for (int nb = 0; nb < p.ntiles; nb += NT) {
+        bool on[NT];
+        bool any = false;
+#pragma unroll
+        for (int q = 0; q < NT; ++q) {
+          on[q] = nb + q < p.ntiles && live[nb + q] > 0;
+          any |= on[q];
+        }
+        if (!any) continue;
+        float hh[NT][4], hl[NT][4], lh[NT][4];
+#pragma unroll
+        for (int q = 0; q < NT; ++q)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) hh[q][c] = hl[q][c] = lh[q][c] = 0.0f;
+
+        const float* rb = cur + (size_t)(nb * kTileN + g) * ld + t;
+        if constexpr (kRegA) {
+#pragma unroll
+          for (int kt = 0; kt < kRegK; ++kt) {
+            if (kt >= p.ktiles) break;
+            const int j = kt * kTileK;
+            const bool in4 = j + t + 4 < n2;  // the last k-step may pass n2
+            uint32_t al[4];
+            al[0] = in0 ? __float_as_uint(w0[j]) : 0u;
+            al[1] = in1 ? __float_as_uint(w1[j]) : 0u;
+            al[2] = in0 && in4 ? __float_as_uint(w0[j + 4]) : 0u;
+            al[3] = in1 && in4 ? __float_as_uint(w1[j + 4]) : 0u;
+            mma_kstep<NT>(hh, hl, lh, ahr[kt], al, rb + j, kTileN * ld, in4, on);
           }
-          float acc[kRowChunk];
-#pragma unroll
-          for (int c = 0; c < kRowChunk; ++c) acc[c] = 0.0f;
-          for (int j = 0; j < ld; j += 4) {
-            const float w0 = Wt[(j + 0) * n2 + tid];
-            const float w1 = Wt[(j + 1) * n2 + tid];
-            const float w2 = Wt[(j + 2) * n2 + tid];
-            const float w3 = Wt[(j + 3) * n2 + tid];
-#pragma unroll
-            for (int c = 0; c < kRowChunk; ++c) {
-              const float4 rv = *reinterpret_cast<const float4*>(cur + (s0 + c) * ld + j);
-              acc[c] = fmaf(w0, rv.x, acc[c]);
-              acc[c] = fmaf(w1, rv.y, acc[c]);
-              acc[c] = fmaf(w2, rv.z, acc[c]);
-              acc[c] = fmaf(w3, rv.w, acc[c]);
-            }
+        } else {
+#pragma unroll 2
+          for (int kt = 0; kt < p.ktiles; ++kt) {
+            const int j = kt * kTileK;
+            const bool in4 = j + t + 4 < n2;
+            uint32_t ah[4], al[4];
+            split_tf32(in0 ? w0[j] : 0.0f, ah[0], al[0]);
+            split_tf32(in1 ? w1[j] : 0.0f, ah[1], al[1]);
+            split_tf32(in0 && in4 ? w0[j + 4] : 0.0f, ah[2], al[2]);
+            split_tf32(in1 && in4 ? w1[j + 4] : 0.0f, ah[3], al[3]);
+            mma_kstep<NT>(hh, hl, lh, ah, al, rb + j, kTileN * ld, in4, on);
           }
+        }
+
 #pragma unroll
-          for (int c = 0; c < kRowChunk; ++c) {
-            const int s = s0 + c;
-            if (s >= S) break;
-            const int e = s * ld + tid;
-            const float r = cur[e];
-            if (flag[s] != 0) {
-              nxt[e] = r;
-              continue;
+        for (int q = 0; q < NT; ++q) {
+          if (!on[q]) continue;
+          // the fragment's four elements: neurons i0, i0, i1, i1 of rows
+          // s0, s0 + 1, s0, s0 + 1; computed branch-free, stored where the
+          // element exists and its row is active
+          const int s0 = (nb + q) * kTileN + 2 * t;
+          const bool row_on[2] = {s0 < S && flag[s0 < S ? s0 : 0] == 0,
+                                  s0 + 1 < S && flag[s0 + 1 < S ? s0 + 1 : 0] == 0};
+          int x[4];
+          bool act[4];
+          float r[4], u[4], f[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int i = c < 2 ? i0 : i1;
+            x[c] = (s0 + (c & 1)) * ld + (i < n2 ? i : n2 - 1);
+            act[c] = row_on[c & 1] && i < n2;
+            r[c] = cur[x[c]];
+            u[c] = hh[q][c] + (hl[q][c] + lh[q][c]) + Is[x[c]];
+          }
+          io_fun4(u, f, p);
+          float e[2] = {0.0f, 0.0f};  // max |delta| of rows s0, s0 + 1
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (!act[c]) continue;
+            const float d = f[c] - r[c];
+            if (p.accel && sub == 0) rst[x[c]] = r[c];
+            nxt[x[c]] = fminf(__fadd_rn(r[c], __fmul_rn(c < 2 ? a0 : a1, d)), p.ceiling);
+            e[c & 1] = fmaxf(e[c & 1], fabsf(d));
+          }
+          if (last) {
+            // max over the 8 lanes (g) that hold the same two columns
+            for (int o = 4; o < 32; o <<= 1) {
+              e[0] = fmaxf(e[0], __shfl_xor_sync(0xffffffffu, e[0], o));
+              e[1] = fmaxf(e[1], __shfl_xor_sync(0xffffffffu, e[1], o));
             }
-            if (p.accel && sub == 0) rst[e] = r;
-            const float d = io_fun(acc[c] + Is[e], p) - r;
-            nxt[e] = fminf(__fadd_rn(r, __fmul_rn(a_i, d)), p.ceiling);
-            if (last) dab[e] = fabsf(d);
+            if (g == 0) {
+              for (int h = 0; h < 2; ++h) {
+                const int s = (nb + q) * kTileN + 2 * t + h;
+                if (s < S && flag[s] == 0) atomicMax(err + s, __float_as_int(e[h]));
+              }
+            }
           }
         }
       }
       __syncthreads();
-      float* t = cur;
+      float* tmp = cur;
       cur = nxt;
-      nxt = t;
+      nxt = tmp;
     }
 
     // Chunk epilogue: one warp per row.
@@ -202,15 +396,12 @@ __global__ void ssn_solve_kernel(const float* __restrict__ W,
     for (int s = warp; s < S; s += nwarps) {
       if (flag[s] != 0) continue;
       float* rc = cur + s * ld;
-      float err = 0.0f, peak = -INFINITY;
-      for (int i = lane; i < n2; i += 32) {
-        err = fmaxf(err, dab[s * ld + i]);
-        peak = fmaxf(peak, rc[i]);
-      }
-      err = warp_max(err);
+      const float e = __int_as_float(err[s]);
+      float peak = -INFINITY;
+      for (int i = lane; i < n2; i += 32) peak = fmaxf(peak, rc[i]);
       peak = warp_max(peak);
       const bool newly_div = peak > p.rate_stop_at;
-      const bool newly_conv = !newly_div && err < p.atol;
+      const bool newly_conv = !newly_div && e < p.atol;
       const bool resolved = newly_div || newly_conv;
       if (p.accel) {
         float* r_in = rst + s * ld;
@@ -243,11 +434,19 @@ __global__ void ssn_solve_kernel(const float* __restrict__ W,
           f_prev[i] = fc;
         }
       }
-      if (lane == 0 && resolved) {
-        flag[s] = newly_div ? 2 : 1;
-        // the last chunk may overshoot max_iter by up to check_every - 1
-        // substeps; iters == max_iter keeps meaning "unresolved"
-        iters[s] = min(it_next, p.max_iter);
+      // a resolved row is frozen: both rate buffers hold its final rates,
+      // so the substeps need not copy it
+      if (resolved)
+        for (int i = lane; i < n2; i += 32) nxt[s * ld + i] = rc[i];
+      __syncwarp();
+      if (lane == 0) {
+        err[s] = 0;
+        if (resolved) {
+          flag[s] = newly_div ? 2 : 1;
+          // the last chunk may overshoot max_iter by up to check_every - 1
+          // substeps; iters == max_iter keeps meaning "unresolved"
+          iters[s] = min(it_next, p.max_iter);
+        }
       }
     }
     __syncthreads();
@@ -255,6 +454,11 @@ __global__ void ssn_solve_kernel(const float* __restrict__ W,
       int n = 0;
       for (int s = 0; s < S; ++s) n += flag[s] == 0;
       *n_active = n;
+    }
+    for (int q = tid; q < p.ntiles; q += nthreads) {
+      int n = 0;
+      for (int s = q * kTileN; s < min(S, (q + 1) * kTileN); ++s) n += flag[s] == 0;
+      live[q] = n;
     }
     it = it_next;
     ++nhist;
@@ -273,14 +477,45 @@ __global__ void ssn_solve_kernel(const float* __restrict__ W,
   }
 }
 
-size_t smem_bytes(int n2, int S, int accel) {
-  const size_t ld = round_up(n2, 4), rows = round_up(S, kRowChunk);
-  const size_t floats = ld * n2 + rows * ld * (accel ? 7 : 4);
-  return floats * sizeof(float) + (2 * (size_t)S + 1) * sizeof(int);
+using Kernel = void (*)(const float*, const float*, const float*, float*,
+                        uint8_t*, uint8_t*, int*, Params);
+
+template <bool kRegA>
+Kernel kernel_for_rows(int ntiles) {
+  switch (ntiles < kMaxGroupN ? ntiles : kMaxGroupN) {
+    case 1: return ssn_solve_kernel<1, kRegA>;
+    case 2: return ssn_solve_kernel<2, kRegA>;
+    case 3: return ssn_solve_kernel<3, kRegA>;
+    default: return ssn_solve_kernel<kMaxGroupN, kRegA>;
+  }
 }
 
-// One thread per neuron, whole warps.
-int block_threads(int n2) { return round_up(n2 > 32 ? n2 : 32, 32); }
+Kernel kernel_for(int n2, int S) {
+  const int ntiles = round_up(S, kTileN) / kTileN;
+  return n2 <= kRegK * kTileK ? kernel_for_rows<true>(ntiles) : kernel_for_rows<false>(ntiles);
+}
+
+size_t layout_bytes(int n2, int S, int accel, int ld) {
+  const size_t rows = round_up(S, kTileN);
+  const size_t floats = (size_t)n2 * ld + rows * ld * (accel ? 6 : 3);
+  return (floats + 2 * (size_t)S + rows + rows / kTileN + 1) * 4;
+}
+
+// Row stride of Ws and the row planes: the least stride >= n2 that is 4 mod
+// 8, so that the fragment loads and the rate stores hit 32 distinct banks;
+// round_up(n2, 4) where that padding would not fit (a few rows of floats
+// at tiny N with hundreds of rows).
+int stride(int n2, int S, int accel) {
+  const int padded = round_up(n2 + 4, 8) - 4;
+  return layout_bytes(n2, S, accel, padded) <= kMaxSmemBytes ? padded : round_up(n2, 4);
+}
+
+size_t smem_bytes(int n2, int S, int accel) {
+  return layout_bytes(n2, S, accel, stride(n2, S, accel));
+}
+
+// One warp per m16 slab of neurons.
+int block_threads(int n2) { return 32 * (round_up(n2, kTileM) / kTileM); }
 
 }  // namespace
 
@@ -297,8 +532,10 @@ int ssn_solve_launch(const void* W, const void* I, const void* alpha, void* r,
   Params p;
   p.n2 = n2;
   p.S = S;
-  p.ld = round_up(n2, 4);
-  p.rows = round_up(S, kRowChunk);
+  p.ld = stride(n2, S, accel);
+  p.rows = round_up(S, kTileN);
+  p.ktiles = round_up(n2, kTileK) / kTileK;
+  p.ntiles = p.rows / kTileN;
   p.io_type = io_type;
   p.k = k;
   p.n = n;
@@ -313,12 +550,12 @@ int ssn_solve_launch(const void* W, const void* I, const void* alpha, void* r,
   p.check_every = check_every;
   p.init_ff = init_ff;
   p.accel = accel;
+  const Kernel kernel = kernel_for(n2, S);
   const size_t bytes = smem_bytes(n2, S, accel);
   cudaError_t err = cudaFuncSetAttribute(
-      ssn_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  const int threads = block_threads(n2);
-  ssn_solve_kernel<<<B, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<B, block_threads(n2), bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(W), static_cast<const float*>(I),
       static_cast<const float*>(alpha), static_cast<float*>(r),
       static_cast<uint8_t*>(conv), static_cast<uint8_t*>(div),
@@ -330,13 +567,14 @@ int ssn_solve_launch(const void* W, const void* I, const void* alpha, void* r,
 // this shape (the runtime's occupancy calculation: registers, threads and
 // dynamic shared memory); minus the cudaError_t on failure.
 int ssn_solve_blocks_per_sm(int n2, int S, int accel) {
+  const Kernel kernel = kernel_for(n2, S);
   const size_t bytes = smem_bytes(n2, S, accel);
   cudaError_t err = cudaFuncSetAttribute(
-      ssn_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, ssn_solve_kernel, block_threads(n2), bytes);
+        &blocks, kernel, block_threads(n2), bytes);
   return err == cudaSuccess ? blocks : -(int)err;
 }
 

@@ -7,14 +7,19 @@ per circuit iterates until all of its stimulus rows resolve, with the
 circuit's W resident in shared memory for the whole solve; the io function,
 the stepper gain, the feedforward init, the ceiling clamp, the per-row
 residual and peak reductions, the flag and ``iters`` bookkeeping and
-Anderson(1) are fused into it. On this card it is bound by a small
-latency- and sync-bound mat-vec per substep, read from shared memory and not
-from HBM (see the note at the top of the CUDA source).
+Anderson(1) are fused into it. Each substep's mat-vec runs on the tensor
+cores (warp-level ``mma.sync`` m16n8k8, one warp per 16 neurons); the
+kernel is bound by its arithmetic and, at small batches, by the slowest
+circuit's substep latency (see the note at the top of the CUDA source).
 
-Precision: every substep runs in fp32 (``KERNEL_PRECISION``). The TPU
-kernel's two-phase precision, refinement tail and reopen margin exist to get
-fp32 answers out of bf16 matrix-unit passes; this kernel computes directly
-what they approximate, so ``SSNConfig.pallas_two_phase``,
+Precision (``KERNEL_PRECISION``): the mat-vec is 3xTF32, i.e. each fp32
+operand is split into a TF32 high part and a TF32 low part and the products
+hi*hi, hi*lo and lo*hi are accumulated in fp32, which holds the fp32
+lockstep solver's flags and rates (one TF32 pass does not: it changes
+flags and leaves rows unconverged at atol 1e-5). Everything else runs in
+fp32. The TPU kernel's two-phase precision, refinement tail and reopen
+margin exist to get fp32 answers out of bf16 matrix-unit passes; this
+kernel is fp32-accurate in one phase, so ``SSNConfig.pallas_two_phase``,
 ``pallas_refine``, ``pallas_reopen_margin`` and ``pallas_block_b`` are not
 read here.
 
@@ -35,10 +40,10 @@ import torch
 from tcgan_torch.ops import fixed_point, io_funs
 from tcgan_torch.ops.ssn import SSNConfig
 
-KERNEL_PRECISION = "fp32"
+KERNEL_PRECISION = "3xtf32"
 # Largest dynamic shared memory a block may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232448
-ROW_CHUNK = 8  # kRowChunk in the CUDA source
+TILE_N = 8  # kTileN in the CUDA source: stimulus rows per mma tile
 _IO_CODES = {"asym_power": 0, "asym_tanh": 1, "asym_linear": 2}
 
 # Kernel launches since import (or since a caller reset it to 0).
@@ -49,11 +54,20 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+def _layout_bytes(n2: int, S: int, accel: bool, ld: int) -> int:
+    rows = _round_up(S, TILE_N)
+    floats = n2 * ld + rows * ld * (6 if accel else 3)
+    return 4 * (floats + 2 * S + rows + rows // TILE_N + 1)
+
+
 def smem_bytes(n2: int, S: int, accel: bool) -> int:
-    """Dynamic shared memory of one block: the layout in ``ssn_solve.cu``."""
-    ld, rows = _round_up(n2, 4), _round_up(S, ROW_CHUNK)
-    floats = ld * n2 + rows * ld * (7 if accel else 4)
-    return 4 * floats + 4 * (2 * S + 1)
+    """Dynamic shared memory of one block: the layout in ``ssn_solve.cu``,
+    with its row stride (the least stride >= 2N that is 4 mod 8, or
+    ``round_up(2N, 4)`` where that padding would not fit)."""
+    padded = _round_up(n2 + 4, 8) - 4
+    if _layout_bytes(n2, S, accel, padded) <= MAX_SMEM_BYTES:
+        return _layout_bytes(n2, S, accel, padded)
+    return _layout_bytes(n2, S, accel, _round_up(n2, 4))
 
 
 def solve_fixed_point_plain(cfg: SSNConfig, W: torch.Tensor,
@@ -67,12 +81,9 @@ def solve_fixed_point_plain(cfg: SSNConfig, W: torch.Tensor,
         check_every=check_every)
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """Build (at first use) and bind ``csrc/ssn_solve.cu``."""
-    from tcgan_torch.ops.cuda import build
-
-    lib = ctypes.CDLL(str(build.build("ssn_solve").path))
+def bind(path) -> ctypes.CDLL:
+    """Load a built solver library and declare its C interface."""
+    lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ssn_solve_launch.argtypes = ([p] * 7 + [i] * 4 + [f] * 9 + [i] * 4
                                      + [p])
@@ -82,6 +93,14 @@ def _library() -> ctypes.CDLL:
     lib.ssn_solve_blocks_per_sm.argtypes = [i, i, i]
     lib.ssn_solve_blocks_per_sm.restype = i
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """Build (at first use) and bind ``csrc/ssn_solve.cu``."""
+    from tcgan_torch.ops.cuda import build
+
+    return bind(build.build("ssn_solve").path)
 
 
 def blocks_per_sm(n2: int, S: int, accel: bool = False,
@@ -129,18 +148,34 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
                          f"one CUDA device; got {W.device} and "
                          f"{I_ext.device}")
 
+    if B == 0 or S == 0:
+        return _outputs(B, S, n2, W.device)
+    result = launch(_library(), cfg, W, I_ext, check_every, accel)
+    launches += 1
+    return result
+
+
+def _outputs(B: int, S: int, n2: int, device) -> fixed_point.FixedPointResult:
+    return fixed_point.FixedPointResult(
+        torch.empty((B, S, n2), dtype=torch.float32, device=device),
+        torch.empty((B, S), dtype=torch.bool, device=device),
+        torch.empty((B, S), dtype=torch.bool, device=device),
+        torch.empty((B, S), dtype=torch.int32, device=device))
+
+
+def launch(lib: ctypes.CDLL, cfg: SSNConfig, W: torch.Tensor,
+           I_ext: torch.Tensor, check_every: int, accel: bool
+           ) -> fixed_point.FixedPointResult:
+    """One launch of the solver in ``lib`` (see :func:`bind`) on CUDA
+    tensors that :func:`solve_fixed_point_cuda` has checked; raises if the
+    launch fails. Counts nothing."""
+    B, n2, S = W.shape[0], W.shape[2], I_ext.shape[0]
     device = W.device
     W32 = W.to(torch.float32).contiguous()
     I32 = I_ext.to(torch.float32).contiguous()
     alpha = cfg.step_gain(dtype=torch.float32, device=device).contiguous()
-    r = torch.empty((B, S, n2), dtype=torch.float32, device=device)
-    conv = torch.empty((B, S), dtype=torch.bool, device=device)
-    div = torch.empty((B, S), dtype=torch.bool, device=device)
-    iters = torch.empty((B, S), dtype=torch.int32, device=device)
-    if B == 0 or S == 0:
-        return fixed_point.FixedPointResult(r, conv, div, iters)
+    r, conv, div, iters = out = _outputs(B, S, n2, device)
     u0, slope = io_funs.linear_knee(cfg.k, cfg.n, cfg.rate_soft_bound)
-    lib = _library()
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(device):
         err = lib.ssn_solve_launch(
@@ -154,5 +189,4 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
         raise RuntimeError(
             f"ssn_solve launch failed: cudaError {err} "
             f"({lib.ssn_solve_error_string(err).decode()})")
-    launches += 1
-    return fixed_point.FixedPointResult(r, conv, div, iters)
+    return out

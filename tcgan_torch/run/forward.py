@@ -3,9 +3,9 @@
 Port of :mod:`tcgan_tpu.run.forward`, the serving/data-generation mode:
 solves batches of sampled circuits under the full bandwidth x contrast
 battery and writes tuning curves and solver diagnostics into the datastore.
-With ``--solver-backend cuda`` the solve runs in the fused CUDA kernel, which
-computes every substep in fp32 (``info.json`` records
-``"kernel_precision": "fp32"``).
+With ``--solver-backend cuda`` the solve runs in the fused CUDA kernel, whose
+mat-vec is fp32-accurate 3xTF32 on the tensor cores (``info.json`` records
+``"kernel_precision": "3xtf32"``).
 
 Usage:
     python -m tcgan_torch.run.forward --datastore /tmp/run1 --batch-size 512 \

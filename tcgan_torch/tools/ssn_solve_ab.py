@@ -1,0 +1,287 @@
+"""The SSN solver kernel's benchmark circuit, its bound, and the kernel against
+another build of its source, in turns.
+
+:data:`SHAPES`, :func:`problem`, :func:`bound`, :func:`median_ms` and
+:func:`card` are what ``chip_smoke.py`` and the card tests use. Run as a
+script on a machine with one CUDA device, from the repository root:
+
+    python -m tcgan_torch.tools.ssn_solve_ab --baseline OLD/ssn_solve.cu \\
+        [--out runs/ssn_solve_ab.json]
+
+``OLD/ssn_solve.cu`` is an earlier version of ``tcgan_torch/csrc/
+ssn_solve.cu`` with the same C interface (for example unpacked from git into
+a git-ignored directory); it is compiled with the flags of
+``tcgan_torch/ops/cuda/build.py``. At each shape of :data:`SHAPES` both
+kernels solve the same inputs in turns: baseline, this, this, baseline, each
+turn the median of ``--reps`` launches timed with CUDA events. Printed per
+shape and kernel: the time, the bound from the run's own ``iters`` and its
+share, and the slowest circuit's time per substep (launch time / max iters),
+with the card's name and power limit; per kernel: registers and spills
+(ptxas), blocks per SM at 2N=102 with S=8 and 16 (the CUDA occupancy API),
+and the count of ``HMMA`` instructions in its SASS (cuobjdump). The two
+kernels' flags, iters and rates are compared with each other and with the
+fp32 plain solve (rows outside rtol/atol listed) on every shape, and on
+2N=224 with the slice's J and D unscaled, where near-critical rows stop at
+a chunk that depends on the order of the sums.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import re
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from tcgan_torch.ops import stimulus, weights
+from tcgan_torch.ops.cuda import build, ssn_solve
+from tcgan_torch.ops.ssn import SSNConfig
+
+# Published H100 SXM peaks at 700 W, dense: TF32 on the tensor cores, fp32
+# outside them, HBM3. The kernel runs each fp32 product as 3 TF32 products
+# (3xTF32), the least that keeps its results fp32-accurate.
+PEAK_TF32_FLOPS = 495e12
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+TF32_PASSES = 3
+
+# The forward slice's circuit (BASELINE.md, bench.py's forward config): N=51,
+# J/D/S below, 8 bandwidths at contrast 10; check stride 32.
+SLICE_SSN = dict(N=51, k=0.01, n=2.2, dt=5e-4, max_iter=8000, atol=1e-4)
+SLICE_J = (0.045, 0.04, 0.05, 0.035)
+SLICE_D = (0.1, 0.08, 0.1, 0.08)
+SLICE_S = (0.25, 0.1, 0.25, 0.1)
+BANDWIDTHS = (0.0, 0.0625, 0.125, 0.1875, 0.25, 0.5, 0.75, 1.0)
+CONTRAST = 10.0
+CHECK_EVERY = 32
+# Kernel against its plain version: flags equal; rates of converged rows
+# within the kernel-vs-reference tolerance of tests/test_pallas_solver.py;
+# iters within two check strides.
+RTOL, ATOL = 1e-4, 1e-5
+
+# The shapes the main paths give the kernel: name -> (circuits, contrasts,
+# SSNConfig overrides). run.forward's batch; the round-2 GAN battery at
+# atol 1e-5; the GAN step of bench.py's wgan_step_ms.
+SHAPES = {
+    "forward B=512 S=8": (512, (CONTRAST,), {}),
+    "gan B=256 S=16": (256, (5.0, CONTRAST), dict(atol=1e-5, max_iter=10000)),
+    "bench_step B=32 S=8": (32, (CONTRAST,), {}),
+}
+# The shared-memory limit at S=8: 2N=224, 64 circuits.
+WIDE_N, WIDE_BATCH = 112, 64
+
+
+def problem(batch: int, contrasts=(CONTRAST,), ssn_overrides=None,
+            N: int = 51, seed: int = 0, device: str = "cuda",
+            rescale: bool = True):
+    """(cfg, W (B, 2N, 2N), I (8 * len(contrasts), 2N)) of the slice's
+    circuit at width N, z drawn on ``device`` from ``seed``. Away from N=51
+    and with ``rescale``, J and D are scaled by 51 / N, so that a neuron's
+    summed input (N sites on the same interval) and the circuit's regime
+    stay those of the slice; without it the circuit is stronger than the
+    slice's and many rows diverge or sit near criticality."""
+    cfg = SSNConfig(**{**SLICE_SSN, "N": N, **(ssn_overrides or {})})
+    dev = torch.device(device)
+    scale = SLICE_SSN["N"] / N if rescale else 1.0
+    as22 = lambda v, c=1.0: c * torch.tensor(  # noqa: E731
+        v, device=dev).reshape(2, 2)
+    z = weights.sample_z(torch.Generator(dev).manual_seed(seed), (batch,), N,
+                         device=dev)
+    x = cfg.site_pos(device=dev)
+    W = weights.build_weight(as22(SLICE_J, scale), as22(SLICE_D, scale),
+                             as22(SLICE_S), z, x)
+    I = stimulus.stimulus_battery(BANDWIDTHS, contrasts, x, cfg.smoothness)
+    return cfg, W, I
+
+
+def matvec_flops(W: torch.Tensor, iters: torch.Tensor) -> float:
+    """The solve's arithmetic: 2 (2N)^2 FLOP per row per substep, over the
+    substeps each row needed (``iters``)."""
+    n2 = W.shape[-1]
+    return 2.0 * n2 * n2 * float(iters.double().sum())
+
+
+def bound(W: torch.Tensor, I: torch.Tensor, iters: torch.Tensor
+          ) -> tuple[float, str]:
+    """Least time (ms) the card could take for this solve and what sets it:
+    the mat-vec as 3 TF32 passes at the tensor cores' TF32 peak, against W,
+    I and alpha read once and r and the flags written once at the HBM
+    rate."""
+    B, n2, S = W.shape[0], W.shape[-1], I.shape[0]
+    nbytes = 4 * (B * n2 * n2 + S * n2 + n2) + B * S * (4 * n2 + 2 + 4)
+    t_op = TF32_PASSES * matvec_flops(W, iters) / PEAK_TF32_FLOPS
+    t_mem = nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_op, t_mem), ("operations" if t_op >= t_mem
+                                     else "bytes")
+
+
+def median_ms(fn, reps: int = 5) -> float:
+    """Median over ``reps`` calls of ``fn``, each timed with CUDA events."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of each entry function in nvcc's
+    ``-Xptxas=-v`` output."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\w+)'?", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn]["registers"] = int(m.group(1))
+    return {k: v for k, v in out.items() if "registers" in v}
+
+
+def _hmma_count(lib_path: Path) -> dict | None:
+    """HMMA instructions per function in the library's SASS, or None where
+    the toolkit has no cuobjdump."""
+    tool = Path(build.find_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def _build_baseline(src: Path) -> tuple[Path, str]:
+    """Compile an earlier ssn_solve.cu with build.py's flags; (library,
+    nvcc's output)."""
+    key = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    out = build.BUILD_DIR / f"libssn_solve_baseline-{key}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o",
+                           str(out), str(src)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed building {src}:\n{proc.stderr}")
+    return out, proc.stdout + proc.stderr
+
+
+def _rows_off_plain(out, plain) -> list[dict]:
+    """Rows that both converged where ``out``'s rates leave rtol/atol of the
+    plain solve's: (circuit, stimulus), both iters, max |dr|."""
+    tol = ATOL + RTOL * plain.r.abs()
+    off = (out.converged & plain.converged) & (
+        (out.r - plain.r).abs() > tol).any(-1)
+    return [dict(row=(b, s), iters=int(out.iters[b, s]),
+                 plain_iters=int(plain.iters[b, s]),
+                 max_abs_dr=float((out.r[b, s] - plain.r[b, s]).abs().max()))
+            for b, s in off.nonzero().tolist()]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", required=True, type=Path,
+                    help="an earlier ssn_solve.cu with the same C interface")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--out", type=Path, default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("ssn_solve_ab: needs a CUDA device")
+    name = card()
+    this = build.build("ssn_solve")
+    kernels = {}
+    for label, (path, log) in (("baseline", _build_baseline(args.baseline)),
+                               ("this", (this.path, this.log))):
+        lib = ssn_solve.bind(path)
+        kernels[label] = dict(
+            lib=lib, ptxas=_ptxas_report(log), hmma=_hmma_count(path),
+            blocks_per_sm={f"2N=102 S={S}": lib.ssn_solve_blocks_per_sm(
+                102, S, 0) for S in (8, 16)})
+        print(f"[ab] {label}: ptxas {kernels[label]['ptxas']}; HMMA "
+              f"{kernels[label]['hmma']}; blocks per SM "
+              f"{kernels[label]['blocks_per_sm']}; {name}", flush=True)
+
+    report = {"card": name, "reps": args.reps, "shapes": {}, "kernels": {
+        k: {kk: vv for kk, vv in v.items() if kk != "lib"}
+        for k, v in kernels.items()}}
+    cases = {k: (b, c, kw, {}) for k, (b, c, kw) in SHAPES.items()}
+    cases["wide 2N=224 S=8, J and D unscaled"] = (
+        WIDE_BATCH, (CONTRAST,), {}, dict(N=WIDE_N, rescale=False))
+    for shape, (batch, contrasts, overrides, kw) in cases.items():
+        cfg, W, I = problem(batch, contrasts, overrides, **kw)
+        solve = {k: (lambda lib=v["lib"]: ssn_solve.launch(
+            lib, cfg, W, I, CHECK_EVERY, False)) for k, v in kernels.items()}
+        outs = {k: fn() for k, fn in solve.items()}
+        plain = ssn_solve.solve_fixed_point_plain(cfg, W, I, CHECK_EVERY)
+        torch.cuda.synchronize()
+        turns = [(k, median_ms(solve[k], args.reps))
+                 for k in ("baseline", "this", "this", "baseline")]
+        rows = {}
+        for k, out in outs.items():
+            ms = statistics.median(t for kk, t in turns if kk == k)
+            bound_ms, by = bound(W, I, out.iters)
+            max_iters = int(out.iters.max())
+            rows[k] = dict(
+                turns_ms=[t for kk, t in turns if kk == k], ms=ms,
+                bound_ms=bound_ms, bound_by=by, share=bound_ms / ms,
+                mean_iters=float(out.iters.float().mean()),
+                max_iters=max_iters, us_per_substep=1e3 * ms / max_iters,
+                rows_off_plain=_rows_off_plain(out, plain))
+            print(f"[ab] {shape} {k}: {ms:.3f} ms (turns "
+                  f"{', '.join(f'{t:.3f}' for t in rows[k]['turns_ms'])}), "
+                  f"bound {bound_ms:.4f} ms ({by}), share "
+                  f"{rows[k]['share']:.4f}, slowest circuit "
+                  f"{rows[k]['us_per_substep']:.3f} us per substep over "
+                  f"{max_iters} iters; rows both converged outside rtol "
+                  f"{RTOL} atol {ATOL} of the fp32 plain solve: "
+                  f"{rows[k]['rows_off_plain']}; {name}", flush=True)
+        a, b = outs["baseline"], outs["this"]
+        both = a.converged & b.converged
+        rows["flag_mismatch"] = int((a.converged != b.converged).sum()
+                                    + (a.diverged != b.diverged).sum())
+        rows["rows_iters_differ"] = int((a.iters != b.iters).sum())
+        rows["max_abs_dr"] = float((a.r - b.r).abs()[both].max())
+        rows["speedup"] = rows["baseline"]["ms"] / rows["this"]["ms"]
+        print(f"[ab] {shape}: baseline / this = {rows['speedup']:.3f}; "
+              f"between the two: flags differing {rows['flag_mismatch']}, "
+              f"rows whose iters differ {rows['rows_iters_differ']}, max "
+              f"|dr| on rows both converged {rows['max_abs_dr']:.3e}",
+              flush=True)
+        report["shapes"][shape] = rows
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(report, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

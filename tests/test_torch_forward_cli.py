@@ -71,7 +71,7 @@ def test_artifacts_match_reference(tmp_path, readout):
         assert t_sum[k] == j_sum[k]
     # on CPU tensors the wrapper runs its plain version: nothing launched
     assert t_sum["kernel_launches"] == 0 and ssn_solve.launches == before
-    assert t_info["kernel_precision"] == "fp32"
+    assert t_info["kernel_precision"] == ssn_solve.KERNEL_PRECISION == "3xtf32"
     assert t_info["config"]["solver_backend"] == "cuda"
     assert "torch" in t_info["library_versions"]
 

@@ -21,6 +21,7 @@ import torch
 from tcgan_torch.ops import stimulus, weights
 from tcgan_torch.ops.cuda import ssn_solve
 from tcgan_torch.ops.ssn import SSNConfig
+from tcgan_torch.tools import ssn_solve_ab as ab
 
 BASE = dict(N=8, k=0.01, n=2.2, dt=0.001, max_iter=4000, atol=1e-6)
 RTOL, ATOL = 1e-4, 1e-5
@@ -59,7 +60,10 @@ def _problem(device, B=5, seed=11):
     return W, I
 
 
-def _check(cfg, W, I, check_every, accel):
+def _check(cfg, W, I, check_every, accel, converged_rows_only=False):
+    """Kernel against plain: flags equal, rates within tolerance (on the
+    rows both converged, where asked: a diverging or unresolved row's rates
+    depend on the summation order), iters within two strides."""
     before = ssn_solve.launches
     out = ssn_solve.solve_fixed_point_cuda(cfg, W, I, check_every, accel)
     ref = ssn_solve.solve_fixed_point_plain(cfg, W, I, check_every, accel)
@@ -68,7 +72,10 @@ def _check(cfg, W, I, check_every, accel):
     assert out.r.device == W.device and out.r.dtype == torch.float32
     assert torch.equal(out.converged, ref.converged)
     assert torch.equal(out.diverged, ref.diverged)
-    torch.testing.assert_close(out.r, ref.r, rtol=RTOL, atol=ATOL)
+    rows = (out.converged & ref.converged if converged_rows_only
+            else torch.ones_like(out.converged))
+    torch.testing.assert_close(out.r[rows], ref.r[rows], rtol=RTOL,
+                               atol=ATOL)
     d_iters = (out.iters.long() - ref.iters.long()).abs().max()
     assert int(d_iters) <= 2 * check_every
     return out
@@ -91,6 +98,57 @@ def test_kernel_ragged_and_wide_battery(cuda_device):
     I = stimulus.stimulus_battery(tuple(np.linspace(0, 1, 11)), (5.0,), x,
                                   0.03125)
     _check(SSNConfig(**BASE), W, I, 4, False)
+
+
+def _slice_problem(device, B, N=51, contrasts=(10.0,), seed=3):
+    """chip_smoke.py's forward-slice circuit (its J, D, S unscaled) at width
+    N: W (B, 2N, 2N) from NumPy noise and 8 bandwidths x ``contrasts``
+    rows."""
+    cfg = SSNConfig(**{**ab.SLICE_SSN, "N": N})
+    z = np.random.default_rng(seed).standard_normal((B, 2 * N, 2 * N))
+    t = lambda v: torch.tensor(v, device=device).reshape(2, 2)  # noqa: E731
+    x = cfg.site_pos(device=device)
+    W = weights.build_weight(t(ab.SLICE_J), t(ab.SLICE_D), t(ab.SLICE_S),
+                             torch.tensor(z, dtype=torch.float32,
+                                          device=device), x)
+    I = stimulus.stimulus_battery(ab.BANDWIDTHS, contrasts, x,
+                                  cfg.smoothness)
+    return cfg, W, I
+
+
+SLICE_CASES = {
+    # name: (N, B, contrasts, SSNConfig overrides, accel); every n8 tile
+    # count the kernel instantiates, the last widths of the register path
+    # (2N <= 112) and the first of the path past it, the shared-memory
+    # limit, a width that is no multiple of 16, one circuit, and more
+    # circuits than SMs
+    "S8": (51, 32, (10.0,), {}, False),
+    "S16_atol1e-5": (51, 32, (5.0, 10.0), dict(atol=1e-5, max_iter=10000),
+                     False),
+    "S24": (51, 16, (5.0, 10.0, 13.0), {}, False),
+    "S32": (51, 8, (2.0, 5.0, 10.0, 13.0), {}, False),
+    "S40": (51, 4, (1.0, 2.0, 5.0, 10.0, 13.0), {}, False),
+    "2N224_S8": (112, 8, (10.0,), {}, False),
+    "2N26": (13, 8, (10.0,), {}, False),
+    "2N112": (56, 8, (10.0,), {}, False),
+    "2N114": (57, 8, (10.0,), {}, False),
+    "B1": (51, 1, (10.0,), {}, False),
+    "B200": (51, 200, (10.0,), {}, False),
+    "anderson_S16": (51, 16, (5.0, 10.0), dict(atol=1e-5, max_iter=10000),
+                     True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SLICE_CASES))
+def test_kernel_matches_plain_at_slice_shapes(cuda_device, case):
+    N, B, contrasts, cfg_kw, accel = SLICE_CASES[case]
+    cfg, W, I = _slice_problem(cuda_device, B, N, contrasts)
+    out = _check(dataclasses.replace(cfg, **cfg_kw), W, I, 32, accel,
+                 converged_rows_only=True)
+    assert torch.isfinite(out.r).all()
+    assert out.r.shape == (B, I.shape[0], 2 * N)
+    assert float(out.converged.float().mean()) > 0.5
 
 
 @pytest.mark.cuda
@@ -121,17 +179,22 @@ def test_cuda_tensor_never_falls_back(cuda_device, monkeypatch):
 
 @pytest.mark.cuda
 def test_blocks_per_sm_fits_shared_memory(cuda_device):
-    """The runtime's occupancy figure at the GAN battery (2N=102, S=16): at
-    least one block per SM, no more than the SM's shared memory holds, and
-    Anderson's extra planes never raise it."""
-    per_sm = getattr(torch.cuda.get_device_properties(cuda_device),
-                     "shared_memory_per_multiprocessor", None)
-    n = {accel: ssn_solve.blocks_per_sm(102, 16, accel, cuda_device)
-         for accel in (False, True)}
-    assert 1 <= n[True] <= n[False]
-    if per_sm:
-        for accel, blocks in n.items():
-            assert blocks * ssn_solve.smem_bytes(102, 16, accel) <= per_sm
+    """The runtime's occupancy figure at 2N=102 with the 8- and 16-row
+    batteries: at least two blocks per SM (B=256 at S=16 in one wave on
+    132 SMs), no more than the SM's shared memory or registers hold at one
+    warp per 16 neurons, and Anderson's extra planes never raise it."""
+    props = torch.cuda.get_device_properties(cuda_device)
+    per_sm = getattr(props, "shared_memory_per_multiprocessor", None)
+    threads = 32 * 7  # one warp per m16 slab of 102 neurons
+    for S in (8, 16):
+        n = {accel: ssn_solve.blocks_per_sm(102, S, accel, cuda_device)
+             for accel in (False, True)}
+        assert 2 <= n[True] <= n[False]
+        assert n[False] * threads <= getattr(
+            props, "max_threads_per_multi_processor", 2048)
+        if per_sm:
+            for accel, blocks in n.items():
+                assert blocks * ssn_solve.smem_bytes(102, S, accel) <= per_sm
 
 
 @pytest.mark.cuda
