@@ -42,7 +42,27 @@ no result line):
    parameters, checkpoints, the parameter export and convergence; then
    ``wgan_step_ms`` at the bench configuration of the JAX package
    (``bench.py::_wgan_step_ms``) and the step's device-time split from
-   ``torch.profiler``.
+   ``torch.profiler``;
+7. BPTT (config C3): at N=51 and the GAN battery, the gradient of the mean
+   probe rate with respect to the log-space (J, D, S) through 4000 Euler
+   steps for 8 circuits on the card, held to the same computation in
+   float64 on the CPU; chunked (100 steps) against unchunked at 32
+   circuits, with the peak device memory of each; ``run.bptt_wgan
+   --seqlen 4000 --bptt-checkpoint-chunk 100`` at 256 circuits for 3 steps
+   and ``--resume`` for 1, launching the kernel for the fake truth only;
+   the device-time split of a BPTT step (at 400 Euler steps: the profiler
+   records every op of the unroll);
+8. the conditional WGAN (C4): ``run.bptt_cwgan --solver ift`` at the
+   round-2 configuration for 4 steps and ``--resume`` for 2, launches
+   checked against the step schedule, then ``--solver bptt`` for 1 step at
+   32 circuits; the device-time split of the conditional step;
+9. moment matching (C5): ``run.moments --moment-ema 0.99 --fixed-z`` at 64
+   circuits for 6 steps and ``--resume`` for 2 (one launch per step after
+   the fake truth; the z-set checkpointed before the resume is the one in
+   the state after it), then ``run.bptt_moments`` for 1 step; the
+   device-time split of a moment-matching step.
+
+Every phase prints its seconds.
 
 The line before the last is a JSON object describing the kernel (route,
 source, the TPU kernel it replaces, launches on the main paths, error and
@@ -89,6 +109,18 @@ START_D = tuple(round(0.7 * v, 6) for v in TRUE_D)
 # the adjoint to amplify the forward difference near criticality.
 GRAD_RTOL = 1e-2
 DEVICE = "cuda"
+# Phase 7: the BPTT gradient on the card (fp32) against float64 on the CPU,
+# max |dg| / max |g|: 4000 fp32 steps of a contracting map keep ~1e-5.
+BPTT_SEQLEN = 4000
+BPTT_CHUNK = 100
+BPTT_RTOL = 1e-3
+# chunked against unchunked on the card: the same ops, recomputed
+CHUNK_RTOL = 1e-5
+# the profiled BPTT steps run 400 Euler steps: the profiler records every
+# op of the unroll, and the pattern per Euler step does not depend on
+# seqlen
+PROFILE_SEQLEN = 400
+MM_BATCH = 64
 
 
 def _line(*parts):
@@ -413,7 +445,7 @@ def phase_main_path() -> int:
     return launches
 
 
-def _gan_problem(batch, ssn_kw, contrasts, seed=SEED):
+def _gan_problem(batch, ssn_kw, contrasts, seed=SEED, **gen_kw):
     """Log-space (J, D, S) leaves at the fake truth and one z draw."""
     import torch
 
@@ -423,7 +455,8 @@ def _gan_problem(batch, ssn_kw, contrasts, seed=SEED):
 
     dev = torch.device(DEVICE)
     cfg = gen_lib.GeneratorConfig(
-        ssn=SSNConfig(**ssn_kw), bandwidths=BANDWIDTHS, contrasts=contrasts)
+        ssn=SSNConfig(**ssn_kw), bandwidths=BANDWIDTHS, contrasts=contrasts,
+        **gen_kw)
     as22 = lambda v: ((v[0], v[1]), (v[2], v[3]))  # noqa: E731
     params = gen_lib.init_params(cfg, as22(TRUE_J), as22(TRUE_D),
                                  as22(TRUE_S), device=dev)
@@ -533,50 +566,70 @@ def _read_csv(path):
         return list(csv.DictReader(f))
 
 
-def _run_gan(store, n_steps, steps_before, *extra, anchor_updates=0):
-    """``run.gan`` once; checks its launches against the step schedule and
-    returns (launches, learning rows)."""
+def _run_entry(entry, argv, store, steps, schedule):
+    """An entry point's ``main`` once, with the kernel's count set to 0 just
+    before and read just after: the launches after the fake truth must be
+    ``schedule(args, steps)`` on the ift solver and none on bptt. Returns
+    (launches, learning rows, info.json)."""
     from tcgan_torch.ops.cuda import ssn_solve
-    from tcgan_torch.run import gan
-    from tcgan_torch.train.driver import DriverConfig
 
-    argv = _gan_argv(store, n_steps, *extra)
-    args = gan.make_parser().parse_args(argv)
+    args = entry.make_parser().parse_args(argv)
     ssn_solve.launches = 0
     t0 = time.perf_counter()
-    rc = gan.main(argv)
+    rc = entry.main(argv)
     launches = ssn_solve.launches
     if rc != 0:
-        raise AssertionError(f"gan.main returned {rc}")
+        raise AssertionError(f"{entry.__name__}.main returned {rc}")
     info = json.loads((store / "info.json").read_text())
     truth = info["kernel_launches_fake_truth"]
+    solver = info["config"]["solver"]
     min_truth = math.ceil(args.truth_samples / args.truth_batch)
-    steps = range(steps_before, steps_before + n_steps)
-    warmup = DriverConfig().n_critic0_steps
-    expected = sum((args.n_critic0 if s < warmup else args.n_critic) + 1
-                   + anchor_updates for s in steps)
-    expected += sum(1 for s in steps if s % args.tc_mean_every == 0)
-    _line(f"[gan] {store.name}: {n_steps} steps from {steps_before} in "
+    expected = schedule(args, steps) if solver == "ift" else 0
+    _line(f"[run] {entry.__name__} {store.name} (solver {solver}): "
+          f"{len(steps)} steps from {steps[0]} in "
           f"{time.perf_counter() - t0:.1f} s; kernel launches {launches} = "
           f"fake truth {truth} + training {launches - truth} (schedule "
           f"implies {expected}); status {info.get('status')}")
     if launches - truth != expected or truth < min_truth:
-        raise AssertionError("gan: kernel launches do not match the step "
-                             "schedule")
+        raise AssertionError(f"{entry.__name__}: kernel launches do not "
+                             "match the step schedule")
     if info.get("status") != "finished":
-        raise AssertionError(f"gan: status {info.get('status')}")
-    return launches, _read_csv(store / "learning.csv")
+        raise AssertionError(f"{entry.__name__}: status "
+                             f"{info.get('status')}")
+    return launches, _read_csv(store / "learning.csv"), info
 
 
-def _check_learning(rows, n_rows, name):
+def _run_gan(store, n_steps, steps_before, *extra, anchor_updates=0,
+             entry=None):
+    """A WGAN-family entry point (``run.gan`` by default) once: n_critic
+    (n_critic0 in the warm-up) + 1 solves per step, + the anchor updates,
+    + 1 per ``tc_mean`` snapshot. Returns (launches, learning rows)."""
+    from tcgan_torch.run import gan
+    from tcgan_torch.train.driver import DriverConfig
+
+    def schedule(args, steps):
+        warmup = DriverConfig().n_critic0_steps
+        return (sum((args.n_critic0 if s < warmup else args.n_critic) + 1
+                    + anchor_updates for s in steps)
+                + sum(1 for s in steps if s % args.tc_mean_every == 0))
+
+    launches, rows, _ = _run_entry(
+        entry or gan, _gan_argv(store, n_steps, *extra), store,
+        range(steps_before, steps_before + n_steps), schedule)
+    return launches, rows
+
+
+def _check_learning(rows, n_rows, name, min_converged=0.99,
+                    losses=("d_loss", "g_loss", "wasserstein", "gp",
+                            "rate_penalty")):
     steps = [int(r["step"]) for r in rows]
     if steps != list(range(n_rows)):
         raise AssertionError(f"{name}: learning.csv steps {steps}")
     for r in rows:
-        for k in ("d_loss", "g_loss", "wasserstein", "gp", "rate_penalty"):
+        for k in losses:
             if not math.isfinite(float(r[k])):
                 raise AssertionError(f"{name}: step {r['step']} {k}={r[k]}")
-        if float(r["frac_converged"]) < 0.99:
+        if float(r["frac_converged"]) < min_converged:
             raise AssertionError(f"{name}: step {r['step']} frac_converged "
                                  f"{r['frac_converged']}")
 
@@ -625,7 +678,7 @@ def phase_gan(card: str) -> int:
     return launches
 
 
-def _step_setup(batch, ssn_kw, contrasts, **wgan_kw):
+def _step_setup(batch, ssn_kw, contrasts, gen_kw=None, **wgan_kw):
     """A WGAN state at the fake truth on the card, with real data
     1 + 0.1 N(0, 1) as ``bench.py::_wgan_step_ms`` makes it."""
     import torch
@@ -634,7 +687,7 @@ def _step_setup(batch, ssn_kw, contrasts, **wgan_kw):
 
     dev = torch.device(DEVICE)
     cfg, params, _ = _gan_problem(batch, dict(ssn_kw, backend="cuda"),
-                                  contrasts)
+                                  contrasts, **(gen_kw or {}))
     wcfg = wgan.WGANConfig(gen=cfg, batch_size=batch, n_critic=5,
                            n_critic0=5, **wgan_kw)
     gen = torch.Generator(dev).manual_seed(SEED)
@@ -764,16 +817,314 @@ def _device_split(prof, solves_per_step, n_steps):
     return out
 
 
+def _profile_step(name, card, step, solves_per_step):
+    """One warm step's host time unprofiled (median of 3, each ending in a
+    synchronize), then the device-time split of one more step under
+    ``torch.profiler`` (``_device_split``); the idle share is 1 - device
+    busy / unprofiled step time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step()  # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    split = _device_split(prof, solves_per_step, 1)
+    split["step_ms_unprofiled"] = round(step_ms, 3)
+    split["step_ms_each"] = [round(t, 3) for t in times]
+    split["idle_share"] = round(1 - split["device_busy"] / step_ms, 4)
+    split["profiled_step_wall"] = round(wall_ms, 3)
+    _line(f"[profile] {name} (ms; torch.profiler over 1 warm step; "
+          f"{card}): {json.dumps(split)}")
+    return split
+
+
+def _bptt_grad(cfg, params, z, batch):
+    """(output, d(mean probe rate)/d(log J, D, S)) through the Euler
+    unroll."""
+    import torch
+
+    from tcgan_torch.models import generator as gen_lib
+
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    out = gen_lib.sample_tuning_curves(cfg, leaves, batch, z=z)
+    g = torch.autograd.grad(out.tc.mean(), [leaves[k] for k in sorted(leaves)])
+    return out, torch.cat([t.reshape(-1) for t in g])
+
+
+def phase_bptt(card: str) -> int:
+    import torch
+
+    from tcgan_torch.models import wgan
+    from tcgan_torch.run import bptt_wgan
+
+    ssn_kw = dict(GAN_SSN, seqlen=BPTT_SEQLEN)
+    # the gradient on the card (fp32, unchunked) against float64 on the CPU
+    cfg, params, z = _gan_problem(8, ssn_kw, GAN_CONTRASTS, solver="bptt")
+    t0 = time.perf_counter()
+    out_g, g_g = _bptt_grad(cfg, params, z, 8)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64,
+                                bptt_checkpoint_chunk=BPTT_CHUNK)
+    t0 = time.perf_counter()
+    out_c, g_c = _bptt_grad(
+        cfg64, {k: v.detach().double().cpu() for k, v in params.items()},
+        z.double().cpu(), 8)
+    cpu_s = time.perf_counter() - t0
+    g_g = g_g.double().cpu()
+    rel = float((g_g - g_c).abs().max() / g_c.abs().max())
+    r_rel = float((out_g.rates.detach().double().cpu() - out_c.rates.detach())
+                  .abs().max() / out_c.rates.detach().abs().max())
+    n_conv = int((out_g.converged.cpu() != out_c.converged).sum())
+    n_div = int((out_g.diverged.cpu() != out_c.diverged).sum())
+    _line(f"[bptt] B=8 S={cfg.n_stim} N={cfg.ssn.N} seqlen {BPTT_SEQLEN}: "
+          f"d(mean probe rate)/d(log J, D, S) card fp32 vs CPU float64 max "
+          f"rel err {rel:.3e} (tolerance {BPTT_RTOL}); rates max rel err "
+          f"{r_rel:.3e}; frac_converged card "
+          f"{float(out_g.converged.float().mean()):.4f} cpu "
+          f"{float(out_c.converged.float().mean()):.4f}, flags differing: "
+          f"converged {n_conv}, diverged {n_div}; forward + backward "
+          f"{card_s:.2f} s on the card, {cpu_s:.2f} s on the CPU ({card})")
+    _line(f"[bptt] grad card {g_g.tolist()}")
+    if not torch.isfinite(g_g).all() or not rel <= BPTT_RTOL:
+        raise AssertionError(f"bptt: gradient rel err {rel} > {BPTT_RTOL}")
+    if n_div:
+        raise AssertionError(f"bptt: {n_div} diverged flags differ")
+
+    # chunked against unchunked at 32 circuits: gradient and peak memory
+    cfg32, params32, z32 = _gan_problem(32, ssn_kw, GAN_CONTRASTS,
+                                        solver="bptt")
+    runs = {}
+    for chunk in (0, BPTT_CHUNK):
+        c = dataclasses.replace(cfg32, bptt_checkpoint_chunk=chunk)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        _, g = _bptt_grad(c, params32, z32, 32)
+        torch.cuda.synchronize()
+        runs[chunk] = (g, torch.cuda.max_memory_allocated() - base,
+                       time.perf_counter() - t0)
+    (g0, mem0, s0), (g1, mem1, s1) = runs[0], runs[BPTT_CHUNK]
+    d_chunk = float((g1 - g0).abs().max() / g0.abs().max())
+    _line(f"[bptt] B=32 chunk {BPTT_CHUNK} vs unchunked: max rel grad diff "
+          f"{d_chunk:.3e} (tolerance {CHUNK_RTOL}); peak device memory "
+          f"above the inputs {mem1 / 2**20:.1f} MiB chunked, "
+          f"{mem0 / 2**20:.1f} MiB unchunked; forward + backward "
+          f"{s1:.2f} s chunked, {s0:.2f} s unchunked ({card})")
+    if not d_chunk <= CHUNK_RTOL or not mem1 < mem0:
+        raise AssertionError("bptt: chunked gradient or memory wrong")
+
+    # the C3 entry point at 256 circuits; the kernel solves the fake truth
+    # only
+    launches = 0
+    extra = ("--seqlen", str(BPTT_SEQLEN), "--bptt-checkpoint-chunk",
+             str(BPTT_CHUNK), "--WGAN_n_critic0", "5")
+    with tempfile.TemporaryDirectory() as tmp:
+        store = Path(tmp) / "bptt"
+        n, rows = _run_gan(store, 3, 0, *extra, "--checkpoint-every", "3",
+                           entry=bptt_wgan)
+        launches += n
+        _check_learning(rows, 3, "bptt_wgan", min_converged=0.5)
+        n, rows = _run_gan(store, 1, 3, *extra, "--resume", entry=bptt_wgan)
+        launches += n
+        _check_learning(rows, 4, "bptt_wgan --resume", min_converged=0.5)
+        if not all((store / "ckpt" / f"{k}.pt").exists() for k in (3, 4)):
+            raise AssertionError("bptt_wgan: checkpoints 3 and 4 missing")
+        train_ms = [1e3 * float(r["train_time"]) for r in rows[1:]]
+        _line(f"[bptt] run.bptt_wgan B={GAN_BATCH} seqlen {BPTT_SEQLEN} "
+              f"chunk {BPTT_CHUNK}: train_time steps 1-3 "
+              f"{', '.join(f'{t:.1f}' for t in train_ms)} ms, median "
+              f"{statistics.median(train_ms):.1f} ms; frac_converged "
+              f"{[float(r['frac_converged']) for r in rows]} ({card})")
+
+    # the step's device-time split, at PROFILE_SEQLEN Euler steps
+    wcfg, state, real, gen = _step_setup(
+        GAN_BATCH, dict(GAN_SSN, seqlen=PROFILE_SEQLEN), GAN_CONTRASTS,
+        gen_kw=dict(solver="bptt", bptt_checkpoint_chunk=BPTT_CHUNK),
+        clip_grad=1.0)
+
+    def step():
+        nonlocal state
+        state, _ = wgan.train_step(wcfg, wcfg.n_critic, state, real,
+                                   generator=gen)
+
+    _profile_step(f"bptt WGAN step B={GAN_BATCH} S=16 seqlen "
+                  f"{PROFILE_SEQLEN} chunk {BPTT_CHUNK} n_critic 5", card,
+                  step, wcfg.n_critic + 1)
+    return launches
+
+
+def phase_cwgan(card: str) -> int:
+    import torch
+
+    from tcgan_torch.models import cwgan
+    from tcgan_torch.run import bptt_cwgan
+
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        store = Path(tmp) / "cwgan"
+        for n_steps, before, extra in ((4, 0, ()), (2, 4, ("--resume",))):
+            n, rows = _run_gan(store, n_steps, before, "--solver", "ift",
+                               *extra, entry=bptt_cwgan)
+            launches += n
+            _check_learning(rows, before + n_steps, "bptt_cwgan --solver ift")
+        train_ms = [1e3 * float(r["train_time"]) for r in rows[1:]]
+        _line(f"[cwgan] run.bptt_cwgan --solver ift B={GAN_BATCH}: "
+              f"train_time steps 1-5 median {statistics.median(train_ms):.1f}"
+              f" ms ({card})")
+        store = Path(tmp) / "cwgan_bptt"
+        n, rows = _run_gan(
+            store, 1, 0, "--solver", "bptt", "--batch-size", "32",
+            "--WGAN_n_critic0", "5", "--bptt-checkpoint-chunk",
+            str(BPTT_CHUNK), entry=bptt_cwgan)
+        launches += n
+        _check_learning(rows, 1, "bptt_cwgan --solver bptt",
+                        min_converged=0.5)
+        _line(f"[cwgan] run.bptt_cwgan --solver bptt B=32 seqlen "
+              f"{BPTT_SEQLEN}: train_time "
+              f"{1e3 * float(rows[0]['train_time']):.1f} ms (warm-up step, "
+              f"5 critic updates; {card})")
+
+    # the conditional step's device-time split (round-2 shapes, ift)
+    dev = torch.device(DEVICE)
+    cfg, params, _ = _gan_problem(GAN_BATCH, dict(GAN_SSN, backend="cuda"),
+                                  GAN_CONTRASTS)
+    ccfg = cwgan.CWGANConfig(gen=cfg, batch_size=GAN_BATCH, n_critic=5,
+                             n_critic0=5, clip_grad=1.0)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    state = cwgan.init_state(ccfg, generator=gen, gen_init=params)
+    raw = 1.0 + 0.1 * torch.randn((ccfg.n_critic * GAN_BATCH, cfg.n_stim,
+                                   cfg.n_probe), generator=gen, device=dev)
+    real = cwgan.tag_with_conditions(ccfg, raw).reshape(
+        ccfg.n_critic, ccfg.critic_batch, -1)
+
+    def step():
+        nonlocal state
+        state, _ = cwgan.train_step(ccfg, ccfg.n_critic, state, real,
+                                    generator=gen)
+
+    _profile_step(f"conditional WGAN step (ift) B={GAN_BATCH} S=16 "
+                  "n_critic 5", card, step, ccfg.n_critic + 1)
+    return launches
+
+
+def _mm_argv(datastore, n_steps, *extra):
+    flat = lambda v: [str(x) for x in v]  # noqa: E731
+    return [
+        "--device", DEVICE, "--solver-backend", "cuda",
+        "--datastore", str(datastore), "--seed", str(SEED),
+        "--N", str(GAN_SSN["N"]), "--bandwidths", *flat(BANDWIDTHS),
+        "--contrasts", *flat(GAN_CONTRASTS),
+        "--true-J", *flat(TRUE_J), "--true-D", *flat(TRUE_D),
+        "--true-S", *flat(TRUE_S),
+        "--J", *flat(START_J), "--D", *flat(START_D), "--S", *flat(TRUE_S),
+        "--n-steps", str(n_steps), *extra,
+    ]
+
+
+def _run_mm(entry, store, n_steps, steps_before, *extra):
+    """A moment-matching entry point once: one solve per step. Returns
+    (launches, learning rows)."""
+    launches, rows, info = _run_entry(
+        entry, _mm_argv(store, n_steps, *extra), store,
+        range(steps_before, steps_before + n_steps),
+        lambda args, steps: len(steps))
+    _check_learning(rows, steps_before + n_steps, entry.__name__,
+                    min_converged=(0.99 if info["config"]["solver"] == "ift"
+                                   else 0.5),
+                    losses=("loss", "mean_err", "cov_err", "rate_penalty"))
+    return launches, rows
+
+
+def phase_moments(card: str) -> int:
+    import torch
+
+    from tcgan_torch.models import moments
+    from tcgan_torch.run import bptt_moments
+    from tcgan_torch.run import moments as run_moments
+
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        store = Path(tmp) / "mm"
+        extra = ("--moment-ema", "0.99", "--fixed-z")
+        n, _ = _run_mm(run_moments, store, 6, 0, *extra)
+        launches += n
+        z_before = torch.load(store / "ckpt" / "6.pt",
+                              weights_only=True)["fixed_z"]
+        n, rows = _run_mm(run_moments, store, 2, 6, *extra, "--resume")
+        launches += n
+        after = torch.load(store / "ckpt" / "8.pt", weights_only=True)
+        if after["step"] != 8 or not torch.equal(after["fixed_z"], z_before):
+            raise AssertionError("moments: the fixed z-set changed across "
+                                 "--resume")
+        train_ms = [1e3 * float(r["train_time"]) for r in rows[1:]]
+        _line(f"[moments] run.moments B={MM_BATCH} --fixed-z: z-set "
+              f"{tuple(z_before.shape)} equal before and after --resume; "
+              f"train_time steps 1-7 median {statistics.median(train_ms):.1f}"
+              f" ms ({card})")
+        n, rows = _run_mm(bptt_moments, Path(tmp) / "bptt_mm", 1, 0)
+        launches += n
+        _line(f"[moments] run.bptt_moments B={MM_BATCH} seqlen "
+              f"{BPTT_SEQLEN}: train_time "
+              f"{1e3 * float(rows[0]['train_time']):.1f} ms ({card})")
+
+    # the moment-matching step's device-time split (ift, EMA, fixed z)
+    cfg, params, _ = _gan_problem(MM_BATCH, dict(GAN_SSN, backend="cuda"),
+                                  GAN_CONTRASTS)
+    mcfg = moments.MomentMatchingConfig(gen=cfg, batch_size=MM_BATCH,
+                                        moment_ema=0.99, fixed_z=True)
+    state = moments.init_state(mcfg, gen_init=params)
+    dm = torch.full((cfg.tc_dim,), 5.0, device=DEVICE)
+    ds = dm[:, None] * dm[None, :]
+
+    def step():
+        nonlocal state
+        state, _ = moments.train_step(mcfg, state, dm, ds)
+
+    _profile_step(f"moment-matching step (ift) B={MM_BATCH} S=16", card,
+                  step, 1)
+    return launches
+
+
+def _timed(number, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    _line(f"[smoke] phase {number} ({fn.__name__}) took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
-    card = phase_environment()
-    phase_build()
-    kernel = phase_kernel(card)
-    fwd_launches = phase_main_path()
-    phase_ift(card)
-    gan_launches = phase_gan(card)
-    kernel["launches"] = fwd_launches + gan_launches
-    kernel["launches_by_path"] = {"run.forward": fwd_launches,
-                                  "run.gan": gan_launches}
+    t_start = time.perf_counter()
+    card = _timed(1, phase_environment)
+    _timed(2, phase_build)
+    kernel = _timed(3, phase_kernel, card)
+    by_path = {"run.forward": _timed(4, phase_main_path)}
+    _timed(5, phase_ift, card)
+    by_path["run.gan"] = _timed(6, phase_gan, card)
+    by_path["run.bptt_wgan (fake truth)"] = _timed(7, phase_bptt, card)
+    by_path["run.bptt_cwgan"] = _timed(8, phase_cwgan, card)
+    by_path["run.moments + run.bptt_moments"] = _timed(9, phase_moments,
+                                                       card)
+    kernel["launches"] = sum(by_path.values())
+    kernel["launches_by_path"] = by_path
+    _line(f"[smoke] all phases took {time.perf_counter() - t_start:.1f} s")
     import torch
 
     _line(json.dumps({"kernels": [kernel]}))

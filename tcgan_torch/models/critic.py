@@ -58,11 +58,12 @@ def params_from_numpy(np_params, device=None, dtype=torch.float32
             for k, v in np_params.items()}
 
 
-@functools.lru_cache(maxsize=16)
-def _input_scale(scale: Tuple[float, ...], dtype, device) -> torch.Tensor:
-    # built once per device: a host->device copy per call would sync the
-    # host with the stream on every critic evaluation
-    return torch.tensor(scale, dtype=dtype, device=device)
+@functools.lru_cache(maxsize=32)
+def device_constant(values: Tuple[float, ...], dtype, device) -> torch.Tensor:
+    """A constant table on ``device``, built once: a host->device copy per
+    call would sync the host with the stream on every use. Shared; never
+    modify it in place."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def apply(cfg: CriticConfig, params: Dict[str, torch.Tensor],
@@ -70,7 +71,7 @@ def apply(cfg: CriticConfig, params: Dict[str, torch.Tensor],
     """Critic score, shape (...,) for input (..., in_dim)."""
     h = x
     if cfg.input_scale is not None:
-        h = x * _input_scale(cfg.input_scale, x.dtype, x.device)
+        h = x * device_constant(cfg.input_scale, x.dtype, x.device)
     # promote like jnp's matmul (the kernel returns fp32 tuning curves
     # whatever the params' dtype)
     h = h.to(torch.promote_types(h.dtype, params["w0"].dtype))

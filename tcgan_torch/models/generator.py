@@ -7,9 +7,11 @@ builds Dale-constrained weight matrices, solves the SSN fixed point under the
 bandwidth x contrast battery and reads out tuning curves at probe neurons.
 
 Gradients flow to the parameters through the fixed point by the implicit
-function theorem (:mod:`tcgan_torch.ops.ift`, ``solver="ift"``). Not yet
-ported: the unrolled BPTT solver (``ops/euler.py``) and mesh sharding; each
-raises ``NotImplementedError`` naming its ROADMAP item.
+function theorem (:mod:`tcgan_torch.ops.ift`, ``solver="ift"``, configs
+C2/C4/C5) or by backpropagation through a fixed-length Euler unroll
+(:mod:`tcgan_torch.ops.euler`, ``solver="bptt"``, config C3). Mesh sharding
+is not ported yet and raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from tcgan_torch.ops import ift, stimulus, weights
+from tcgan_torch.ops import euler, ift, stimulus, weights
 from tcgan_torch.ops.ssn import (
     DEFAULT_BANDWIDTHS,
     DEFAULT_CONTRASTS,
@@ -153,13 +155,9 @@ def sample_tuning_curves(cfg: GeneratorConfig, params: Dict[str, torch.Tensor],
     :func:`weights.sample_z` would draw it: (batch // 2, 2N, 2N) in
     antithetic mode, else (batch, 2N, 2N)), otherwise one draw from
     ``generator``. Everything runs on the device of ``params``;
-    differentiable with respect to ``params`` through the implicit solve.
+    differentiable with respect to ``params`` through the chosen solver.
     """
-    if cfg.solver == "bptt":
-        raise NotImplementedError(
-            "solver='bptt' needs ops/euler.py, not ported yet (ROADMAP "
-            "Queue 1, ops/euler.py and run/bptt_wgan.py)")
-    if cfg.solver != "ift":
+    if cfg.solver not in ("ift", "bptt"):
         raise ValueError(f"unknown solver {cfg.solver!r}")
     if cfg.mesh_axis or cfg.model_axis:
         raise NotImplementedError(
@@ -179,8 +177,14 @@ def sample_tuning_curves(cfg: GeneratorConfig, params: Dict[str, torch.Tensor],
         z = torch.cat([z, -z], dim=0)
     x = cfg.ssn.site_pos(dtype=cfg.dtype, device=device)
     W = weights.build_weight(J, D, S, z, x)
-    res = ift.solve_fixed_point_implicit(
-        cfg.ssn, W, cfg.stimulus_battery(device), grad_method=cfg.grad_method)
+    I_ext = cfg.stimulus_battery(device)
+    if cfg.solver == "ift":
+        res = ift.solve_fixed_point_implicit(cfg.ssn, W, I_ext,
+                                             grad_method=cfg.grad_method)
+    else:
+        res = euler.solve_dynamics(
+            cfg.ssn, W, I_ext,
+            checkpoint_chunk=cfg.bptt_checkpoint_chunk or None)
 
     tc = res.r[..., cfg.probe_indices(device)]  # (B, S, P)
     if cfg.track_offset_identity:

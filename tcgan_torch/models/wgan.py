@@ -23,9 +23,14 @@ Differences of form from the reference, not of behavior:
   leaves the whole inner state (the schedule's count included) unchanged,
   so the learning rate follows applied updates, not GAN steps.
 
-Not ported yet: the drift-ratio and velocity latches of the late anchor
-gamma (``anchor_ema_switch_drift`` / ``anchor_ema_switch_vel``), which raise
-``NotImplementedError`` (ROADMAP Queue 1, item 9).
+The late anchor gamma switches at a step (``anchor_ema_switch_step``) or
+latches on the parameters' own motion (``anchor_ema_switch_drift``, the
+ratio detector, or ``anchor_ema_switch_vel``, the velocity detector; see
+:func:`next_drift_latch`). The latch state lives on the device.
+
+:func:`run_step` is the step's schedule, shared with the conditional WGAN
+(:mod:`tcgan_torch.models.cwgan`), which supplies its own fake batch and
+losses.
 """
 
 from __future__ import annotations
@@ -92,7 +97,10 @@ class WGANConfig:
     # two-phase anchor gamma: moment_ema -> anchor_ema_late at a step
     anchor_ema_late: float = 0.0
     anchor_ema_switch_step: int = 0
-    # latched late gamma (ROADMAP Queue 1, item 9: not ported yet)
+    # latched late gamma: the max over components of |EMA(delta)| /
+    # EMA(|delta|) (drift) or of the debiased |EMA(delta)| in %-per-1k
+    # steps (vel) first drops below the threshold, from the arming step
+    # anchor_ema_switch_step on (0 = off; vel is the recommended detector)
     anchor_ema_switch_drift: float = 0.0
     anchor_ema_switch_vel: float = 0.0
     anchor_drift_ema: float = 0.995
@@ -129,7 +137,8 @@ class TrainState(NamedTuple):
     anchor_opt: Any = None
     # critic-cooling latch (gen_lr_switch_residual > 0 only)
     endgame: Any = None
-    # latched late-gamma state of the reference; always None here
+    # latched late-gamma state (a latch detector on only): EMAs of the
+    # per-step parameter deltas, signed and absolute, and the latch
     drift_dir: Any = None
     drift_mag: Any = None
     gamma_late: Any = None
@@ -220,13 +229,16 @@ def _inc(count: torch.Tensor) -> torch.Tensor:
 class Adam:
     """Functional ``optax.apply_if_finite(optax.chain(
     optax.clip_by_global_norm(clip), optax.adam(lr, b1, b2)), 100)``;
-    ``clip`` 0 drops the clip. ``lr`` is a float or a schedule (int32 count
-    tensor -> scalar tensor)."""
+    ``clip`` 0 drops the clip, ``finite_guard`` False drops
+    ``apply_if_finite`` (every update applies; its counters stay at their
+    init values). ``lr`` is a float or a schedule (int32 count tensor ->
+    scalar tensor)."""
 
     lr: float | Callable
     b1: float
     b2: float
     clip: float = 0.0
+    finite_guard: bool = True
 
     def init(self, params: Params) -> AdamState:
         device = next(iter(params.values())).device
@@ -242,11 +254,16 @@ class Adam:
     def update(self, grads: Params, state: AdamState
                ) -> Tuple[Params, AdamState]:
         keys = sorted(grads)  # the reference's leaf order
-        finite = torch.stack([torch.isfinite(grads[k]).all()
-                              for k in keys]).all()
-        notfinite_count = torch.where(finite, torch.zeros_like(
-            state.notfinite_count), _inc(state.notfinite_count))
-        apply = finite | (notfinite_count > _MAX_CONSECUTIVE_ERRORS)
+        if self.finite_guard:
+            finite = torch.stack([torch.isfinite(grads[k]).all()
+                                  for k in keys]).all()
+            notfinite_count = torch.where(finite, torch.zeros_like(
+                state.notfinite_count), _inc(state.notfinite_count))
+            apply = finite | (notfinite_count > _MAX_CONSECUTIVE_ERRORS)
+        else:
+            finite, notfinite_count = state.last_finite, state.notfinite_count
+            apply = torch.ones((), dtype=torch.bool,
+                               device=state.count.device)
 
         g = grads
         if self.clip > 0:
@@ -334,11 +351,17 @@ def _check_config(cfg: WGANConfig):
     if cfg.anchor_ema_late > 0 and cfg.moment_anchor <= 0:
         raise ValueError("anchor_ema_late schedules the moment anchor's "
                          "EMA — it requires moment_anchor > 0")
-    if cfg.anchor_ema_switch_drift > 0 or cfg.anchor_ema_switch_vel > 0:
-        raise NotImplementedError(
-            "the drift-ratio and velocity latches of the late anchor gamma "
-            "(anchor_ema_switch_drift / anchor_ema_switch_vel) are not "
-            "ported yet (ROADMAP Queue 1, item 9)")
+    for field in ("anchor_ema_switch_drift", "anchor_ema_switch_vel"):
+        if getattr(cfg, field) > 0 and cfg.anchor_ema_late <= 0:
+            raise ValueError(f"{field} latches the LATE anchor gamma — it "
+                             "requires anchor_ema_late > 0")
+    if cfg.anchor_ema_switch_vel > 0 and cfg.anchor_ema_switch_drift > 0:
+        raise ValueError("anchor_ema_switch_vel and anchor_ema_switch_drift "
+                         "are two detectors for the same latch — pick one")
+
+
+def _latched(cfg: WGANConfig) -> bool:
+    return cfg.anchor_ema_switch_drift > 0 or cfg.anchor_ema_switch_vel > 0
 
 
 def anchor_buffers(cfg: WGANConfig, data_moments, gen_params: Params
@@ -391,6 +414,12 @@ def init_state(cfg: WGANConfig, generator: torch.Generator | None = None,
                     if cfg.ema_decay > 0 else None),
         endgame=(torch.zeros((), dtype=torch.bool, device=device)
                  if cfg.gen_lr_switch_residual > 0 else None),
+        drift_dir=({k: torch.zeros_like(v) for k, v in gen_params.items()}
+                   if _latched(cfg) else None),
+        drift_mag=({k: torch.zeros_like(v) for k, v in gen_params.items()}
+                   if _latched(cfg) else None),
+        gamma_late=(torch.zeros((), dtype=torch.bool, device=device)
+                    if _latched(cfg) else None),
         **anchor_buffers(cfg, data_moments, gen_params),
     )
 
@@ -493,11 +522,64 @@ def gen_loss_fn(cfg: WGANConfig, gen_params: Params, critic_params: Params,
 # -- moment anchor and endgame ---------------------------------------------
 
 
-def anchor_gamma(cfg: WGANConfig, state: TrainState) -> float:
-    """EMA decay of this step's anchor moment blend (step-switch mode)."""
+def anchor_gamma(cfg: WGANConfig, state: TrainState):
+    """EMA decay of this step's anchor moment blend: in latched mode the
+    late gamma once ``state.gamma_late`` has latched (a device scalar),
+    else the step switch (a host float)."""
+    if _latched(cfg) and state.gamma_late is not None:
+        late, base = critic_lib.device_constant(
+            (cfg.anchor_ema_late, cfg.moment_ema), state.mom_ema_mean.dtype,
+            state.gamma_late.device)
+        return torch.where(state.gamma_late, late, base)
     return effective_gamma(cfg, state.step, base=cfg.moment_ema,
                            late=cfg.anchor_ema_late,
                            switch=cfg.anchor_ema_switch_step)
+
+
+def next_drift_latch(cfg: WGANConfig, state: TrainState,
+                     new_gen_params: Params):
+    """Advance the latched late-gamma state from this step's parameter
+    motion (adversarial and anchor updates together). Returns (the three
+    TrainState fields, the detector's statistic for the ``drift_ratio``
+    column, or None when off).
+
+    Ratio mode: per component |EMA(delta)| / EMA(|delta|), ~1 while it
+    descends and ~0 in a limit cycle; the statistic is the max over
+    components. Velocity mode: the max over components of the debiased
+    |EMA(delta)| (relative: log-space params already are, raw ones are
+    divided by |p|) in %-per-1000-steps. The latch fires when the
+    statistic is below the threshold at or after the arming step
+    ``anchor_ema_switch_step``; it can fire at the arming step itself.
+    Everything stays on the device."""
+    if state.drift_dir is None:
+        return dict(drift_dir=None, drift_mag=None,
+                    gamma_late=state.gamma_late), None
+    b = cfg.anchor_drift_ema
+    keys = sorted(new_gen_params)  # the reference's leaf order
+    delta = {k: new_gen_params[k] - state.gen_params[k] for k in keys}
+    drift_dir = {k: b * state.drift_dir[k] + (1.0 - b) * delta[k]
+                 for k in keys}
+    drift_mag = {k: b * state.drift_mag[k] + (1.0 - b) * delta[k].abs()
+                 for k in keys}
+    armed = (state.step + 1) >= cfg.anchor_ema_switch_step
+    if cfg.anchor_ema_switch_vel > 0:
+        # the debias assumes the EMAs started at step 0
+        debias = 1.0 - b ** (state.step + 1.0)
+        if cfg.gen.param_space == "log":
+            rel = [drift_dir[k].abs() for k in keys]
+        else:
+            rel = [drift_dir[k].abs() / (new_gen_params[k].abs() + 1e-12)
+                   for k in keys]
+        stat = torch.stack([r.max() for r in rel]).max() / debias * 1e5
+        threshold = cfg.anchor_ema_switch_vel
+    else:
+        stat = torch.stack([
+            (drift_dir[k].abs() / (drift_mag[k] + 1e-12)).max()
+            for k in keys]).max()
+        threshold = cfg.anchor_ema_switch_drift
+    fired = (stat < threshold) & armed
+    return dict(drift_dir=drift_dir, drift_mag=drift_mag,
+                gamma_late=state.gamma_late | fired), stat
 
 
 def anchor_loss(cfg: WGANConfig, state: TrainState, out):
@@ -595,14 +677,17 @@ def next_endgame(cfg: WGANConfig, state: TrainState, a_res):
 # -- the step --------------------------------------------------------------
 
 
-def train_step_impl(cfg: WGANConfig, n_critic: int, state: TrainState,
-                    real_stack: torch.Tensor, *,
-                    noise: StepNoise | None = None,
-                    generator: torch.Generator | None = None
-                    ) -> Tuple[TrainState, StepMetrics]:
-    """One GAN step: ``n_critic`` critic updates on ``real_stack[i]``
-    ((n_critic, critic_batch, tc_dim)), one generator update, then the
-    anchor. Noise is ``noise`` when given, else drawn from ``generator``."""
+def run_step(cfg: WGANConfig, n_critic: int, state: TrainState,
+             real_stack: torch.Tensor, noise: StepNoise | None,
+             generator: torch.Generator | None, *, fake_batch: Callable,
+             critic_loss: Callable, gen_loss: Callable,
+             anchor_gen_cfg: GeneratorConfig | None = None
+             ) -> Tuple[TrainState, StepMetrics]:
+    """The GAN step's schedule: ``n_critic`` critic updates, each on
+    ``fake_batch(z) -> (fake rows, row weights or None)`` solved without a
+    graph, then one generator update on ``gen_loss``, the anchor updates
+    (their batches in ``anchor_gen_cfg``'s layout), the drift latch and the
+    parameter EMA."""
     _check_config(cfg)
     if noise is None and generator is None:
         raise ValueError("train_step_impl needs noise= or generator=")
@@ -611,22 +696,20 @@ def train_step_impl(cfg: WGANConfig, n_critic: int, state: TrainState,
     d_losses, ws, gps, accs = [], [], [], []
     for i in range(n_critic):
         real = real_stack[i]
+        # the fake batch is data to the critic: no graph through the solve
         with record_function("wgan.critic_solve"), torch.no_grad():
-            fout = gen_lib.sample_tuning_curves(
-                cfg.gen, state.gen_params, cfg.batch_size,
-                z=None if noise is None else noise.critic_z[i],
-                generator=generator)
+            fake, fake_w = fake_batch(None if noise is None
+                                      else noise.critic_z[i])
         with record_function("wgan.critic_update"):
             if noise is None:
-                eps = torch.rand((cfg.critic_batch, 1), generator=generator,
+                eps = torch.rand((real.shape[0], 1), generator=generator,
                                  dtype=real.dtype, device=real.device)
             else:
                 eps = torch.as_tensor(noise.gp_eps[i], dtype=real.dtype,
                                       device=real.device)
             leaves = _leaves(critic_params)
-            loss, (w, gp, acc) = critic_loss_fn(
-                cfg, leaves, real, fout.tc, eps,
-                fake_w=fake_sample_weights(cfg, fout))
+            loss, (w, gp, acc) = critic_loss(cfg, leaves, real, fake, eps,
+                                             fake_w=fake_w)
             updates, critic_opt = critic_tx.update(_grad(loss, leaves),
                                                    critic_opt)
             critic_params = apply_updates(critic_params, updates)
@@ -637,7 +720,7 @@ def train_step_impl(cfg: WGANConfig, n_critic: int, state: TrainState,
 
     with record_function("wgan.gen_forward"):
         leaves = _leaves(state.gen_params)
-        g_loss, (pen, fconv, fdiv, miters, cyield) = gen_loss_fn(
+        g_loss, (pen, fconv, fdiv, miters, cyield) = gen_loss(
             cfg, leaves, critic_params,
             z=None if noise is None else noise.gen_z, generator=generator)
     with record_function("wgan.gen_backward"):
@@ -650,7 +733,8 @@ def train_step_impl(cfg: WGANConfig, n_critic: int, state: TrainState,
         gen_params, anchor_state, a_res = apply_anchor_update(
             cfg, state, gen_params,
             anchor_z=None if noise is None else noise.anchor_z,
-            generator=generator)
+            generator=generator, gen_cfg=anchor_gen_cfg)
+    drift_fields, drift_ratio = next_drift_latch(cfg, state, gen_params)
 
     ema_params = state.ema_params
     if cfg.ema_decay > 0 and ema_params is not None:
@@ -668,6 +752,7 @@ def train_step_impl(cfg: WGANConfig, n_critic: int, state: TrainState,
         data_mean=state.data_mean,
         data_second=state.data_second,
         endgame=next_endgame(cfg, state, a_res),
+        **drift_fields,
         **anchor_state,
     )
     metrics = StepMetrics(
@@ -686,8 +771,28 @@ def train_step_impl(cfg: WGANConfig, n_critic: int, state: TrainState,
         acc_iters=torch.stack(accs),
         anchor_residual=a_res,
         circuit_yield=cyield,
+        drift_ratio=drift_ratio,
     )
     return new_state, metrics
+
+
+def train_step_impl(cfg: WGANConfig, n_critic: int, state: TrainState,
+                    real_stack: torch.Tensor, *,
+                    noise: StepNoise | None = None,
+                    generator: torch.Generator | None = None
+                    ) -> Tuple[TrainState, StepMetrics]:
+    """One GAN step: ``n_critic`` critic updates on ``real_stack[i]``
+    ((n_critic, critic_batch, tc_dim)), one generator update, then the
+    anchor. Noise is ``noise`` when given, else drawn from ``generator``."""
+    def fake_batch(z):
+        out = gen_lib.sample_tuning_curves(cfg.gen, state.gen_params,
+                                           cfg.batch_size, z=z,
+                                           generator=generator)
+        return out.tc, fake_sample_weights(cfg, out)
+
+    return run_step(cfg, n_critic, state, real_stack, noise, generator,
+                    fake_batch=fake_batch, critic_loss=critic_loss_fn,
+                    gen_loss=gen_loss_fn)
 
 
 # PyTorch runs eagerly: the step the drivers call is the implementation.

@@ -185,11 +185,22 @@ def add_gan_flags(p: argparse.ArgumentParser):
                    help="GAN step at which --anchor-ema-late takes over "
                         "(0 = off)")
     g.add_argument("--anchor-ema-switch-drift", type=float, default=0.0,
-                   help="drift-latched late gamma (not ported yet; "
-                        "ROADMAP Queue 1, item 9)")
+                   help="drift-latched late gamma (0 = off): engage "
+                        "--anchor-ema-late when the max-over-components "
+                        "ratio |EMA(delta)|/EMA(|delta|) of the generator "
+                        "params first drops below this value; "
+                        "--anchor-ema-switch-step arms it; recorded per "
+                        "step as drift_ratio in learning.jsonl. Prefer "
+                        "--anchor-ema-switch-vel: at production step noise "
+                        "this ratio fires at the arming step")
     g.add_argument("--anchor-ema-switch-vel", type=float, default=0.0,
-                   help="velocity-latched late gamma (not ported yet; "
-                        "ROADMAP Queue 1, item 9)")
+                   help="velocity-latched late gamma (0 = off; mutually "
+                        "exclusive with --anchor-ema-switch-drift): engage "
+                        "--anchor-ema-late when the max-over-components "
+                        "smoothed relative parameter velocity first drops "
+                        "below this value, in %%-per-1000-steps (try 1.0); "
+                        "--anchor-ema-switch-step arms it; recorded per "
+                        "step as drift_ratio in learning.jsonl")
     g.add_argument("--anchor-drift-ema", type=float, default=0.995,
                    help="decay for the drift detector's delta EMAs")
     g.add_argument("--anchor-updates", type=int, default=1,
@@ -312,6 +323,17 @@ def contrast_cond_weight(args, conditional):
     per_stim = np.repeat(cw, len(args.bandwidths))
     per_stim = per_stim / per_stim.mean()
     return tuple(float(w) for w in per_stim)
+
+
+def resolve_device(args) -> torch.device:
+    """``--device`` as a torch device; a CUDA device with none visible is an
+    error, never a CPU fallback."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device is "
+                           "visible (there is no CPU fallback; pass "
+                           "--device cpu to run on the CPU)")
+    return device
 
 
 def ssn_config_from_args(args) -> SSNConfig:

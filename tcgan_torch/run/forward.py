@@ -5,7 +5,9 @@ solves batches of sampled circuits under the full bandwidth x contrast
 battery and writes tuning curves and solver diagnostics into the datastore.
 With ``--solver-backend cuda`` the solve runs in the fused CUDA kernel, whose
 mat-vec is fp32-accurate 3xTF32 on the tensor cores (``info.json`` records
-``"kernel_precision": "3xtf32"``).
+``"kernel_precision": "3xtf32"``). ``--solver bptt`` integrates a fixed
+``--seqlen`` Euler steps instead (no kernel). Batches are solved under
+``torch.inference_mode()``: nothing is kept for a backward pass.
 
 Usage:
     python -m tcgan_torch.run.forward --datastore /tmp/run1 --batch-size 512 \
@@ -39,8 +41,7 @@ def make_parser() -> argparse.ArgumentParser:
                         "this many circuits are generated (rounded up to a "
                         "--batch-size multiple; 0 = one batch)")
     p.add_argument("--solver", choices=("ift", "bptt"), default="ift",
-                   help="fixed-point solve vs fixed-length Euler scan "
-                        "(bptt not ported yet)")
+                   help="fixed-point solve vs fixed-length Euler scan")
     return p
 
 
@@ -55,15 +56,7 @@ def main(argv=None):
         raise NotImplementedError(
             "--parallel mesh is not ported yet (ROADMAP Queue 1, "
             "parallel/mesh.py)")
-    if args.solver == "bptt":
-        raise NotImplementedError(
-            "--solver bptt is not ported yet (ROADMAP Queue 1, ops/euler.py "
-            "and run/bptt_wgan.py)")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device is "
-                           "visible (there is no CPU fallback; pass "
-                           "--device cpu to run on the CPU)")
+    device = common.resolve_device(args)
     gen_cfg = common.generator_config_from_args(args, solver=args.solver)
     params = gen_lib.init_params(gen_cfg, common.as22(args.J),
                                  common.as22(args.D), common.as22(args.S),
@@ -84,7 +77,7 @@ def main(argv=None):
     n_batches = max(1, math.ceil((args.total_samples or args.batch_size)
                                  / args.batch_size))
     launches0 = ssn_solve.launches
-    with torch.no_grad():
+    with torch.inference_mode():
         # the first batch pays the one-time costs (the kernel's build and
         # load); the timed batches after it are warm
         with watch.time("compile+solve"):

@@ -1,9 +1,10 @@
-"""Shared main() logic of the WGAN entry points.
+"""Shared main() logic of the WGAN-family entry points.
 
-Port of :mod:`tcgan_tpu.run.gan_common`, the unconditional path: load or
-generate the real data, build the WGAN config, init or resume the state and
-run the driver. ``--parallel mesh`` and the conditional WGAN are not ported
-yet and raise ``NotImplementedError`` naming their ROADMAP items.
+Port of :mod:`tcgan_tpu.run.gan_common`: load or generate the real data,
+build the WGAN or conditional-WGAN config, init or resume the state and run
+the driver, with the fixed-point (``ift``) or the unrolled Euler (``bptt``)
+solver. ``--parallel mesh`` is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -27,6 +28,9 @@ def make_gan_parser(doc: str) -> argparse.ArgumentParser:
 
 
 def run_gan(args, solver: str, conditional: bool) -> int:
+    import dataclasses
+
+    from tcgan_torch.models import cwgan as cwgan_lib
     from tcgan_torch.models import generator as gen_lib
     from tcgan_torch.models import wgan as wgan_lib
     from tcgan_torch.ops.cuda import ssn_solve
@@ -39,30 +43,35 @@ def run_gan(args, solver: str, conditional: bool) -> int:
         raise NotImplementedError(
             "--parallel mesh is not ported yet (ROADMAP Queue 1, item 20, "
             "parallel/mesh.py)")
-    if conditional:
-        raise NotImplementedError(
-            "the conditional WGAN is not ported yet (ROADMAP Queue 1, item "
-            "14, models/cwgan.py)")
-    if solver != "ift":
-        raise NotImplementedError(
-            f"solver {solver!r} is not ported yet (ROADMAP Queue 1, "
-            "ops/euler.py and run/bptt_wgan.py)")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device is "
-                           "visible (there is no CPU fallback; pass "
-                           "--device cpu to run on the CPU)")
+    device = common.resolve_device(args)
     gen_cfg = common.generator_config_from_args(args, solver=solver)
+    if getattr(args, "bptt_checkpoint_chunk", 0):
+        gen_cfg = dataclasses.replace(
+            gen_cfg, bptt_checkpoint_chunk=args.bptt_checkpoint_chunk)
+    model = cwgan_lib if conditional else wgan_lib
 
-    # real data first (also needed for the input-normalization scale)
+    # real data first (also needed for the input-normalization scale); the
+    # conditional critic's data is the joint per-circuit layout
+    data_gen_cfg = gen_cfg
+    if conditional:
+        data_gen_cfg = dataclasses.replace(gen_cfg,
+                                           track_offset_identity=True)
     launches0 = ssn_solve.launches
-    dataset = common.load_or_generate_dataset(args, gen_cfg, device=device)
+    dataset = common.load_or_generate_dataset(args, data_gen_cfg,
+                                              device=device)
     truth_launches = ssn_solve.launches - launches0
-    input_scale, _ = common.critic_input_scales(args, gen_cfg, dataset,
-                                                conditional)
-    cfg = wgan_lib.WGANConfig(
+    input_scale, cond_input_scale = common.critic_input_scales(
+        args, gen_cfg, dataset, conditional)
+    extra_cfg = {}
+    if conditional:
+        extra_cfg = dict(cond_input_scale=cond_input_scale,
+                         cond_weight=common.contrast_cond_weight(
+                             args, conditional))
+    mk_cfg = cwgan_lib.CWGANConfig if conditional else wgan_lib.WGANConfig
+    cfg = mk_cfg(
         gen=gen_cfg,
         input_scale=input_scale,
+        **extra_cfg,
         critic_lr_decay_steps=args.critic_lr_decay_steps,
         critic_layers=tuple(args.disc_layers),
         batch_size=args.batch_size,
@@ -95,12 +104,26 @@ def run_gan(args, solver: str, conditional: bool) -> int:
         seed=args.seed,
     )
 
+    sampler = dataset.sample_stack
+    if conditional:
+        # tagged once; sampling keeps each circuit's condition block
+        n = dataset.num_samples
+        tagged = cwgan_lib.tag_with_conditions(
+            cfg, dataset.tc.reshape(n, cfg.gen.n_stim, cfg.gen.n_probe)
+        ).reshape(n, cfg.gen.n_stim, -1)
+
+        def sampler(generator, n_stacks, _batch):
+            idx = torch.randint(0, n, (n_stacks, cfg.batch_size),
+                                generator=generator, device=tagged.device)
+            return tagged[idx].reshape(
+                n_stacks, cfg.batch_size * cfg.gen.n_stim, -1)
+
     store = DataStore(args.datastore)
     extra = {"kernel_launches_fake_truth": truth_launches}
     if args.solver_backend == "cuda":
         extra["kernel_precision"] = ssn_solve.KERNEL_PRECISION
-    store.write_info({"entry": "wgan", "solver": solver, **vars(args)},
-                     extra=extra)
+    store.write_info({"entry": "cwgan" if conditional else "wgan",
+                      "solver": solver, **vars(args)}, extra=extra)
     driver_cfg = DriverConfig(
         n_steps=args.n_steps,
         checkpoint_every=args.checkpoint_every,
@@ -115,15 +138,15 @@ def run_gan(args, solver: str, conditional: bool) -> int:
     gen_init = gen_lib.init_params(
         cfg.gen, common.as22(args.J), common.as22(args.D),
         common.as22(args.S), device=device)
-    state = wgan_lib.init_state(
+    state = model.init_state(
         cfg, gen_init=gen_init,
         data_moments=dataset.moments() if cfg.moment_anchor > 0 else None)
     ckpt = CheckpointManager(store.subdir("ckpt"))
     if args.resume and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
-    driver = GANDriver(cfg, driver_cfg, store, wgan_lib.train_step, state,
-                       dataset.sample_stack, checkpoints=ckpt,
-                       gen_loss_fn=wgan_lib.gen_loss_fn)
+    driver = GANDriver(cfg, driver_cfg, store, model.train_step, state,
+                       sampler, checkpoints=ckpt,
+                       gen_loss_fn=model.gen_loss_fn)
     with maybe_trace(args.profile_dir):
         driver.run()
     return 0

@@ -18,7 +18,9 @@ Port of :class:`tcgan_tpu.train.driver.GANDriver`:
   CUDA kernel takes ``max_iter`` at run time, so a new budget costs
   nothing.
 
-The moment-matching driver waits for ROADMAP Queue 1, item 15.
+:class:`MomentMatchingDriver` runs the moment-matching fit with the same
+stream handling, one host copy per step, divergence accounting and graceful
+stop.
 """
 
 from __future__ import annotations
@@ -36,7 +38,9 @@ import torch
 from tcgan_torch.models import generator as gen_lib
 from tcgan_torch.train.checkpoint import CheckpointManager
 from tcgan_torch.train.datastore import DataStore, PervasiveDivergenceError
-from tcgan_torch.train.recorders import RecorderSet
+from tcgan_torch.train.recorders import (GEN_COLUMNS, CSVRecorder,
+                                         JSONLRecorder, RecorderSet,
+                                         flatten_gen_params)
 from tcgan_torch.utils.stopwatch import StopWatch
 
 
@@ -99,6 +103,13 @@ def _divergence_streak(streak: int, frac: float, cfg: "DriverConfig",
             f"step {step}: diverged fraction {frac:.2f} exceeded "
             f"{cfg.divergence_abort} for {streak} steps")
     return streak
+
+
+def _step_generator(seed: int, start: int, device) -> torch.Generator:
+    """The step loop's noise source: a resumed run draws fresh noise
+    instead of replaying steps 0..start."""
+    seed = int(np.random.SeedSequence([seed, start]).generate_state(1)[0])
+    return torch.Generator(device).manual_seed(seed)
 
 
 class _GracefulStop:
@@ -194,10 +205,7 @@ class GANDriver:
         if start > 0:
             # resume: drop the rows of the replayed window
             self.recorders.truncate_from(start)
-        # a resumed run draws fresh noise instead of replaying steps 0..n
-        seed = int(np.random.SeedSequence(
-            [self.cfg.seed, start]).generate_state(1)[0])
-        generator = torch.Generator(self.device).manual_seed(seed)
+        generator = _step_generator(self.cfg.seed, start, self.device)
         stop = _GracefulStop()
         stop.__enter__()
         try:
@@ -404,3 +412,83 @@ class GANDriver:
     def _check_divergence(self, step: int, metrics):
         self._div_streak = _divergence_streak(
             self._div_streak, float(metrics.frac_diverged), self.cfg, step)
+
+
+class MomentMatchingDriver:
+    """Runs a moment-matching fit. The model supplies ``train_step(cfg,
+    state, data_mean, data_second, generator=)``; ``learning.csv``,
+    ``learning.jsonl`` and ``generator.csv`` get one row per step."""
+
+    LEARNING_COLUMNS = ["step", "loss", "mean_err", "cov_err",
+                        "rate_penalty", "frac_converged", "frac_diverged",
+                        "train_time"]
+
+    def __init__(self, model_cfg, driver_cfg: DriverConfig, store: DataStore,
+                 train_step: Callable, state, data_moments,
+                 checkpoints: Optional[CheckpointManager] = None):
+        self.model_cfg = model_cfg
+        self.cfg = driver_cfg
+        self.store = store
+        self.train_step = train_step
+        self.state = state
+        self.data_mean, self.data_second = data_moments
+        self.checkpoints = checkpoints or CheckpointManager(
+            store.subdir("ckpt"))
+        self.device = next(iter(state.gen_params.values())).device
+        self._learning = CSVRecorder(store.file("learning.csv"),
+                                     self.LEARNING_COLUMNS)
+        self._jsonl = JSONLRecorder(store.file("learning.jsonl"))
+        self._gen = CSVRecorder(store.file("generator.csv"), GEN_COLUMNS)
+        self.watch = StopWatch()
+        self._div_streak = 0
+
+    def run(self, n_steps: Optional[int] = None, on_step=None):
+        n_steps = n_steps if n_steps is not None else self.cfg.n_steps
+        start = int(self.state.step)
+        streams = (self._learning, self._jsonl, self._gen)
+        if start > 0:
+            for rec in streams:  # resume: drop the replayed window's rows
+                rec.truncate_from(start)
+        generator = _step_generator(self.cfg.seed, start, self.device)
+        stop = _GracefulStop()
+        stop.__enter__()
+        try:
+            for step in range(start, start + n_steps):
+                with self.watch.time("train"):
+                    self.state, m = self.train_step(
+                        self.model_cfg, self.state, self.data_mean,
+                        self.data_second, generator=generator)
+                    _sync(self.device)
+                # ONE device->host copy for everything this step records
+                m, gen_params = device_get((m, self.state.gen_params))
+                row = dict(step=step, **m._asdict(),
+                           train_time=self.watch.last("train"))
+                self._learning.record(row)
+                self._jsonl.record(row)
+                g = {"step": step}
+                g.update(flatten_gen_params(
+                    gen_lib.param_values_np(self.model_cfg.gen, gen_params)))
+                self._gen.record(g)
+                self._div_streak = _divergence_streak(
+                    self._div_streak, float(m.frac_diverged), self.cfg, step)
+                if on_step is not None:
+                    on_step(step, self.state, m)
+                if (self.cfg.checkpoint_every
+                        and (step + 1) % self.cfg.checkpoint_every == 0):
+                    self.checkpoints.save(step + 1, self.state)
+                if stop.requested:
+                    break
+            self.checkpoints.save(int(self.state.step), self.state)
+            self.store.finalize("interrupted" if stop.requested
+                                else "finished")
+        except PervasiveDivergenceError as e:
+            self.store.finalize("known_error", {"error": str(e)})
+            raise
+        except BaseException:
+            self.store.finalize("crashed")
+            raise
+        finally:
+            stop.__exit__()
+            for rec in streams:
+                rec.close()
+        return self.state

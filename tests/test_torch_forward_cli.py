@@ -104,9 +104,26 @@ def test_device_cuda_without_gpu_raises(tmp_path, monkeypatch):
     (["--solver", "bptt"], "ops/euler.py"),
 ])
 def test_unported_modes_raise(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tforward.main(TINY + PORT_CPU + flags
-                      + ["--datastore", str(tmp_path / "x")])
+    """``--parallel mesh`` still raises. ``--solver bptt`` (ported, in
+    ``ops/euler.py``) writes the reference's artifacts: the same arrays
+    with the same shapes and dtypes, iters equal to ``--seqlen``, no kernel
+    launch (the noise draws differ, so values are compared in
+    ``tests/test_torch_generator.py``)."""
+    if item == "parallel/mesh.py":
+        with pytest.raises(NotImplementedError, match=item):
+            tforward.main(TINY + PORT_CPU + flags
+                          + ["--datastore", str(tmp_path / "x")])
+        return
+    argv = TINY + flags + ["--seqlen", "300", "--dt", "0.001"]
+    _, j_data = _run(jforward.main, argv, tmp_path / "jax")
+    t_info, t_data = _run(tforward.main, argv + PORT_CPU, tmp_path / "torch")
+    assert t_data.keys() == j_data.keys()
+    for k in j_data:
+        assert t_data[k].shape == j_data[k].shape, k
+        assert t_data[k].dtype == j_data[k].dtype, k
+    assert (t_data["iters"] == 300).all()
+    assert t_info["summary"]["kernel_launches"] == 0
+    assert t_info["config"]["solver"] == "bptt"
 
 
 def test_port_never_imports_jax():

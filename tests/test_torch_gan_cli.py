@@ -88,17 +88,48 @@ def test_tiny_cpu_fit_reads_like_a_jax_run_and_resumes(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    base = TINY_GAN + ["--device", "cpu", "--datastore", str(tmp_path / "x")]
+    """``--parallel mesh`` still raises. The options that raised before
+    they were ported now run as the reference does, one step each: the
+    velocity-latched late gamma records ``drift_ratio`` in learning.jsonl,
+    and the conditional path (``run_gan(..., conditional=True)``) writes
+    an ``entry: cwgan`` run; the streams' columns and keys equal those of
+    ``tcgan_tpu`` on the same command line."""
+    base = TINY_GAN + ["--n-steps", "1"]
     with pytest.raises(NotImplementedError, match="item 20"):
-        tgan.main(base + ["--parallel", "mesh"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tgan.main(base + ["--moment-anchor", "1e-3", "--anchor-ema-late",
-                          "0.9", "--anchor-ema-switch-vel", "1.0"])
+        tgan.main(base + ["--device", "cpu", "--parallel", "mesh",
+                          "--datastore", str(tmp_path / "x")])
+
+    def columns(path):
+        rows = [json.loads(line) for line in
+                (path / "learning.jsonl").read_text().splitlines()]
+        return (path / "learning.csv").read_text().splitlines()[0], rows
+
+    latch = ["--moment-anchor", "1e-3", "--anchor-ema-late", "0.9",
+             "--anchor-ema-switch-vel", "1.0"]
+    assert tgan.main(base + latch + ["--device", "cpu", "--datastore",
+                                     str(tmp_path / "t9")]) == 0
+    assert jgan.main(base + latch + ["--datastore",
+                                     str(tmp_path / "j9")]) == 0
+    (t_head, t_rows), (j_head, j_rows) = (columns(tmp_path / "t9"),
+                                          columns(tmp_path / "j9"))
+    assert t_head == j_head and sorted(t_rows[0]) == sorted(j_rows[0])
+    assert np.isfinite(t_rows[0]["drift_ratio"])
+    assert np.isfinite(j_rows[0]["drift_ratio"])
+
+    from tcgan_tpu.run import gan_common as jgan_common
     from tcgan_torch.run import gan_common
 
-    args = tgan.make_parser().parse_args(base)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        gan_common.run_gan(args, solver="ift", conditional=True)
+    args = tgan.make_parser().parse_args(
+        base + ["--device", "cpu", "--datastore", str(tmp_path / "t14")])
+    assert gan_common.run_gan(args, solver="ift", conditional=True) == 0
+    jargs = jgan.make_parser().parse_args(
+        base + ["--datastore", str(tmp_path / "j14")])
+    assert jgan_common.run_gan(jargs, solver="ift", conditional=True) == 0
+    (t_head, t_rows), (j_head, j_rows) = (columns(tmp_path / "t14"),
+                                          columns(tmp_path / "j14"))
+    assert t_head == j_head and sorted(t_rows[0]) == sorted(j_rows[0])
+    info = json.loads((tmp_path / "t14" / "info.json").read_text())
+    assert info["config"]["entry"] == "cwgan" and info["status"] == "finished"
 
 
 @pytest.mark.parametrize("flags,conditional", [

@@ -149,13 +149,28 @@ def test_gradients_flow_through_the_fixed_point():
         assert torch.isfinite(v.grad).all() and v.grad.abs().max() > 0
 
 
-def test_unported_paths_raise():
-    _, tcfg = _configs("xla", "plain")
+def test_unported_paths_raise(monkeypatch):
+    """Mesh sharding still raises; solver="bptt" (ported) matches the
+    reference's Euler unroll in f64 at rtol 1e-10, flags equal."""
+    jcfg, tcfg = _configs("xla", "plain")
     params = tgen.init_params(tcfg, J, D, S)
-    z = np.zeros((B, 12, 12))
-    with pytest.raises(NotImplementedError, match="ops/euler.py"):
-        tgen.sample_tuning_curves(dataclasses.replace(tcfg, solver="bptt"),
-                                  params, B, z=z)
+    z = np.random.default_rng(6).standard_normal((B, 12, 12))
+    monkeypatch.setattr(
+        jgen.weights, "sample_z",
+        lambda key, shape, N, dtype=jnp.float32: jnp.asarray(z, dtype))
+    bptt = dict(solver="bptt", ssn=dataclasses.replace(tcfg.ssn, seqlen=120))
+    ref = jgen.sample_tuning_curves(
+        dataclasses.replace(jcfg, solver="bptt", ssn=dataclasses.replace(
+            jcfg.ssn, seqlen=120)),
+        jgen.init_params(jcfg, J, D, S), jax.random.PRNGKey(0), B)
+    with torch.no_grad():
+        out = tgen.sample_tuning_curves(dataclasses.replace(tcfg, **bptt),
+                                        params, B, z=z)
+    np.testing.assert_allclose(out.tc.numpy(), np.asarray(ref.tc),
+                               rtol=1e-10)
+    np.testing.assert_array_equal(out.converged.numpy(),
+                                  np.asarray(ref.converged))
+    assert (out.iters == 120).all()
     with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
         tgen.sample_tuning_curves(dataclasses.replace(tcfg, mesh_axis="b"),
                                   params, B, z=z)

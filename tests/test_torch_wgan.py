@@ -320,12 +320,33 @@ def test_init_state_checks_and_unported_latches():
         twgan.init_state(dataclasses.replace(tcfg, moment_anchor=1e-3))
     with pytest.raises(ValueError, match="requires moment_anchor"):
         twgan.init_state(dataclasses.replace(tcfg, gen_lr_switch_residual=1))
+    # the latches (ported): the reference's config errors, and fresh latch
+    # state equal to the reference's
+    jcfg, _ = _cfgs()
+    dmom = (np.zeros(2), np.zeros((2, 2)))
     for field in ("anchor_ema_switch_drift", "anchor_ema_switch_vel"):
-        bad = dataclasses.replace(tcfg, moment_anchor=1e-3,
-                                  anchor_ema_late=0.9, **{field: 0.5})
-        with pytest.raises(NotImplementedError, match="item 9"):
-            twgan.init_state(bad, data_moments=(np.zeros(2),
-                                                np.zeros((2, 2))))
+        kw = dict(moment_anchor=1e-3, **{field: 0.5})
+        for mod, cfg in ((jwgan, jcfg), (twgan, tcfg)):
+            with pytest.raises(ValueError, match="requires anchor_ema_late"):
+                mod.init_state(dataclasses.replace(cfg, **kw),
+                               data_moments=dmom)
+        kw["anchor_ema_late"] = 0.9
+        jst = jwgan.init_state(dataclasses.replace(jcfg, **kw),
+                               data_moments=dmom)
+        tst = twgan.init_state(dataclasses.replace(tcfg, **kw),
+                               data_moments=dmom)
+        assert bool(tst.gamma_late) == bool(jst.gamma_late) is False
+        for name in ("drift_dir", "drift_mag"):
+            assert sorted(getattr(tst, name)) == sorted(getattr(jst, name))
+            for k, v in getattr(tst, name).items():
+                _close(v, getattr(jst, name)[k], 0)
+    both = dict(moment_anchor=1e-3, anchor_ema_late=0.9,
+                anchor_ema_switch_drift=0.5, anchor_ema_switch_vel=1.0)
+    for mod, cfg in ((jwgan, jcfg), (twgan, tcfg)):
+        with pytest.raises(ValueError, match="pick one"):
+            mod.init_state(dataclasses.replace(cfg, **both),
+                           data_moments=dmom)
+    assert twgan.init_state(tcfg).gamma_late is None
     state = twgan.init_state(tcfg)
     with pytest.raises(ValueError, match="noise"):
         twgan.train_step_impl(tcfg, 1, state,
