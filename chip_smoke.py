@@ -48,7 +48,7 @@ no result line):
    steps for 8 circuits on the card, held to the same computation in
    float64 on the CPU; chunked (100 steps) against unchunked at 32
    circuits, with the peak device memory of each; ``run.bptt_wgan
-   --seqlen 4000 --bptt-checkpoint-chunk 100`` at 256 circuits for 3 steps
+   --seqlen 4000 --bptt-checkpoint-chunk 100`` at 256 circuits for 2 steps
    and ``--resume`` for 1, launching the kernel for the fake truth only;
    the device-time split of a BPTT step (at 400 Euler steps: the profiler
    records every op of the unroll);
@@ -60,7 +60,29 @@ no result line):
    circuits for 6 steps and ``--resume`` for 2 (one launch per step after
    the fake truth; the z-set checkpointed before the resume is the one in
    the state after it), then ``run.bptt_moments`` for 1 step; the
-   device-time split of a moment-matching step.
+   device-time split of a moment-matching step;
+10. the multi-start ensemble (``run.ensemble``): 8 WGAN members of 64
+   circuits (start jitter 0.05) for 3 steps and ``--resume`` for 1, 4
+   conditional members for 2 steps, 8 moment-matching members (fixed z,
+   EMA 0.99, one fake truth per member) for 3 steps; launches per step
+   checked against ONE fit's schedule (all members in one launch per
+   solve), finite losses and ``frac_converged`` >= 0.99 per member, K rows
+   per step, the parameter export, member 0's exact start; then member m
+   of one ensemble step against ``wgan.train_step_impl`` run alone on
+   member m's state and noise (params, metrics and the first Adam
+   moments, which carry the raw gradients; beside them, the same step with
+   one adjoint stop rule over all members), and the ensemble step's host
+   time, device busy time and idle share beside one single-member step's;
+11. ``run.eval`` on phase 6's ``run.gan`` datastore (256 circuits: one
+   launch after the fake truth), then with ``--params-source npz``;
+12. ``analysis.identifiability`` on the round-2 battery and the 24-row one
+   (256 circuits, a 4096-sample precision report) with the kernel forward
+   and with the plain forward, the Jacobians held to each other, then
+   ``analysis.uncertainty`` on phase 6's run;
+13. the native CPU baseline (``csrc/ssnode.cpp`` through
+   ``tcgan_torch/ops/native.py``) at N=51, S=8, 32 circuits in float64,
+   held to the plain lockstep solve in float64, and its circuits/s on the
+   host's CPU beside the kernel's.
 
 Every phase prints its seconds.
 
@@ -121,6 +143,28 @@ CHUNK_RTOL = 1e-5
 # seqlen
 PROFILE_SEQLEN = 400
 MM_BATCH = 64
+# Phase 10: the multi-start ensemble (BASELINE.md:511: 8 members of 64
+# circuits, start jitter 0.05).
+ENS_K = 8
+ENS_BATCH = 64
+# member m of one float32 ensemble step on the card against the same step
+# run alone: the kernel solves each circuit alone in both (bit-equal
+# rates); the critic's batched matmuls and the adjoint's may round
+# differently. Max |diff| of log-space generator params (an Adam step moves
+# them 1e-4), of critic params (5 steps at lr 1e-3) and rel diff of the
+# metrics. A fresh state's first Adam step is about lr * sign(g), so the
+# params cannot see a wrong gradient of the right signs: the first moments
+# mu (the clipped raw gradients) are held too, as max |d mu| / max |mu| per
+# leaf. The generator's passes through the member-folded implicit adjoint
+# and its per-member stop rule: on the H100 it read 6.4e-7 (critic 3.6e-7),
+# and 2.7e-3 with one stop rule over all members, so 1e-5 tells them apart.
+MEMBER_TOL = {"gen_params": 1e-6, "critic_params": 1e-4, "metrics": 1e-3,
+              "gen_grad": 1e-5, "critic_grad": 1e-5}
+# Phase 12: the Jacobian from the kernel forward against the plain forward,
+# max |dJ| / max |J|: 3xTF32 rates agree with fp32 to ~1e-5.
+JAC_RTOL = 1e-3
+# Phase 13: native float64 against the plain lockstep in float64.
+NATIVE_RTOL = 1e-6
 
 
 def _line(*parts):
@@ -634,12 +678,13 @@ def _check_learning(rows, n_rows, name, min_converged=0.99,
                                  f"{r['frac_converged']}")
 
 
-def phase_gan(card: str) -> int:
+def phase_gan(card: str, work: Path) -> int:
+    """``run.gan``; its datastore stays in ``work`` for phases 11 and 12."""
     import numpy as np
 
     launches = 0
+    store = work / "gan"
     with tempfile.TemporaryDirectory() as tmp:
-        store = Path(tmp) / "gan"
         n, rows = _run_gan(store, 6, 0, "--checkpoint-every", "3")
         launches += n
         _check_learning(rows, 6, "gan")
@@ -937,18 +982,18 @@ def phase_bptt(card: str) -> int:
              str(BPTT_CHUNK), "--WGAN_n_critic0", "5")
     with tempfile.TemporaryDirectory() as tmp:
         store = Path(tmp) / "bptt"
-        n, rows = _run_gan(store, 3, 0, *extra, "--checkpoint-every", "3",
+        n, rows = _run_gan(store, 2, 0, *extra, "--checkpoint-every", "2",
                            entry=bptt_wgan)
         launches += n
-        _check_learning(rows, 3, "bptt_wgan", min_converged=0.5)
-        n, rows = _run_gan(store, 1, 3, *extra, "--resume", entry=bptt_wgan)
+        _check_learning(rows, 2, "bptt_wgan", min_converged=0.5)
+        n, rows = _run_gan(store, 1, 2, *extra, "--resume", entry=bptt_wgan)
         launches += n
-        _check_learning(rows, 4, "bptt_wgan --resume", min_converged=0.5)
-        if not all((store / "ckpt" / f"{k}.pt").exists() for k in (3, 4)):
-            raise AssertionError("bptt_wgan: checkpoints 3 and 4 missing")
+        _check_learning(rows, 3, "bptt_wgan --resume", min_converged=0.5)
+        if not all((store / "ckpt" / f"{k}.pt").exists() for k in (2, 3)):
+            raise AssertionError("bptt_wgan: checkpoints 2 and 3 missing")
         train_ms = [1e3 * float(r["train_time"]) for r in rows[1:]]
         _line(f"[bptt] run.bptt_wgan B={GAN_BATCH} seqlen {BPTT_SEQLEN} "
-              f"chunk {BPTT_CHUNK}: train_time steps 1-3 "
+              f"chunk {BPTT_CHUNK}: train_time steps 1-2 "
               f"{', '.join(f'{t:.1f}' for t in train_ms)} ms, median "
               f"{statistics.median(train_ms):.1f} ms; frac_converged "
               f"{[float(r['frac_converged']) for r in rows]} ({card})")
@@ -1102,6 +1147,419 @@ def phase_moments(card: str) -> int:
     return launches
 
 
+def _ens_argv(datastore, n_steps, k, *extra):
+    return _gan_argv(datastore, n_steps, "--batch-size", str(ENS_BATCH),
+                     "--ensemble", str(k), "--record-every", "1", *extra)
+
+
+def _run_ensemble(argv, store, steps, per_step):
+    """``run.ensemble`` once, the kernel's count set to 0 just before and
+    read just after: the launches after the fake truth must be
+    ``per_step(args, step)`` summed over ``steps``, whatever the member
+    count.
+    Returns (launches, ensemble.csv rows, args)."""
+    from tcgan_torch.ops.cuda import ssn_solve
+    from tcgan_torch.run import ensemble
+
+    args = ensemble.make_parser().parse_args(argv)
+    ssn_solve.launches = 0
+    t0 = time.perf_counter()
+    rc = ensemble.main(argv)
+    launches = ssn_solve.launches
+    info = json.loads((store / "info.json").read_text())
+    truth = info["kernel_launches_fake_truth"]
+    expected = sum(per_step(args, s) for s in steps)
+    _line(f"[ensemble] {store.name}: K={args.ensemble} B={args.batch_size} "
+          f"{len(steps)} steps from {steps[0]} in "
+          f"{time.perf_counter() - t0:.1f} s; kernel launches {launches} = "
+          f"fake truth {truth} + training {launches - truth} (one fit's "
+          f"schedule implies {expected}); status {info.get('status')}")
+    if rc != 0 or info.get("status") != "finished":
+        raise AssertionError(f"run.ensemble {store.name}: rc {rc}, status "
+                             f"{info.get('status')}")
+    if launches - truth != expected:
+        raise AssertionError(f"run.ensemble {store.name}: launches do not "
+                             "match one fit's step schedule")
+    return launches, _read_csv(store / "ensemble.csv"), args
+
+
+def _check_ensemble(rows, args, n_steps, name, losses):
+    K = args.ensemble
+    want = [(s, m) for s in range(n_steps) for m in range(K)]
+    got = [(int(r["step"]), int(r["member"])) for r in rows]
+    if got != want:
+        raise AssertionError(f"{name}: ensemble.csv (step, member) {got}")
+    for r in rows:
+        for k in losses:
+            if not math.isfinite(float(r[k])):
+                raise AssertionError(f"{name}: step {r['step']} member "
+                                     f"{r['member']} {k}={r[k]}")
+        if float(r["frac_converged"]) < 0.99:
+            raise AssertionError(f"{name}: step {r['step']} member "
+                                 f"{r['member']} frac_converged "
+                                 f"{r['frac_converged']}")
+    first = rows[0]  # member 0 after one step: one Adam step off its start
+    start = dict(zip(("J", "D", "S"), (args.J, args.D, args.S)))
+    for blk, vals in start.items():
+        got = [float(first[f"{blk}_{a}{b}"]) for a in "EI" for b in "EI"]
+        if not all(math.isclose(g, v, rel_tol=2e-3)
+                   for g, v in zip(got, vals)):
+            raise AssertionError(f"{name}: member 0 row 0 {blk} {got} is "
+                                 f"not the start {vals}")
+
+
+def _mu_rel(mu, solo_mu, k) -> float:
+    """Max over leaves of max |mu[leaf][k] - solo_mu[leaf]| / max
+    |solo_mu[leaf]|: member k's first Adam moment against its solo step's."""
+    return max(float((mu[n][k] - v).abs().max()
+                     / v.abs().max().clamp_min(1e-30))
+               for n, v in solo_mu.items())
+
+
+def _ensemble_vs_solo(card: str) -> None:
+    """Member m of one ensemble step (K=8, B=64, round-2 battery, float32,
+    start jitter 0.05) against ``wgan.train_step_impl`` run alone on
+    member m's state, real batches and noise; launches per step; then the
+    ensemble step's and one single-member step's host and device time."""
+    import torch
+
+    from tcgan_torch.models import ensemble as ens_lib
+    from tcgan_torch.models import generator as gen_lib
+    from tcgan_torch.models import wgan
+    from tcgan_torch.ops import ift
+    from tcgan_torch.ops.cuda import ssn_solve
+
+    dev = torch.device(DEVICE)
+    cfg, _, _ = _gan_problem(ENS_BATCH, dict(GAN_SSN, backend="cuda"),
+                             GAN_CONTRASTS)
+    as22 = lambda v: ((v[0], v[1]), (v[2], v[3]))  # noqa: E731
+    gen_init = gen_lib.init_params(cfg, as22(START_J), as22(START_D),
+                                   as22(TRUE_S), device=dev)
+    wcfg = wgan.WGANConfig(gen=cfg, batch_size=ENS_BATCH, n_critic=5,
+                           n_critic0=5, clip_grad=1.0)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    states = ens_lib.init_ensemble(wcfg, ENS_K, generator=gen,
+                                   gen_init=gen_init, start_jitter=0.05)
+    for k, v in gen_init.items():
+        if not torch.equal(states.gen_params[k][0], v):
+            raise AssertionError(f"ensemble: member 0 {k} is not the start")
+    n_c, n2 = wcfg.n_critic, 2 * cfg.ssn.N
+    real = 1.0 + 0.1 * torch.randn(
+        (ENS_K, n_c, wcfg.critic_batch, cfg.tc_dim), generator=gen,
+        device=dev)
+    zs = lambda: torch.randn((ENS_K, ENS_BATCH, n2, n2),  # noqa: E731
+                             generator=gen, device=dev)
+    noise = wgan.StepNoise(
+        critic_z=[zs() for _ in range(n_c)],
+        gp_eps=[torch.rand((ENS_K, wcfg.critic_batch, 1), generator=gen,
+                           device=dev) for _ in range(n_c)],
+        gen_z=zs())
+    ssn_solve.launches = 0
+    new, m = ens_lib.ensemble_train_step(wcfg, n_c, states, real,
+                                         noise=noise)
+    torch.cuda.synchronize()
+    ens_launches = ssn_solve.launches
+    worst = dict.fromkeys(MEMBER_TOL, 0.0)
+    solos = []
+    for k in range(ENS_K):
+        nk = wgan.StepNoise([z[k] for z in noise.critic_z],
+                            [e[k] for e in noise.gp_eps], noise.gen_z[k])
+        solo, ms = wgan.train_step_impl(
+            wcfg, n_c, ens_lib.member_state(states, k), real[k], noise=nk)
+        solos.append(solo)
+        for field in ("gen_params", "critic_params"):
+            for name, v in getattr(solo, field).items():
+                d = float((getattr(new, field)[name][k] - v).abs().max())
+                worst[field] = max(worst[field], d)
+        for field, opt in (("gen_grad", "gen_opt"),
+                           ("critic_grad", "critic_opt")):
+            worst[field] = max(worst[field], _mu_rel(
+                getattr(new, opt).mu, getattr(solo, opt).mu, k))
+        for name in ("d_loss", "g_loss", "wasserstein", "gp",
+                     "frac_converged", "mean_iters"):
+            a, b = float(getattr(m, name)[k]), float(getattr(ms, name))
+            worst["metrics"] = max(worst["metrics"],
+                                   abs(a - b) / max(abs(b), 1e-6))
+    # what the gradient check can see: the same step with one stop rule
+    # over all members' adjoints (the fault the per-member rule repairs)
+    solve = ift.solve_fixed_point_implicit
+    ift.solve_fixed_point_implicit = (
+        lambda *a, group_axes=0, **kw: solve(*a, **kw))  # noqa: E731
+    try:
+        glob, _ = ens_lib.ensemble_train_step(wcfg, n_c, states, real,
+                                              noise=noise)
+    finally:
+        ift.solve_fixed_point_implicit = solve
+    glob_dev = max(_mu_rel(glob.gen_opt.mu, solos[k].gen_opt.mu, k)
+                   for k in range(ENS_K))
+    _line(f"[ensemble] one step of K={ENS_K} members (B={ENS_BATCH}, "
+          f"S={cfg.n_stim}, "
+          f"float32) against each member's step run alone: max |d gen "
+          f"param| {worst['gen_params']:.3e} (tolerance "
+          f"{MEMBER_TOL['gen_params']}), max |d critic param| "
+          f"{worst['critic_params']:.3e} ({MEMBER_TOL['critic_params']}), "
+          f"max rel d metric {worst['metrics']:.3e} "
+          f"({MEMBER_TOL['metrics']}), max |d mu| / max |mu| generator "
+          f"{worst['gen_grad']:.3e} ({MEMBER_TOL['gen_grad']}; with one "
+          f"stop rule over all members {glob_dev:.3e}), critic "
+          f"{worst['critic_grad']:.3e} ({MEMBER_TOL['critic_grad']}); "
+          f"kernel launches in the ensemble step "
+          f"{ens_launches} (one fit's schedule: {n_c + 1}); "
+          f"frac_converged per member {[round(float(v), 4) for v in m.frac_converged]}")
+    if ens_launches != n_c + 1:
+        raise AssertionError(f"ensemble step launched {ens_launches} times")
+    bad = [k for k, v in worst.items() if not v <= MEMBER_TOL[k]]
+    if bad:
+        raise AssertionError(f"ensemble members differ from solo steps: "
+                             f"{bad} {worst}")
+
+    # host time, device busy time and idle share: the ensemble step, one
+    # single-member step of the same shape, and K times that
+    single = ens_lib.member_state(states, 0)
+
+    def ens_step():
+        nonlocal states
+        states, _ = ens_lib.ensemble_train_step(wcfg, n_c, states, real,
+                                                generator=gen)
+
+    def solo_step():
+        nonlocal single
+        single, _ = wgan.train_step(wcfg, n_c, single, real[0],
+                                    generator=gen)
+
+    ens = _profile_step(f"ensemble WGAN step K={ENS_K} B={ENS_BATCH} S=16 "
+                        "n_critic 5", card, ens_step, n_c + 1)
+    one = _profile_step(f"single-member WGAN step B={ENS_BATCH} S=16 "
+                        "n_critic 5", card, solo_step, n_c + 1)
+    _line(f"[ensemble] step host time {ens['step_ms_unprofiled']:.3f} ms for "
+          f"{ENS_K} members, device busy {ens['device_busy']:.3f} ms, idle "
+          f"{ens['idle_share']:.4f}; one member alone "
+          f"{one['step_ms_unprofiled']:.3f} ms (busy "
+          f"{one['device_busy']:.3f}, idle {one['idle_share']:.4f}), "
+          f"{ENS_K} x that {ENS_K * one['step_ms_unprofiled']:.3f} ms "
+          f"({card})")
+
+
+def phase_ensemble(card: str) -> int:
+    import numpy as np
+
+    launches = 0
+    wgan_losses = ("d_loss", "g_loss", "wasserstein", "d_accuracy")
+    # one fit's schedule: n_critic0 critic solves at step 0, n_critic after,
+    # and the generator's forward
+    gan_step = lambda a, s: (a.n_critic0 if s == 0  # noqa: E731
+                             else a.n_critic) + 1
+    flags = ("--start-jitter", "0.05", "--WGAN_n_critic0", "5")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = Path(tmp) / "ens"
+        n, rows, args = _run_ensemble(
+            _ens_argv(store, 3, ENS_K, *flags, "--checkpoint-every", "3"),
+            store, range(3), gan_step)
+        launches += n
+        _check_ensemble(rows, args, 3, "ensemble wgan", wgan_losses)
+        n, rows, _ = _run_ensemble(
+            _ens_argv(store, 1, ENS_K, *flags, "--resume"), store,
+            range(3, 4), gan_step)
+        launches += n
+        _check_ensemble(rows, args, 4, "ensemble wgan --resume",
+                        wgan_losses)
+        npz = np.load(store / "ensemble_params.npz")
+        for k in ("J", "D", "S"):
+            if npz[k].shape != (ENS_K, 2, 2) or not np.isfinite(
+                    npz[k]).all():
+                raise AssertionError(f"ensemble_params.npz {k} "
+                                     f"{npz[k].shape}")
+        summary = json.loads((store / "ensemble_summary.json").read_text())
+        train_ms = [1e3 * float(r["train_time"]) for r in rows
+                    if r["member"] == "0"][1:]
+        _line(f"[ensemble] wgan K={ENS_K} B={ENS_BATCH}: train_time steps "
+              f"1-3 {', '.join(f'{t:.1f}' for t in train_ms)} ms; "
+              f"across-member std J {summary['std']['J']} ({card})")
+
+        store = Path(tmp) / "cens"
+        n, rows, args = _run_ensemble(
+            _ens_argv(store, 2, 4, "--estimator", "cwgan", *flags), store,
+            range(2), gan_step)
+        launches += n
+        _check_ensemble(rows, args, 2, "ensemble cwgan", wgan_losses)
+
+        store = Path(tmp) / "ensmm"
+        argv = _mm_argv(store, 3) + [
+            "--estimator", "mm", "--ensemble", str(ENS_K), "--batch-size",
+            str(ENS_BATCH), "--fixed-z", "--moment-ema", "0.99",
+            "--data-seed-per-member", "--start-jitter", "0.05",
+            "--record-every", "1"]
+        n, rows, args = _run_ensemble(argv, store, range(3),
+                                      lambda a, s: 1)
+        launches += n
+        _check_ensemble(rows, args, 3, "ensemble mm",
+                        ("loss", "mean_err", "cov_err", "rate_penalty"))
+    _ensemble_vs_solo(card)
+    return launches
+
+
+def phase_eval(card: str, gan_store: Path) -> int:
+    """``run.eval`` on phase 6's ``run.gan`` datastore: one forward solve
+    of 256 circuits after the fake truth; then ``--params-source npz``."""
+    from tcgan_torch.ops.cuda import ssn_solve
+    from tcgan_torch.run import eval as run_eval
+
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for source in ("csv", "npz"):
+            out = Path(tmp) / source
+            argv = ["--run", str(gan_store), "--datastore", str(out),
+                    "--eval-samples", "256", "--params-source", source,
+                    "--device", DEVICE, "--solver-backend", "cuda"]
+            ssn_solve.launches = 0
+            t0 = time.perf_counter()
+            rc = run_eval.main(argv)
+            n = ssn_solve.launches
+            info = json.loads((out / "info.json").read_text())
+            res, truth = info["result"], info["kernel_launches_fake_truth"]
+            _line(f"[eval] --params-source {source}: rc {rc} in "
+                  f"{time.perf_counter() - t0:.1f} s; launches {n} = fake "
+                  f"truth {truth} + {n - truth}; n_gen {res['n_gen']} tc_w1 "
+                  f"{res['tc_w1']:.6g} sliced_w1 {res['sliced_w1']:.6g} "
+                  f"recovery {res.get('param_recovery_error')} plots "
+                  f"{res.get('plots', 'written')} ({card})")
+            if rc != 0 or n != 1 + truth or not res["n_gen"] > 0:
+                raise AssertionError(f"eval {source}: rc {rc}, launches {n}")
+            if not (math.isfinite(res["tc_w1"])
+                    and math.isfinite(res["sliced_w1"])
+                    and "param_recovery_error" in res
+                    and len(res["per_condition_w1"])
+                    == len(BANDWIDTHS) * len(GAN_CONTRASTS)):
+                raise AssertionError(f"eval {source}: result {res}")
+            launches += n
+    return launches
+
+
+def phase_analyses(card: str, gan_store: Path) -> int:
+    """``analysis.identifiability`` with the kernel forward and the plain
+    forward (Jacobians held to each other), then
+    ``analysis.uncertainty`` on phase 6's run."""
+    import numpy as np
+
+    from tcgan_torch.analysis import identifiability, uncertainty
+    from tcgan_torch.ops.cuda import ssn_solve
+
+    flat = lambda v: [str(x) for x in v]  # noqa: E731
+    launches = 0
+    reports, jacs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend in ("cuda", "torch"):
+            out, jac = Path(tmp) / f"{backend}.json", Path(tmp) / backend
+            argv = ["--device", DEVICE, "--solver-backend", backend,
+                    "--N", str(GAN_SSN["N"]), "--bandwidths",
+                    *flat(BANDWIDTHS), "--J", *flat(TRUE_J), "--D",
+                    *flat(TRUE_D), "--S", *flat(TRUE_S), "--max-iter",
+                    str(GAN_SSN["max_iter"]), "--atol", str(GAN_SSN["atol"]),
+                    "--check-every", str(CHECK_EVERY), "--n-circuits", "256",
+                    "--data-samples", "4096", "--contrast-sets",
+                    "5,10;5,10,13", "--output", str(out),
+                    "--save-jacobian", str(jac) + ".npz"]
+            ssn_solve.launches = 0
+            t0 = time.perf_counter()
+            rc = identifiability.main(argv)
+            seconds = time.perf_counter() - t0
+            n = ssn_solve.launches
+            rep = json.loads(out.read_text())
+            reports[backend] = rep
+            jacs[backend] = np.load(str(jac) + ".npz")["jacobian"]
+            # per battery: the Jacobian's forward and the convergence draw;
+            # the first battery's precision report draws once more
+            want = 5 if backend == "cuda" else 0
+            _line(f"[identifiability] --solver-backend {backend}: rc {rc} "
+                  f"in {seconds:.2f} s; launches {n} (expected {want}); "
+                  + "; ".join(
+                      f"contrasts {b['contrasts']}: sigma_min "
+                      f"{b['sigma_min']:.4e} cond "
+                      f"{b['condition_number']:.4g} yield "
+                      f"{b['circuit_yield']:.4f}"
+                      for b in rep["batteries"]) + f" ({card})")
+            if rc != 0 or n != want:
+                raise AssertionError(f"identifiability {backend}: rc {rc}, "
+                                     f"launches {n}")
+            for b in rep["batteries"]:
+                if not all(math.isfinite(b[k]) for k in
+                           ("sigma_min", "condition_number",
+                            "circuit_yield")):
+                    raise AssertionError(f"identifiability {backend}: {b}")
+            launches += n
+        jk, jp = jacs["cuda"], jacs["torch"]
+        rel = float(np.abs(jk - jp).max() / np.abs(jp).max())
+        _line(f"[identifiability] Jacobian {jk.shape} kernel forward vs "
+              f"plain forward: max |dJ| / max |J| {rel:.3e} (tolerance "
+              f"{JAC_RTOL}); sigma_min {reports['cuda']['batteries'][0]['sigma_min']:.6e} "
+              f"/ {reports['torch']['batteries'][0]['sigma_min']:.6e}")
+        if not rel <= JAC_RTOL:
+            raise AssertionError(f"identifiability: Jacobians differ by "
+                                 f"{rel}")
+
+        out = Path(tmp) / "uncertainty.json"
+        ssn_solve.launches = 0
+        t0 = time.perf_counter()
+        rc = uncertainty.main(["--run", str(gan_store), "--device", DEVICE,
+                               "--solver-backend", "cuda", "-o", str(out)])
+        n = ssn_solve.launches
+        rep = json.loads(out.read_text())
+        cal = rep.get("calibration", {})
+        _line(f"[uncertainty] rc {rc} in {time.perf_counter() - t0:.2f} s; "
+              f"launches {n}; n_data {rep['n_data']}, surviving circuits "
+              f"{rep['n_surviving_circuits']}, constrained directions "
+              f"{rep['expected_precision']['n_constrained_directions']}, "
+              f"max |z| {cal.get('max_abs_z_constrained')}: "
+              f"{cal.get('verdict')} ({card})")
+        if rc != 0 or n != 2 or "expected_precision" not in rep:
+            raise AssertionError(f"uncertainty: rc {rc}, launches {n}")
+        launches += n
+    return launches
+
+
+def phase_native(card: str) -> None:
+    """The native CPU baseline at the bench circuit (N=51, S=8, 32
+    circuits) in float64 against the plain lockstep solve in float64 on the
+    CPU; its circuits/s beside the kernel's on the same circuits."""
+    import numpy as np
+
+    from tcgan_torch.ops import fixed_point, native
+    from tcgan_torch.ops.cuda import ssn_solve
+
+    c, W, I = ab.problem(32, (CONTRAST,), {}, N=SLICE_SSN["N"], seed=SEED)
+    W64, I64 = W.double().cpu(), I.double().cpu()
+    t0 = time.perf_counter()
+    built = native.build()
+    build_s = time.perf_counter() - t0
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = native.solve_fixed_point_native(c, W64, I64)
+        times.append(time.perf_counter() - t0)
+    ref = fixed_point.solve_fixed_point(c, W64, I64, check_every=1)
+    ok = res.converged & ref.converged.numpy()
+    rel = float((np.abs(res.r - ref.r.numpy()) / np.maximum(
+        np.abs(ref.r.numpy()), 1e-12))[ok].max())
+    flags = bool(np.array_equal(res.converged, ref.converged.numpy())
+                 and np.array_equal(res.diverged, ref.diverged.numpy()))
+    kernel_ms = _median_ms(lambda: ssn_solve.solve_fixed_point_cuda(
+        c, W, I, CHECK_EVERY))
+    native_s = statistics.median(times)
+    _line(f"[native] {built.path.name} built by {built.compiler} (OpenMP) "
+          f"in {build_s:.2f} s; B=32 S=8 N=51 "
+          f"float64: {native_s * 1e3:.3f} ms (median of 3: "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in times)}), "
+          f"{32 / native_s:.1f} circuits/s on {native.num_threads()} "
+          f"threads of {native.cpu_model()}; flags equal to the plain "
+          f"float64 lockstep {flags}, max rel dr {rel:.3e} (tolerance "
+          f"{NATIVE_RTOL}), frac_converged {float(res.converged.mean())}; "
+          f"kernel {kernel_ms:.3f} ms, {32e3 / kernel_ms:.1f} circuits/s "
+          f"({card})")
+    if not flags or not rel <= NATIVE_RTOL:
+        raise AssertionError(f"native: flags {flags}, rel {rel}")
+
+
 def _timed(number, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1117,11 +1575,18 @@ def main() -> int:
     kernel = _timed(3, phase_kernel, card)
     by_path = {"run.forward": _timed(4, phase_main_path)}
     _timed(5, phase_ift, card)
-    by_path["run.gan"] = _timed(6, phase_gan, card)
-    by_path["run.bptt_wgan (fake truth)"] = _timed(7, phase_bptt, card)
-    by_path["run.bptt_cwgan"] = _timed(8, phase_cwgan, card)
-    by_path["run.moments + run.bptt_moments"] = _timed(9, phase_moments,
-                                                       card)
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        by_path["run.gan"] = _timed(6, phase_gan, card, work)
+        by_path["run.bptt_wgan (fake truth)"] = _timed(7, phase_bptt, card)
+        by_path["run.bptt_cwgan"] = _timed(8, phase_cwgan, card)
+        by_path["run.moments + run.bptt_moments"] = _timed(
+            9, phase_moments, card)
+        by_path["run.ensemble"] = _timed(10, phase_ensemble, card)
+        by_path["run.eval"] = _timed(11, phase_eval, card, work / "gan")
+        by_path["analysis.identifiability + uncertainty"] = _timed(
+            12, phase_analyses, card, work / "gan")
+    _timed(13, phase_native, card)
     kernel["launches"] = sum(by_path.values())
     kernel["launches_by_path"] = by_path
     _line(f"[smoke] all phases took {time.perf_counter() - t_start:.1f} s")

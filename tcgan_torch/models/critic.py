@@ -68,7 +68,9 @@ def device_constant(values: Tuple[float, ...], dtype, device) -> torch.Tensor:
 
 def apply(cfg: CriticConfig, params: Dict[str, torch.Tensor],
           x: torch.Tensor) -> torch.Tensor:
-    """Critic score, shape (...,) for input (..., in_dim)."""
+    """Critic score, shape (...,) for input (..., in_dim). Member-stacked
+    parameters (``w{i}`` (K, d_in, d_out), ``b{i}`` (K, d_out)) score
+    input (K, rows, in_dim) member by member."""
     h = x
     if cfg.input_scale is not None:
         h = x * device_constant(cfg.input_scale, x.dtype, x.device)
@@ -77,9 +79,14 @@ def apply(cfg: CriticConfig, params: Dict[str, torch.Tensor],
     h = h.to(torch.promote_types(h.dtype, params["w0"].dtype))
     n_layers = len(cfg.layers)
     act = _ACTIVATIONS[cfg.activation]
+
+    def bias(i):
+        b = params[f"b{i}"]
+        return b if b.ndim == 1 else b.unsqueeze(-2)  # over a member's rows
+
     for i in range(n_layers):
-        h = act(h @ params[f"w{i}"].to(h.dtype) + params[f"b{i}"])
-    out = h @ params[f"w{n_layers}"].to(h.dtype) + params[f"b{n_layers}"]
+        h = act(h @ params[f"w{i}"].to(h.dtype) + bias(i))
+    out = h @ params[f"w{n_layers}"].to(h.dtype) + bias(n_layers)
     return out[..., 0]
 
 

@@ -10,7 +10,8 @@ The step's schedule, the optimizers, the moment anchor (on the joint
 per-circuit vector, ``track_offset_identity=True``), the endgame and drift
 latches and the EMA are those of :mod:`tcgan_torch.models.wgan`
 (:func:`wgan.run_step`); this module supplies the tagged fake batch and the
-conditional losses.
+conditional losses. Like the WGAN's, they take a leading member axis (an
+ensemble, :mod:`tcgan_torch.models.ensemble`) and reduce per member.
 """
 
 from __future__ import annotations
@@ -71,19 +72,20 @@ def _features(cfg: CWGANConfig, dtype, device) -> torch.Tensor:
 
 def tag_with_conditions(cfg: CWGANConfig, tc_by_cond: torch.Tensor
                         ) -> torch.Tensor:
-    """(B, S, P) per-condition probe blocks -> (B*S, P + 2) tagged rows,
-    condition-major within each circuit. With ``cond_input_scale`` the
-    probe blocks are scaled per (condition, probe) and the tag per
+    """(..., B, S, P) per-condition probe blocks -> (..., B*S, P + 2) tagged
+    rows, condition-major within each circuit. With ``cond_input_scale``
+    the probe blocks are scaled per (condition, probe) and the tag per
     feature."""
-    B, S, P = tc_by_cond.shape
+    lead = tc_by_cond.shape[:-3]
+    B, S, P = tc_by_cond.shape[-3:]
     feats = _features(cfg, tc_by_cond.dtype, tc_by_cond.device)  # (S, 2)
     if cfg.cond_input_scale is not None:
         scale = device_constant(tuple(cfg.cond_input_scale),
                                 tc_by_cond.dtype, tc_by_cond.device)
         tc_by_cond = tc_by_cond * scale[:S * P].reshape(S, P)
         feats = feats * scale[S * P:]
-    feats = feats[None].expand(B, S, feats.shape[-1])
-    return torch.cat([tc_by_cond, feats], dim=-1).reshape(B * S, -1)
+    feats = feats.expand(lead + (B, S, feats.shape[-1]))
+    return torch.cat([tc_by_cond, feats], dim=-1).reshape(lead + (B * S, -1))
 
 
 def cond_row_weights(cfg: CWGANConfig, n_rows: int, dtype=None, device=None
@@ -111,7 +113,8 @@ def sample_conditional(cfg: CWGANConfig, gen_params, batch: int, *, z=None,
     out = gen_lib.sample_tuning_curves(
         dataclasses.replace(cfg.gen, track_offset_identity=True),
         gen_params, batch, z=z, generator=generator)
-    tc_by_cond = out.tc.reshape(batch, cfg.gen.n_stim, cfg.gen.n_probe)
+    tc_by_cond = out.tc.reshape(out.tc.shape[:-2] + (
+        batch, cfg.gen.n_stim, cfg.gen.n_probe))
     return tag_with_conditions(cfg, tc_by_cond), out
 
 
@@ -123,38 +126,45 @@ def fake_row_weights(cfg: CWGANConfig, out) -> torch.Tensor | None:
     the convergent region. None unless ``reject_unconverged``."""
     if not cfg.reject_unconverged:
         return None
-    convf = out.converged.detach().to(cfg.gen.dtype)  # (B, S)
-    ok = convf.amin(dim=-1, keepdim=True)  # (B, 1)
+    convf = out.converged.detach().to(cfg.gen.dtype)  # (..., B, S)
+    ok = convf.amin(dim=-1, keepdim=True)  # (..., B, 1)
     strict = ok.expand(convf.shape)
-    return torch.where(ok.sum() > 0.0, strict, convf).reshape(-1)
+    any_ok = ok.sum(dim=(-2, -1), keepdim=True) > 0.0  # per member
+    return torch.where(any_ok, strict, convf).reshape(
+        convf.shape[:-2] + (-1,))
 
 
 def critic_loss_fn(cfg: CWGANConfig, critic_params, real: torch.Tensor,
                    fake: torch.Tensor, eps: torch.Tensor, fake_w=None):
     """Critic loss -W + lambda * GP with per-condition weights; the rank
     accuracy pairs real and fake rows of the same condition only."""
+    members = critic_params["w0"].ndim - 2
     d_real = critic_lib.apply(cfg.critic_cfg, critic_params, real)
     d_fake = critic_lib.apply(cfg.critic_cfg, critic_params, fake)
     fake_gp = fake
     if fake_w is not None:
-        fake_gp = torch.where(fake_w[:, None] > 0.5, fake,
-                              real[: fake.shape[0]])
+        fake_gp = torch.where(fake_w[..., None] > 0.5, fake,
+                              real[..., : fake.shape[-2], :])
     gp = gradient_penalty(cfg, critic_params, real, fake_gp, eps)
-    real_cw = cond_row_weights(cfg, d_real.shape[0], real.dtype, real.device)
-    fake_cw = cond_row_weights(cfg, d_fake.shape[0], real.dtype, real.device)
+    real_cw = cond_row_weights(cfg, d_real.shape[-1], real.dtype,
+                               real.device)
+    fake_cw = cond_row_weights(cfg, d_fake.shape[-1], real.dtype,
+                               real.device)
     wasserstein = (_wmean(d_real, real_cw)
                    - _wmean(d_fake, _combine_w(fake_w, fake_cw)))
     loss = -wasserstein + cfg.gp_lambda * gp
     S = cfg.gen.n_stim
-    dr = d_real.reshape(-1, S)  # (B_real, S)
-    df = d_fake.reshape(-1, S)  # (B_fake, S)
-    pairs = (dr[:, None, :] > df[None, :, :]).to(real.dtype)
+    lead = d_real.shape[:-1]
+    dr = d_real.reshape(lead + (-1, S))  # (..., B_real, S)
+    df = d_fake.reshape(lead + (-1, S))  # (..., B_fake, S)
+    pairs = (dr[..., :, None, :] > df[..., None, :, :]).to(real.dtype)
     if fake_w is None:
-        acc = pairs.mean()
+        acc = gen_lib.mean_per_member(pairs, members)
     else:
-        wf = fake_w.reshape(-1, S)
-        acc = (pairs * wf[None, :, :]).sum() / torch.clamp(
-            dr.shape[0] * wf.sum(), min=1.0)
+        wf = fake_w.reshape(lead + (-1, S))
+        acc = (wgan._sum_per_member(pairs * wf[..., None, :, :], members)
+               / torch.clamp(dr.shape[-2]
+                             * wgan._sum_per_member(wf, members), min=1.0))
     return loss, (wasserstein, gp, acc)
 
 
@@ -162,15 +172,14 @@ def gen_loss_fn(cfg: CWGANConfig, gen_params, critic_params, z=None,
                 generator: torch.Generator | None = None):
     """Generator loss: negative critic score of the tagged samples + rate
     penalty; the same stats as :func:`wgan.gen_loss_fn`."""
+    members = gen_lib.member_axes(gen_params)
     fake, out = sample_conditional(cfg, gen_params, cfg.batch_size, z=z,
                                    generator=generator)
     d_fake = critic_lib.apply(cfg.critic_cfg, critic_params, fake)
-    pen = gen_lib.rate_penalty(cfg.gen, out.rates)
-    conv = out.converged.to(torch.float32)
-    stats = (pen, conv.mean(), out.diverged.to(torch.float32).mean(),
-             out.iters.to(torch.float32).mean(), conv.amin(dim=-1).mean())
+    pen = gen_lib.rate_penalty(cfg.gen, out.rates, members)
+    stats = (pen,) + wgan.solve_stats(out, members)
     w = _combine_w(fake_row_weights(cfg, out),
-                   cond_row_weights(cfg, d_fake.shape[0], fake.dtype,
+                   cond_row_weights(cfg, d_fake.shape[-1], fake.dtype,
                                     fake.device))
     return -_wmean(d_fake, w) + cfg.rate_cost * pen, stats
 

@@ -9,9 +9,13 @@ bandwidth x contrast battery and reads out tuning curves at probe neurons.
 Gradients flow to the parameters through the fixed point by the implicit
 function theorem (:mod:`tcgan_torch.ops.ift`, ``solver="ift"``, configs
 C2/C4/C5) or by backpropagation through a fixed-length Euler unroll
-(:mod:`tcgan_torch.ops.euler`, ``solver="bptt"``, config C3). Mesh sharding
-is not ported yet and raises ``NotImplementedError`` naming its ROADMAP
-item.
+(:mod:`tcgan_torch.ops.euler`, ``solver="bptt"``, config C3).
+
+Parameters may carry a leading member axis (an ensemble of K fits,
+:mod:`tcgan_torch.models.ensemble`): J/D/S (K, 2, 2) give W (K, B, 2N, 2N),
+solved in one kernel launch, and every output gains the K axis. Mesh
+sharding (``parallel/mesh.py``) is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -120,6 +124,18 @@ def param_values(cfg: GeneratorConfig, params: Dict[str, torch.Tensor]):
     return params["J"], params["D"], params["S"]
 
 
+def member_axes(params: Dict[str, torch.Tensor]) -> int:
+    """Leading member axes of a parameter dict: 0 for one fit, 1 for an
+    ensemble."""
+    return params["J"].ndim - 2
+
+
+def mean_per_member(x: torch.Tensor, members: int) -> torch.Tensor:
+    """Mean over every axis but the ``members`` leading ones (with none, a
+    scalar)."""
+    return x.mean(dim=tuple(range(members, x.ndim)))
+
+
 def param_values_np(cfg: GeneratorConfig, host_params):
     """Host-NumPy twin of :func:`param_values`."""
     vals = tuple(np.asarray(host_params[k]) for k in ("J", "D", "S"))
@@ -136,6 +152,8 @@ class GeneratorOutput(NamedTuple):
                (B * n_probe, n_stim).
     rates:     (B, S, 2N) full rates (for penalties/analysis).
     converged: (B, S) bool; diverged: (B, S) bool; iters: (B, S) int32.
+
+    With member-stacked parameters every field has a leading K axis.
     """
 
     tc: torch.Tensor
@@ -153,9 +171,11 @@ def sample_tuning_curves(cfg: GeneratorConfig, params: Dict[str, torch.Tensor],
 
     The noise is ``z`` when given (an array or tensor shaped as
     :func:`weights.sample_z` would draw it: (batch // 2, 2N, 2N) in
-    antithetic mode, else (batch, 2N, 2N)), otherwise one draw from
-    ``generator``. Everything runs on the device of ``params``;
-    differentiable with respect to ``params`` through the chosen solver.
+    antithetic mode, else (batch, 2N, 2N), after the member axis when the
+    parameters have one), otherwise one draw from ``generator``. Everything
+    runs on the device of ``params``; differentiable with respect to
+    ``params`` through the chosen solver; with a member axis the implicit
+    backward stops per member.
     """
     if cfg.solver not in ("ift", "bptt"):
         raise ValueError(f"unknown solver {cfg.solver!r}")
@@ -164,37 +184,45 @@ def sample_tuning_curves(cfg: GeneratorConfig, params: Dict[str, torch.Tensor],
             "mesh sharding is not ported yet (ROADMAP Queue 1, "
             "parallel/mesh.py)")
     J, D, S = param_values(cfg, params)
+    lead = J.shape[:-2]  # member axes
     device = J.device
     n_draw = batch // 2 if cfg.antithetic else batch
     if cfg.antithetic and batch % 2:
         raise ValueError("antithetic sampling needs an even batch")
     if z is None:
-        z = weights.sample_z(generator, (n_draw,), cfg.ssn.N, device=device,
-                             dtype=cfg.dtype)
+        z = weights.sample_z(generator, lead + (n_draw,), cfg.ssn.N,
+                             device=device, dtype=cfg.dtype)
     else:
         z = torch.as_tensor(z, dtype=cfg.dtype, device=device)
     if cfg.antithetic:
-        z = torch.cat([z, -z], dim=0)
+        z = torch.cat([z, -z], dim=-3)
+    if lead:  # one (2, 2) block per member, broadcast over its circuits
+        J, D, S = (p.unsqueeze(-3) for p in (J, D, S))
     x = cfg.ssn.site_pos(dtype=cfg.dtype, device=device)
     W = weights.build_weight(J, D, S, z, x)
     I_ext = cfg.stimulus_battery(device)
     if cfg.solver == "ift":
         res = ift.solve_fixed_point_implicit(cfg.ssn, W, I_ext,
-                                             grad_method=cfg.grad_method)
+                                             grad_method=cfg.grad_method,
+                                             group_axes=len(lead))
     else:
         res = euler.solve_dynamics(
             cfg.ssn, W, I_ext,
             checkpoint_chunk=cfg.bptt_checkpoint_chunk or None)
 
-    tc = res.r[..., cfg.probe_indices(device)]  # (B, S, P)
+    tc = res.r[..., cfg.probe_indices(device)]  # (..., B, S, P)
     if cfg.track_offset_identity:
-        tc = tc.reshape(batch, -1)  # (B, S*P)
+        tc = tc.reshape(lead + (batch, -1))  # (..., B, S*P)
     else:
-        tc = tc.transpose(-1, -2).reshape(batch * cfg.n_probe, cfg.n_stim)
+        tc = tc.transpose(-1, -2).reshape(
+            lead + (batch * cfg.n_probe, cfg.n_stim))
     return GeneratorOutput(tc, res.r, res.converged, res.diverged, res.iters)
 
 
-def rate_penalty(cfg: GeneratorConfig, rates: torch.Tensor) -> torch.Tensor:
-    """Quadratic penalty on rates above ``rate_soft_bound``, zero below."""
+def rate_penalty(cfg: GeneratorConfig, rates: torch.Tensor,
+                 members: int = 0) -> torch.Tensor:
+    """Quadratic penalty on rates above ``rate_soft_bound``, zero below;
+    one value per member when ``rates`` has ``members`` leading axes."""
     excess = torch.clamp(rates - cfg.ssn.rate_soft_bound, min=0.0)
-    return torch.mean(excess**2) / cfg.ssn.rate_soft_bound**2
+    return (mean_per_member(excess**2, members)
+            / cfg.ssn.rate_soft_bound**2)

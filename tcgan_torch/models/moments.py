@@ -18,6 +18,11 @@ the fixed z-set itself is kept in the state (``fixed_z``, drawn at init
 from a ``torch.Generator`` seeded with ``cfg.seed``), where the reference
 keeps the key it redraws it from; noise is injected (``z=``) or drawn from a
 ``torch.Generator``.
+
+A state with a leading member axis on every leaf (an ensemble of K fits,
+:mod:`tcgan_torch.models.ensemble`) steps all K at once, with per-member
+losses, moment EMAs and metrics; the data moments are shared ((F,),
+(F, F)) or per member ((K, F), (K, F, F)).
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from tcgan_torch.models import generator as gen_lib
-from tcgan_torch.models.generator import GeneratorConfig
+from tcgan_torch.models.generator import GeneratorConfig, mean_per_member
 from tcgan_torch.ops import weights
 
 
@@ -103,38 +108,39 @@ class MMMetrics(NamedTuple):
 
 def data_moments(tc: torch.Tensor, weights: torch.Tensor | None = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(mean vector, second-moment matrix) of TC samples (B, D), optionally
-    sample-weighted. The weight sum has an epsilon floor (soft survivor
-    weights can sum below 1); an all-zero mask is the caller's to guard."""
+    """(mean vector, second-moment matrix) of TC samples (..., B, D),
+    optionally sample-weighted (weights (..., B)). The weight sum has an
+    epsilon floor (soft survivor weights can sum below 1); an all-zero mask
+    is the caller's to guard."""
     if weights is None:
-        return tc.mean(dim=0), tc.T @ tc / tc.shape[0]
+        return tc.mean(dim=-2), tc.mT @ tc / tc.shape[-2]
     w = weights.to(tc.dtype)
-    n = torch.clamp(w.sum(), min=1e-6)
-    mean = (tc * w[:, None]).sum(dim=0) / n
-    second = (tc * w[:, None]).T @ tc / n
+    n = torch.clamp(w.sum(-1), min=1e-6)[..., None]
+    mean = (tc * w[..., None]).sum(dim=-2) / n
+    second = (tc * w[..., None]).mT @ tc / n[..., None]
     return mean, second
 
 
 def survivor_chain(conv: torch.Tensor, dtype) -> torch.Tensor:
-    """Per-circuit survivor weights (B,) with an absorbing-state fallback:
-    1 where every condition of the circuit converged (the fake-truth
-    dataset's selection); when no circuit of the batch fully converged, the
-    fraction of converged conditions instead, so the gradient is not
-    deleted. Not differentiable."""
-    convf = conv.detach().to(dtype)  # (B, S)
+    """Per-circuit survivor weights (..., B) with an absorbing-state
+    fallback: 1 where every condition of the circuit converged (the
+    fake-truth dataset's selection); when no circuit of the batch (of a
+    member's batch) fully converged, the fraction of converged conditions
+    instead, so the gradient is not deleted. Not differentiable."""
+    convf = conv.detach().to(dtype)  # (..., B, S)
     strict = convf.amin(dim=-1)
     soft = convf.mean(dim=-1)
-    return torch.where(strict.sum() > 0.0, strict, soft)
+    return torch.where(strict.sum(-1, keepdim=True) > 0.0, strict, soft)
 
 
 def sample_mask(cfg: MomentMatchingConfig, out) -> torch.Tensor:
     """Per-critic-sample survivor weights (float32, as the reference),
     repeated over a circuit's probe rows unless the probes are one
     joint sample."""
-    ok = survivor_chain(out.converged, torch.float32)  # (B,)
+    ok = survivor_chain(out.converged, torch.float32)  # (..., B)
     if cfg.gen.track_offset_identity:
         return ok
-    return ok.repeat_interleave(cfg.gen.n_probe)
+    return ok.repeat_interleave(cfg.gen.n_probe, dim=-1)
 
 
 def _moment_weights(cfg, data_mean, data_second):
@@ -143,13 +149,13 @@ def _moment_weights(cfg, data_mean, data_second):
 
 
 def moment_loss(cfg: MomentMatchingConfig, gen_tc, data_mean, data_second,
-                weights=None):
+                weights=None, members: int = 0):
     """The normalized moment distance; returns (loss, (mean_err,
-    cov_err))."""
+    cov_err)), per member with ``members`` leading axes."""
     gmean, gsecond = data_moments(gen_tc, weights)
     wm, wc = _moment_weights(cfg, data_mean, data_second)
-    mean_err = torch.mean(wm * (gmean - data_mean) ** 2)
-    cov_err = torch.mean(wc * (gsecond - data_second) ** 2)
+    mean_err = mean_per_member(wm * (gmean - data_mean) ** 2, members)
+    cov_err = mean_per_member(wc * (gsecond - data_second) ** 2, members)
     return (cfg.mean_weight * mean_err + cfg.cov_weight * cov_err,
             (mean_err, cov_err))
 
@@ -211,6 +217,7 @@ def train_step_impl(cfg: MomentMatchingConfig, state: MMState,
     elif z is None and generator is None:
         raise ValueError("train_step_impl needs z= or generator=")
     tx = make_optimizer(cfg)
+    members = gen_lib.member_axes(state.gen_params)
     leaves = _leaves(state.gen_params)
     out = gen_lib.sample_tuning_curves(cfg.gen, leaves, cfg.batch_size, z=z,
                                        generator=generator)
@@ -223,31 +230,33 @@ def train_step_impl(cfg: MomentMatchingConfig, state: MMState,
         # count hold
         g = effective_gamma(cfg, state.step)
         bmean, bsecond = data_moments(out.tc, w)
-        has_data = (w.sum() > 0 if w is not None
-                    else torch.ones((), dtype=torch.bool,
+        has_data = (w.sum(-1) > 0 if w is not None
+                    else torch.ones(bmean.shape[:-1], dtype=torch.bool,
                                     device=bmean.device))
-        new_em = torch.where(has_data, g * state.ema_mean + (1 - g) * bmean,
+        new_em = torch.where(has_data[..., None],
+                             g * state.ema_mean + (1 - g) * bmean,
                              state.ema_mean)
-        new_es = torch.where(has_data,
+        new_es = torch.where(has_data[..., None, None],
                              g * state.ema_second + (1 - g) * bsecond,
                              state.ema_second)
         new_count = state.ema_count + has_data.to(bmean.dtype)
-        debias = torch.clamp(1.0 - g ** new_count, min=1e-12)
+        debias = torch.clamp(1.0 - g ** new_count, min=1e-12)[..., None]
         wm, wc = _moment_weights(cfg, data_mean, data_second)
-        me = torch.mean(wm * (new_em / debias - data_mean) ** 2)
-        ce = torch.mean(wc * (new_es / debias - data_second) ** 2)
+        me = mean_per_member(wm * (new_em / debias - data_mean) ** 2, members)
+        ce = mean_per_member(
+            wc * (new_es / debias[..., None] - data_second) ** 2, members)
         mloss = cfg.mean_weight * me + cfg.cov_weight * ce
         ema = (new_em.detach(), new_es.detach(), new_count.detach())
     else:
         mloss, (me, ce) = moment_loss(cfg, out.tc, data_mean, data_second,
-                                      weights=w)
-    pen = gen_lib.rate_penalty(cfg.gen, out.rates)
+                                      weights=w, members=members)
+    pen = gen_lib.rate_penalty(cfg.gen, out.rates, members)
     loss = mloss + cfg.rate_cost * pen
     updates, opt = tx.update(_grad(loss, leaves), state.opt)
     metrics = MMMetrics(
         loss.detach(), me.detach(), ce.detach(), pen.detach(),
-        out.converged.to(torch.float32).mean(),
-        out.diverged.to(torch.float32).mean())
+        mean_per_member(out.converged.to(torch.float32), members),
+        mean_per_member(out.diverged.to(torch.float32), members))
     return MMState(apply_updates(state.gen_params, updates), opt,
                    state.step + 1, ema_mean=ema[0], ema_second=ema[1],
                    ema_count=ema[2], fixed_z=state.fixed_z), metrics

@@ -31,6 +31,15 @@ ratio detector, or ``anchor_ema_switch_vel``, the velocity detector; see
 :func:`run_step` is the step's schedule, shared with the conditional WGAN
 (:mod:`tcgan_torch.models.cwgan`), which supplies its own fake batch and
 losses.
+
+Member axis (:mod:`tcgan_torch.models.ensemble`): when every leaf of the
+state carries a leading axis of K independent fits, the same step runs all
+K at once. Each reduction is taken per member (losses, GP, metrics, Adam's
+finite guard and global-norm clip, the optimizer counts), every metric has
+shape (K,), each solve is one kernel launch for all members, and the
+members' losses are summed for one backward pass: no member shares a
+parameter with another, so each gets its own exact gradient. The moment
+anchor and its latches are single-fit only.
 """
 
 from __future__ import annotations
@@ -220,6 +229,12 @@ class AdamState(NamedTuple):
     total_notfinite: torch.Tensor  # int32
 
 
+def _per_member(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` (one value per member, or a scalar) broadcastable against
+    ``like``, whose leading axes are the members."""
+    return x.reshape(x.shape + (1,) * (like.ndim - x.ndim))
+
+
 def _inc(count: torch.Tensor) -> torch.Tensor:
     """optax's safe_increment: saturates at the int32 maximum."""
     return torch.where(count < _INT32_MAX, count + 1, count)
@@ -232,7 +247,8 @@ class Adam:
     ``clip`` 0 drops the clip, ``finite_guard`` False drops
     ``apply_if_finite`` (every update applies; its counters stay at their
     init values). ``lr`` is a float or a schedule (int32 count tensor ->
-    scalar tensor)."""
+    scalar tensor). A state whose counters have a member axis (K,) updates
+    each member on its own: its own finite test, clip norm and count."""
 
     lr: float | Callable
     b1: float
@@ -254,9 +270,10 @@ class Adam:
     def update(self, grads: Params, state: AdamState
                ) -> Tuple[Params, AdamState]:
         keys = sorted(grads)  # the reference's leaf order
+        members = state.count.ndim
         if self.finite_guard:
-            finite = torch.stack([torch.isfinite(grads[k]).all()
-                                  for k in keys]).all()
+            finite = torch.stack([torch.isfinite(grads[k]).flatten(members)
+                                  .all(-1) for k in keys]).all(0)
             notfinite_count = torch.where(finite, torch.zeros_like(
                 state.notfinite_count), _inc(state.notfinite_count))
             apply = finite | (notfinite_count > _MAX_CONSECUTIVE_ERRORS)
@@ -267,10 +284,12 @@ class Adam:
 
         g = grads
         if self.clip > 0:
-            g_norm = torch.sqrt(sum(torch.sum(g[k] * g[k]) for k in keys))
+            g_norm = torch.sqrt(sum(_sum_per_member(g[k] * g[k], members)
+                                    for k in keys))
             trigger = g_norm < self.clip
-            g = {k: torch.where(trigger, g[k],
-                                (g[k] / g_norm.to(g[k].dtype)) * self.clip)
+            g = {k: torch.where(
+                _per_member(trigger, g[k]), g[k],
+                (g[k] / _per_member(g_norm, g[k]).to(g[k].dtype)) * self.clip)
                  for k in keys}
         b1, b2 = self.b1, self.b2
         mu = {k: (1 - b1) * g[k] + b1 * state.mu[k] for k in keys}
@@ -279,17 +298,20 @@ class Adam:
         bc1 = 1 - b1 ** count_inc.to(torch.float64)
         bc2 = 1 - b2 ** count_inc.to(torch.float64)
         lr = self.lr(state.count) if callable(self.lr) else self.lr
-        updates = {}
+        updates, mask = {}, {}
         for k in keys:
             dtype = g[k].dtype
-            u = (mu[k] / bc1.to(dtype)) / (
-                torch.sqrt(nu[k] / bc2.to(dtype)) + _ADAM_EPS)
-            step = (-lr).to(dtype) if torch.is_tensor(lr) else -lr
-            updates[k] = torch.where(apply, step * u, 0.0)
+            u = (mu[k] / _per_member(bc1, mu[k]).to(dtype)) / (
+                torch.sqrt(nu[k] / _per_member(bc2, nu[k]).to(dtype))
+                + _ADAM_EPS)
+            step = (_per_member(-lr, u).to(dtype) if torch.is_tensor(lr)
+                    else -lr)
+            mask[k] = _per_member(apply, u)
+            updates[k] = torch.where(mask[k], step * u, 0.0)
         return updates, AdamState(
             count=torch.where(apply, count_inc, state.count),
-            mu={k: torch.where(apply, mu[k], state.mu[k]) for k in keys},
-            nu={k: torch.where(apply, nu[k], state.nu[k]) for k in keys},
+            mu={k: torch.where(mask[k], mu[k], state.mu[k]) for k in keys},
+            nu={k: torch.where(mask[k], nu[k], state.nu[k]) for k in keys},
             notfinite_count=notfinite_count,
             last_finite=finite,
             total_notfinite=torch.where(finite, state.total_notfinite,
@@ -432,6 +454,10 @@ def _leaves(params: Params) -> Params:
 
 
 def _grad(loss: torch.Tensor, leaves: Params) -> Params:
+    """Gradient of ``loss`` with respect to ``leaves``; a per-member loss
+    (K,) is summed first, which gives each member its own gradient."""
+    if loss.ndim:
+        loss = loss.sum()
     keys = list(leaves)
     return dict(zip(keys, torch.autograd.grad(loss, [leaves[k]
                                                      for k in keys])))
@@ -441,23 +467,29 @@ def gradient_penalty(cfg: WGANConfig, critic_params: Params,
                      real: torch.Tensor, fake: torch.Tensor,
                      eps: torch.Tensor) -> torch.Tensor:
     """WGAN-GP interpolate penalty E[(||grad_xhat D|| - 1)^2], eps of
-    shape (batch, 1). The critic maps rows independently, so the gradient
-    of the summed score is each row's input gradient."""
+    shape (batch, 1) (after the member axis, if any). The critic maps rows
+    independently, so the gradient of the summed score is each row's input
+    gradient."""
+    members = _critic_members(critic_params)
     xhat = (eps * real + (1.0 - eps) * fake).detach().requires_grad_(True)
     score = critic_lib.apply(cfg.critic_cfg, critic_params, xhat)
     grads, = torch.autograd.grad(score.sum(), xhat, create_graph=True)
-    norms = torch.sqrt(torch.sum(grads ** 2, dim=tuple(range(1, grads.ndim)))
-                       + 1e-12)
-    return torch.mean((norms - 1.0) ** 2)
+    norms = torch.sqrt(torch.sum(
+        grads ** 2, dim=tuple(range(1 + members, grads.ndim))) + 1e-12)
+    return gen_lib.mean_per_member((norms - 1.0) ** 2, members)
+
+
+def _critic_members(critic_params: Params) -> int:
+    return critic_params["w0"].ndim - 2
 
 
 def survivor_weights(cfg: WGANConfig, out) -> torch.Tensor:
     """Per-critic-sample survivor weights: per circuit (see
     :func:`survivor_chain`), repeated over that circuit's samples."""
-    ok = survivor_chain(out.converged, cfg.gen.dtype)  # (B,)
+    ok = survivor_chain(out.converged, cfg.gen.dtype)  # (..., B)
     if cfg.gen.track_offset_identity:
         return ok
-    return ok.repeat_interleave(cfg.gen.samples_per_circuit())
+    return ok.repeat_interleave(cfg.gen.samples_per_circuit(), dim=-1)
 
 
 def fake_sample_weights(cfg: WGANConfig, out) -> torch.Tensor | None:
@@ -468,55 +500,74 @@ def fake_sample_weights(cfg: WGANConfig, out) -> torch.Tensor | None:
 
 
 def _wmean(x: torch.Tensor, w: torch.Tensor | None) -> torch.Tensor:
+    """Weighted mean of the rows ``x`` (..., n), per member."""
     if w is None:
-        return x.mean()
+        return x.mean(-1)
     # degeneracy guard: every row masked out -> the unweighted mean, not a
     # silent zero that would make the critic's objective unbounded
-    total = w.sum()
+    total = w.sum(-1)
     return torch.where(total > 0.0,
-                       (x * w).sum() / torch.clamp(total, min=1e-12),
-                       x.mean())
+                       (x * w).sum(-1) / torch.clamp(total, min=1e-12),
+                       x.mean(-1))
 
 
 def critic_loss_fn(cfg: WGANConfig, critic_params: Params,
                    real: torch.Tensor, fake: torch.Tensor, eps: torch.Tensor,
                    fake_w: torch.Tensor | None = None):
-    """Critic loss -W + lambda * GP; returns (loss, (W, GP, accuracy))."""
+    """Critic loss -W + lambda * GP; returns (loss, (W, GP, accuracy)), each
+    per member with member-stacked parameters."""
+    members = _critic_members(critic_params)
     d_real = critic_lib.apply(cfg.critic_cfg, critic_params, real)
     d_fake = critic_lib.apply(cfg.critic_cfg, critic_params, fake)
     # with rejection on, real rows stand in for rejected fakes in the GP
     # interpolates, which keeps them in-distribution
     fake_gp = fake
     if fake_w is not None:
-        fake_gp = torch.where(fake_w[:, None] > 0.5, fake,
-                              real[: fake.shape[0]])
+        fake_gp = torch.where(fake_w[..., None] > 0.5, fake,
+                              real[..., : fake.shape[-2], :])
     gp = gradient_penalty(cfg, critic_params, real, fake_gp, eps)
-    wasserstein = d_real.mean() - _wmean(d_fake, fake_w)
+    wasserstein = (_wmean(d_real, None)
+                   - _wmean(d_fake, fake_w))
     loss = -wasserstein + cfg.gp_lambda * gp
     # rank accuracy: how often a real sample outscores a (valid) fake one
-    pairs = (d_real[:, None] > d_fake[None, :]).to(real.dtype)
+    pairs = (d_real[..., :, None] > d_fake[..., None, :]).to(real.dtype)
     if fake_w is None:
-        acc = pairs.mean()
+        acc = gen_lib.mean_per_member(pairs, members)
     else:
-        acc = (pairs * fake_w[None, :]).sum() / torch.clamp(
-            d_real.shape[0] * fake_w.sum(), min=1.0)
+        acc = (_sum_per_member(pairs * fake_w[..., None, :], members)
+               / torch.clamp(d_real.shape[-1]
+                             * _sum_per_member(fake_w, members), min=1.0))
     return loss, (wasserstein, gp, acc)
+
+
+def _sum_per_member(x: torch.Tensor, members: int) -> torch.Tensor:
+    return x.sum(tuple(range(members, x.ndim)))
 
 
 def gen_loss_fn(cfg: WGANConfig, gen_params: Params, critic_params: Params,
                 z=None, generator: torch.Generator | None = None):
     """Generator loss -E[D(fake)] + rate penalty; returns (loss, (penalty,
-    frac_converged, frac_diverged, mean_iters, circuit_yield))."""
+    frac_converged, frac_diverged, mean_iters, circuit_yield)), each per
+    member with member-stacked parameters."""
+    members = gen_lib.member_axes(gen_params)
     out = gen_lib.sample_tuning_curves(cfg.gen, gen_params, cfg.batch_size,
                                        z=z, generator=generator)
     d_fake = critic_lib.apply(cfg.critic_cfg, critic_params, out.tc)
-    pen = gen_lib.rate_penalty(cfg.gen, out.rates)
+    pen = gen_lib.rate_penalty(cfg.gen, out.rates, members)
     loss = -_wmean(d_fake, fake_sample_weights(cfg, out)) \
         + cfg.rate_cost * pen
+    return loss, (pen,) + solve_stats(out, members)
+
+
+def solve_stats(out, members: int = 0):
+    """(frac_converged, frac_diverged, mean_iters, circuit_yield) of a
+    generator batch, per member."""
     conv = out.converged.to(torch.float32)
-    stats = (pen, conv.mean(), out.diverged.to(torch.float32).mean(),
-             out.iters.to(torch.float32).mean(), conv.amin(dim=-1).mean())
-    return loss, stats
+    mean = gen_lib.mean_per_member
+    return (mean(conv, members),
+            mean(out.diverged.to(torch.float32), members),
+            mean(out.iters.to(torch.float32), members),
+            mean(conv.amin(dim=-1), members))
 
 
 # -- moment anchor and endgame ---------------------------------------------
@@ -691,6 +742,10 @@ def run_step(cfg: WGANConfig, n_critic: int, state: TrainState,
     _check_config(cfg)
     if noise is None and generator is None:
         raise ValueError("train_step_impl needs noise= or generator=")
+    if gen_lib.member_axes(state.gen_params) and cfg.moment_anchor > 0:
+        raise NotImplementedError(
+            "the moment anchor is single-fit only: a member-stacked state "
+            "has no per-member anchor buffers")
     gen_tx, critic_tx = make_optimizers(cfg)
     critic_params, critic_opt = state.critic_params, state.critic_opt
     d_losses, ws, gps, accs = [], [], [], []
@@ -702,7 +757,7 @@ def run_step(cfg: WGANConfig, n_critic: int, state: TrainState,
                                       else noise.critic_z[i])
         with record_function("wgan.critic_update"):
             if noise is None:
-                eps = torch.rand((real.shape[0], 1), generator=generator,
+                eps = torch.rand(real.shape[:-1] + (1,), generator=generator,
                                  dtype=real.dtype, device=real.device)
             else:
                 eps = torch.as_tensor(noise.gp_eps[i], dtype=real.dtype,
@@ -765,10 +820,10 @@ def run_step(cfg: WGANConfig, n_critic: int, state: TrainState,
         frac_diverged=fdiv,
         mean_iters=miters,
         d_accuracy=accs[-1],
-        d_loss_iters=torch.stack(d_losses),
-        wasserstein_iters=torch.stack(ws),
-        gp_iters=torch.stack(gps),
-        acc_iters=torch.stack(accs),
+        d_loss_iters=torch.stack(d_losses, dim=-1),
+        wasserstein_iters=torch.stack(ws, dim=-1),
+        gp_iters=torch.stack(gps, dim=-1),
+        acc_iters=torch.stack(accs, dim=-1),
         anchor_residual=a_res,
         circuit_yield=cyield,
         drift_ratio=drift_ratio,
@@ -782,7 +837,8 @@ def train_step_impl(cfg: WGANConfig, n_critic: int, state: TrainState,
                     generator: torch.Generator | None = None
                     ) -> Tuple[TrainState, StepMetrics]:
     """One GAN step: ``n_critic`` critic updates on ``real_stack[i]``
-    ((n_critic, critic_batch, tc_dim)), one generator update, then the
+    ((n_critic, critic_batch, tc_dim), or (n_critic, K, critic_batch,
+    tc_dim) for a member-stacked state), one generator update, then the
     anchor. Noise is ``noise`` when given, else drawn from ``generator``."""
     def fake_batch(z):
         out = gen_lib.sample_tuning_curves(cfg.gen, state.gen_params,

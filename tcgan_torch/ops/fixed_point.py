@@ -44,19 +44,29 @@ def solve_any(cfg: SSNConfig, W: torch.Tensor, I_ext: torch.Tensor
               ) -> FixedPointResult:
     """Backend-dispatching fixed-point solve (forward only).
 
-    Uses the CUDA kernel wrapper when ``cfg.backend == "cuda"`` and the
-    layout matches its contract (W (B, 2N, 2N), shared battery I (S, 2N));
-    otherwise the lockstep solve. The kernel path computes and returns
-    float32 rates whatever the input dtype; the lockstep path keeps
-    ``W.dtype``.
+    With ``cfg.backend == "cuda"`` every solve goes to the CUDA kernel
+    wrapper: W (..., B, 2N, 2N) under a shared battery I (S, 2N), the
+    leading axes (an ensemble's members) folded into the circuit axis of
+    ONE launch and the outputs unfolded to (..., B, S, ...). Any other
+    layout raises ``ValueError``; nothing falls back to the lockstep solve.
+    The kernel path computes and returns float32 rates whatever the input
+    dtype; the lockstep path keeps ``W.dtype``.
     """
     check_every = max(cfg.check_every, 1)
-    if cfg.backend == "cuda" and W.ndim == 3 and I_ext.ndim == 2:
-        from tcgan_torch.ops.cuda.ssn_solve import solve_fixed_point_cuda
+    if cfg.backend != "cuda":
+        return solve_fixed_point(cfg, W, I_ext, check_every=check_every)
+    if W.ndim < 3 or I_ext.ndim != 2:
+        raise ValueError(
+            "the cuda backend solves W (..., B, 2N, 2N) under a shared "
+            f"battery I_ext (S, 2N); got W {tuple(W.shape)} and I_ext "
+            f"{tuple(I_ext.shape)}")
+    from tcgan_torch.ops.cuda.ssn_solve import solve_fixed_point_cuda
 
-        return solve_fixed_point_cuda(cfg, W, I_ext, check_every=check_every,
-                                      accel=(cfg.accel == "anderson"))
-    return solve_fixed_point(cfg, W, I_ext, check_every=check_every)
+    lead = W.shape[:-2]
+    res = solve_fixed_point_cuda(cfg, W.reshape((-1,) + W.shape[-2:]), I_ext,
+                                 check_every=check_every,
+                                 accel=(cfg.accel == "anderson"))
+    return FixedPointResult(*(t.reshape(lead + t.shape[1:]) for t in res))
 
 
 def solve_fixed_point(

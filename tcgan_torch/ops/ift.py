@@ -8,18 +8,22 @@ gives
     W_bar = (dF/dW)^T lam,   I_bar = (dF/dI)^T lam,
 
 with dF/dr = diag(f'(u*)) W at u* = W r* + I. :class:`FixedPointRates` is a
-``torch.autograd.Function`` (``forward`` + ``setup_context``, so a ``vmap``
-rule can be added later) whose forward is :func:`fixed_point.solve_any`, the
-CUDA solver kernel on CUDA tensors, and whose backward solves the adjoint
-system by one of three methods:
+``torch.autograd.Function`` whose forward is :func:`fixed_point.solve_any`,
+the CUDA solver kernel on CUDA tensors, and whose backward solves the
+adjoint system by one of three methods:
 
 - ``"iterative"`` (default): damped Richardson on the adjoint,
-  lam <- lam + alpha * (-lam + (dF/dr)^T lam + g), until the GLOBAL
-  max |delta| over the whole batch drops below ``bwd_atol`` or
-  ``bwd_max_iter`` iterations ran. The reference tests its stop rule on
-  every iteration on the device; here the loop runs ``check_stride``
-  iterations per host sync, and an iteration after the stop rule held
-  leaves lam unchanged, so the result does not depend on the stride.
+  lam <- lam + alpha * (-lam + (dF/dr)^T lam + g), until max |delta| drops
+  below ``bwd_atol`` or ``bwd_max_iter`` iterations ran. The max runs over
+  the whole batch, or per independent group: ``group_axes`` leading axes
+  (an ensemble's members, or a batch of cotangents in
+  :func:`vjp_W_batched`) each keep their own residual, stop test and
+  iteration count, and a converged group is frozen while the others go on,
+  which is what ``lax.while_loop`` under ``vmap`` does in the reference.
+  The reference tests its stop rule on every iteration on the device; here
+  the loop runs ``check_stride`` iterations per host sync, and an
+  iteration after the stop rule held leaves lam unchanged, so the result
+  does not depend on the stride.
 - ``"direct"``: batched dense solve of the transposed system.
 - ``"jfb"``: Jacobian-free backprop, lam = g.
 
@@ -49,9 +53,22 @@ host_syncs = 0
 
 def _bwd(cfg: SSNConfig, grad_method: str, bwd_max_iter: int,
          bwd_atol: float, residuals, g: torch.Tensor,
-         check_stride: int = DEFAULT_CHECK_STRIDE):
+         check_stride: int = DEFAULT_CHECK_STRIDE, group_axes: int = 0):
     """(W_bar, I_bar) for the rates' cotangent ``g`` at the saved fixed point
-    ``residuals = (W, I_ext, r_star, converged)``."""
+    ``residuals = (W, I_ext, r_star, converged)``, reduced to the shapes of
+    W and I_ext."""
+    W, I_ext = residuals[:2]
+    W_bar, philam = _adjoint(cfg, grad_method, bwd_max_iter, bwd_atol,
+                             residuals, g, check_stride, group_axes)
+    return _unbroadcast(W_bar, W.shape), _unbroadcast(philam, I_ext.shape)
+
+
+def _adjoint(cfg: SSNConfig, grad_method: str, bwd_max_iter: int,
+             bwd_atol: float, residuals, g: torch.Tensor, check_stride: int,
+             group_axes: int):
+    """(W_bar, phi * lam) in the broadcast shape of ``g`` and the
+    residuals, not reduced; the iterative method's stop rule runs per group
+    of the ``group_axes`` leading axes."""
     global adjoint_iterations, host_syncs
     W, I_ext, r_star, converged = residuals
     dtype = W.dtype
@@ -78,21 +95,29 @@ def _bwd(cfg: SSNConfig, grad_method: str, bwd_max_iter: int,
             raise ValueError(f"check_stride must be >= 1; got {check_stride}")
         alpha = cfg.step_gain(dtype=dtype, device=W.device)
         lam = g
-        delta_norm = torch.full((), float("inf"), dtype=dtype, device=W.device)
-        iters = torch.zeros((), dtype=dtype, device=W.device)
+        shape = torch.broadcast_shapes(g.shape, phi.shape)
+        groups, per_group = shape[:group_axes], tuple(
+            range(group_axes, len(shape)))
+        delta_norm = torch.full(groups, float("inf"), dtype=dtype,
+                                device=W.device)
+        iters = torch.zeros(groups, dtype=dtype, device=W.device)
         done, n_it = 0, 0.0
         while done < bwd_max_iter:
             for _ in range(min(check_stride, bwd_max_iter - done)):
                 active = delta_norm >= bwd_atol
                 delta = -lam + torch.matmul(phi * lam, W) + g
-                lam = torch.where(active, lam + alpha * delta, lam)
-                delta_norm = torch.where(active, delta.abs().amax(),
+                lam = torch.where(
+                    active.reshape(groups + (1,) * len(per_group)),
+                    lam + alpha * delta, lam)
+                delta_norm = torch.where(active, delta.abs().amax(per_group),
                                          delta_norm)
                 iters = iters + active
             done += check_stride
             host_syncs += 1
+            # one copy: "any group active" and the slowest group's count
             more, n_it = torch.stack(
-                [(delta_norm >= bwd_atol).to(dtype), iters]).tolist()
+                [(delta_norm >= bwd_atol).any().to(dtype),
+                 iters.max()]).tolist()
             if not more:
                 break
         adjoint_iterations += int(n_it)
@@ -104,8 +129,7 @@ def _bwd(cfg: SSNConfig, grad_method: str, bwd_max_iter: int,
 
     philam = phi * lam
     r_ok = torch.where(ok, r_star, zero)
-    W_bar = torch.matmul(philam.transpose(-1, -2), r_ok)
-    return _unbroadcast(W_bar, W.shape), _unbroadcast(philam, I_ext.shape)
+    return torch.matmul(philam.transpose(-1, -2), r_ok), philam
 
 
 def _unbroadcast(bar: torch.Tensor, shape) -> torch.Tensor:
@@ -131,27 +155,29 @@ class FixedPointRates(torch.autograd.Function):
 
     @staticmethod
     def forward(W, I_ext, cfg, grad_method, bwd_max_iter, bwd_atol,
-                check_stride):
+                check_stride, group_axes):
         return tuple(solve_any(cfg, W, I_ext))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        W, I_ext, cfg, grad_method, bwd_max_iter, bwd_atol, stride = inputs
+        (W, I_ext, cfg, grad_method, bwd_max_iter, bwd_atol, stride,
+         group_axes) = inputs
         r, converged, diverged, iters = output
         ctx.save_for_backward(W, I_ext, r, converged)
         ctx.mark_non_differentiable(converged, diverged, iters)
         ctx.args = (cfg, grad_method, bwd_max_iter, bwd_atol)
         ctx.check_stride = stride
+        ctx.group_axes = group_axes
 
     @staticmethod
     def backward(ctx, g_r, _g_conv, _g_div, _g_iters):
         W, I_ext, r, converged = ctx.saved_tensors
         with torch.profiler.record_function("ift.adjoint"):
             W_bar, I_bar = _bwd(*ctx.args, (W, I_ext, r, converged), g_r,
-                                ctx.check_stride)
+                                ctx.check_stride, ctx.group_axes)
         return (W_bar if ctx.needs_input_grad[0] else None,
                 I_bar.to(I_ext.dtype) if ctx.needs_input_grad[1] else None,
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def solve_fixed_point_implicit(
@@ -162,9 +188,31 @@ def solve_fixed_point_implicit(
     bwd_max_iter: int = 20000,
     bwd_atol: float = 1e-6,
     check_stride: int = DEFAULT_CHECK_STRIDE,
+    group_axes: int = 0,
 ) -> FixedPointResult:
-    """User-facing differentiable fixed-point solve (see module docstring)."""
+    """User-facing differentiable fixed-point solve (see module docstring).
+    ``group_axes`` leading axes of W (an ensemble's members) are
+    independent problems: each keeps its own adjoint stop rule."""
     if grad_method not in GRAD_METHODS:
         raise ValueError(f"grad_method must be one of {GRAD_METHODS}")
     return FixedPointResult(*FixedPointRates.apply(
-        W, I_ext, cfg, grad_method, bwd_max_iter, bwd_atol, check_stride))
+        W, I_ext, cfg, grad_method, bwd_max_iter, bwd_atol, check_stride,
+        group_axes))
+
+
+def vjp_W_batched(cfg: SSNConfig, W: torch.Tensor, I_ext: torch.Tensor,
+                  res: FixedPointResult, g: torch.Tensor,
+                  grad_method: str = "iterative", bwd_max_iter: int = 20000,
+                  bwd_atol: float = 1e-6,
+                  check_stride: int = DEFAULT_CHECK_STRIDE) -> torch.Tensor:
+    """W's cotangents (C, ..., 2N, 2N) for C rate cotangents ``g`` (C, ...,
+    S, 2N) at the fixed point ``res`` of (W, I_ext): ONE adjoint solve for
+    the whole chunk, each cotangent with its own stop rule, so each equals
+    its own solo backward (the reference's ``vmap`` over ``vjp``)."""
+    if grad_method not in GRAD_METHODS:
+        raise ValueError(f"grad_method must be one of {GRAD_METHODS}")
+    with torch.profiler.record_function("ift.adjoint"), torch.no_grad():
+        W_bar, _ = _adjoint(cfg, grad_method, bwd_max_iter, bwd_atol,
+                            (W, I_ext, res.r, res.converged), g,
+                            check_stride, group_axes=1)
+    return W_bar

@@ -5,11 +5,19 @@ defaults, so a command line of ``tcgan_tpu.run.forward`` or
 ``tcgan_tpu.run.gan`` parses here too, with two differences:
 ``--solver-backend`` takes ``torch`` or ``cuda`` (for the reference's
 ``xla`` and ``pallas``), and ``--device`` names the torch device.
+
+:func:`apply_run_config` lets the evaluation and analysis entry points
+rebuild a training run's scientific configuration from its ``info.json``
+(a run of either package), explicit flags overriding it loudly.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import sys
+from pathlib import Path
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -24,6 +32,13 @@ from tcgan_torch.ops.ssn import (
     DEFAULT_S,
     SSNConfig,
 )
+
+
+def mat22(values: Sequence[float]):
+    v = [float(x) for x in values]
+    if len(v) != 4:
+        raise argparse.ArgumentTypeError("expected 4 values (row-major 2x2)")
+    return ((v[0], v[1]), (v[2], v[3]))
 
 
 def add_ssn_flags(p: argparse.ArgumentParser):
@@ -323,6 +338,88 @@ def contrast_cond_weight(args, conditional):
     per_stim = np.repeat(cw, len(args.bandwidths))
     per_stim = per_stim / per_stim.mean()
     return tuple(float(w) for w in per_stim)
+
+
+def explicit_dests(parser: argparse.ArgumentParser, argv) -> set:
+    """Dests of options explicitly present on the command line (vs taking
+    their parser default), with argparse's prefix-abbreviation rule: an
+    unambiguous ``--contrast`` sets the ``contrasts`` dest, so it is
+    explicit too."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    tokens = []
+    for tok in argv:
+        if tok == "--":  # argparse: everything after is positional
+            break
+        if tok.startswith("--"):
+            tokens.append(tok.split("=", 1)[0])
+    seen = set()
+    for tok in tokens:
+        exact = [a for a in parser._actions if tok in a.option_strings]
+        if exact:
+            seen.add(exact[0].dest)
+            continue
+        # unambiguous abbreviation: every prefix-matching option agrees on
+        # one dest (argparse itself rejects an ambiguous prefix)
+        dests = {a.dest for a in parser._actions
+                 if any(o.startswith(tok) for o in a.option_strings
+                        if o.startswith("--"))}
+        if len(dests) == 1:
+            seen.add(dests.pop())
+    return seen
+
+
+def run_config_dests() -> set:
+    """Arg dests of a run's scientific configuration (SSN circuit, stimulus
+    battery and readout, data and truth): what an evaluation must take from
+    the training run's ``info.json`` to compute the right W1 and recovery
+    numbers."""
+    p = argparse.ArgumentParser(add_help=False)
+    add_ssn_flags(p)
+    add_stimulus_flags(p)
+    add_data_flags(p)
+    return {a.dest for a in p._actions if a.dest != "help"}
+
+
+def apply_run_config(args, parser: argparse.ArgumentParser, argv,
+                     run_dir) -> list:
+    """Overlay the training run's recorded config (``info.json`` in
+    ``run_dir``) onto ``args`` for every scientific-config dest the user
+    did not set explicitly. An explicit flag wins, and a mismatch against
+    the recorded value is reported (returned and printed to stderr). A
+    recorded value this parser's option does not accept (the reference's
+    ``--solver-backend pallas``) keeps the CLI's value, with a notice.
+
+    Returns the notices (empty when the CLI agrees with the run's config or
+    no info.json exists)."""
+    info_path = Path(run_dir) / "info.json"
+    if not info_path.exists():
+        print(f"eval: no info.json under {run_dir} — relying on CLI flags "
+              "for the run configuration", file=sys.stderr)
+        return []
+    run_cfg = json.loads(info_path.read_text()).get("config", {})
+    explicit = explicit_dests(parser, argv)
+    choices = {a.dest: a.choices for a in parser._actions if a.choices}
+    notices = []
+    for dest in sorted(run_config_dests()):
+        if dest not in run_cfg:
+            continue
+        run_val = run_cfg[dest]
+        cur = getattr(args, dest, None)
+        if dest in explicit:
+            if cur != run_val:
+                msg = (f"eval: --{dest.replace('_', '-')} overrides the "
+                       f"run's recorded config (run: {run_val!r}, "
+                       f"cli: {cur!r})")
+                notices.append(msg)
+                print(msg, file=sys.stderr)
+        elif dest in choices and run_val not in choices[dest]:
+            msg = (f"eval: the run's --{dest.replace('_', '-')} {run_val!r} "
+                   f"is not an option here; using {cur!r}")
+            notices.append(msg)
+            print(msg, file=sys.stderr)
+        else:
+            setattr(args, dest, run_val)
+    return notices
 
 
 def resolve_device(args) -> torch.device:

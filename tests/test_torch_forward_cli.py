@@ -6,6 +6,7 @@ fallback for ``--device cuda``, no kernel launches on CPU tensors)."""
 import json
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -127,16 +128,21 @@ def test_unported_modes_raise(tmp_path, flags, item):
 
 
 def test_port_never_imports_jax():
+    """Every module of the port, and ``chip_smoke``, imports neither JAX
+    nor anything of the JAX package."""
     code = (
         "import pkgutil, sys, tcgan_torch\n"
         "for m in pkgutil.walk_packages(tcgan_torch.__path__, "
         "'tcgan_torch.'):\n"
         "    __import__(m.name)\n"
         "import tcgan_torch.run.forward\n"
+        "import chip_smoke\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules "
         "if k.startswith('jax'))\n"
+        "assert not [k for k in sys.modules if k.startswith('tcgan_tpu')]\n"
         "print('ok')\n")
+    root = Path(__file__).resolve().parents[1]
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=120)
+                          text=True, timeout=120, cwd=root)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"

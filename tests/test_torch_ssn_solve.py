@@ -142,8 +142,8 @@ def test_f64_inputs_give_f32_results():
 
 def test_solve_any_dispatches_cuda_backend(monkeypatch):
     """backend='cuda' with W (B, 2N, 2N) and I (S, 2N) goes to the kernel
-    wrapper with the config's check stride and accel; other layouts take
-    the lockstep solve."""
+    wrapper with the config's check stride and accel; any layout the kernel
+    cannot take raises instead of falling back to the lockstep solve."""
     seen = []
     real = ssn_solve.solve_fixed_point_cuda
 
@@ -157,7 +157,10 @@ def test_solve_any_dispatches_cuda_backend(monkeypatch):
                          accel="anderson")
     tfp.solve_any(cfg, torch.tensor(W), torch.tensor(I))
     assert seen == [(8, True)]
-    tfp.solve_any(cfg, torch.tensor(W[0]), torch.tensor(I))  # 2-D W
+    with pytest.raises(ValueError, match="shared battery"):
+        tfp.solve_any(cfg, torch.tensor(W[0]), torch.tensor(I))  # 2-D W
+    with pytest.raises(ValueError, match="shared battery"):
+        tfp.solve_any(cfg, torch.tensor(W), torch.tensor(I)[None])  # 3-D I
     assert len(seen) == 1
 
 
