@@ -1,7 +1,7 @@
 # Build tooling (reference parity: the upstream root Makefile that built the
 # C solver and ran tests — SURVEY.md §2 "Build tooling").
 
-.PHONY: all lib test test-all bench docs clean
+.PHONY: all lib test test-all bench docs docs-torch clean
 
 all: lib
 
@@ -21,6 +21,10 @@ bench: lib
 # regenerate docs/cli_reference.md from the live argparse parsers
 docs:
 	python -m tcgan_tpu.utils.cli_docs
+
+# regenerate docs/cli_reference_torch.md from the port's parsers
+docs-torch:
+	python -m tcgan_torch.utils.cli_docs
 
 clean:
 	$(MAKE) -C csrc clean

@@ -20,12 +20,20 @@ no result line):
    D unscaled, where a row outside rtol/atol is held to the fp32
    trajectory at its own iters (the float64 solve printed beside); then at
    32 circuits for each io type, the expo stepper, feedforward init,
-   Anderson(1), a ragged batch and a batch of hard divergers; the plain
-   version's time at 512 circuits;
+   Anderson(1), a ragged batch and a batch of hard divergers; then past one
+   block's shared memory, on thread-block clusters
+   (``ssn_solve_ab.CLUSTER_SHAPES``: 2N=240, 402 at S=8, 16 with Anderson
+   and atol 1e-5, and 24, and 512), J and D scaled to N, each with its
+   time, bound, share, cluster size and circuits at once, a row outside
+   rtol/atol held to its own fp32 trajectory; the plain version's time at
+   512 circuits and at 2N=402;
 4. the serving path: ``python -m tcgan_torch.run.forward`` (through its
    ``main``) with the CUDA backend, 8 batches of 512 circuits, checked for
    launches, shapes, convergence and agreement with the plain solver; then
    one batch on the 24-stimulus battery;
+4b. the paper's circuit, N=201, through ``run.forward``: 4 batches of 64
+   circuits (one launch each, batch 0 against the plain solve, circuits/s),
+   then 2 batches with the reference's ``--solver-backend pallas``;
 5. implicit gradients on the card: at N=51, 256 circuits and the GAN
    battery (8 bandwidths x contrasts 5, 10), the gradient of the mean probe
    rate with respect to the log-space (J, D, S), with the kernel forward
@@ -82,7 +90,12 @@ no result line):
 13. the native CPU baseline (``csrc/ssnode.cpp`` through
    ``tcgan_torch/ops/native.py``) at N=51, S=8, 32 circuits in float64,
    held to the plain lockstep solve in float64, and its circuits/s on the
-   host's CPU beside the kernel's.
+   host's CPU beside the kernel's;
+14. the post-fit analysis CLIs on this machine, which has no jax and no
+   matplotlib: ``report``, ``fit_quality``, ``learning_curves``,
+   ``compare`` and ``recovery_gate`` (on its exit codes) on phase 6's run,
+   ``report`` and ``ensemble_view`` on phase 10's ensemble; each finishes
+   and says its figure was skipped.
 
 Every phase prints its seconds.
 
@@ -165,17 +178,39 @@ MEMBER_TOL = {"gen_params": 1e-6, "critic_params": 1e-4, "metrics": 1e-3,
 JAC_RTOL = 1e-3
 # Phase 13: native float64 against the plain lockstep in float64.
 NATIVE_RTOL = 1e-6
+# Phase 4b: the paper's circuit, N=201, through run.forward (J and D scaled
+# by 51 / 201, so the circuit keeps the slice's regime).
+WIDE_FWD_N, WIDE_FWD_BATCH, WIDE_FWD_BATCHES = 201, 64, 4
+WIDE_FWD_MIN_CONVERGED = 0.9
 
 
 def _line(*parts):
     print(*parts, flush=True)
 
 
-def _compare(name, cfg, W, I, check_every, accel=False):
+def _off_own_trajectory(out, cfg, W, I, b, s, check_every, accel):
+    """Max |dr| of row (b, s) of the kernel's rates from the plain fp32
+    solve of that row run to the kernel's own iters for it (atol 0), and
+    whether it lies within RTOL/ATOL: a row whose atol crossing lands a
+    chunk apart from the plain solve's (near criticality, where the order
+    of the sums decides it) must still be the right trajectory."""
+    from tcgan_torch.ops.cuda import ssn_solve
+
+    it = int(out.iters[b, s])
+    rerun = ssn_solve.solve_fixed_point_plain(
+        dataclasses.replace(cfg, atol=0.0, max_iter=it), W[b:b + 1],
+        I[s:s + 1], check_every, accel).r[0, 0]
+    d = (out.r[b, s] - rerun).abs()
+    return float(d.max()), bool((d <= ATOL + RTOL * rerun.abs()).all())
+
+
+def _compare(name, cfg, W, I, check_every, accel=False, witness=False):
     """Kernel against plain on the same inputs: flags equal, rates of rows
     both converged within RTOL/ATOL, iters within two check strides (the
     mat-vec's summation order differs, so the atol crossing can land one
-    chunk apart); returns max |dr| on rows both converged."""
+    chunk apart); with ``witness``, a row outside RTOL/ATOL passes when it
+    agrees with its own fp32 trajectory (``_off_own_trajectory``). Returns
+    (the kernel's result, max |dr| on rows both converged)."""
     import torch
 
     from tcgan_torch.ops.cuda import ssn_solve
@@ -190,7 +225,20 @@ def _compare(name, cfg, W, I, check_every, accel=False):
     both = (out.converged & ref.converged)[..., None]
     diff = (out.r - ref.r).abs() * both
     bound = ATOL + RTOL * ref.r.abs()
+    bad_rows = ((diff > bound) & both).any(-1)
     n_bad = int(((diff > bound) & both).sum())
+    if witness:
+        for b, s_ in bad_rows.nonzero().tolist():
+            d_own, ok = _off_own_trajectory(out, cfg, W, I, b, s_,
+                                            check_every, accel)
+            _line(f"[kernel]   {name} row (circuit {b}, stimulus {s_}) "
+                  f"outside rtol/atol: iters kernel {int(out.iters[b, s_])} "
+                  f"plain {int(ref.iters[b, s_])}; kernel vs fp32 run to "
+                  f"its own iters {d_own:.3e} "
+                  f"({'within' if ok else 'OUTSIDE'} rtol {RTOL} atol "
+                  f"{ATOL})")
+            if ok:
+                n_bad -= int(((diff[b, s_] > bound[b, s_])).sum())
     max_err = float(diff.max()) if diff.numel() else 0.0
     d_iters = int((out.iters.long() - ref.iters.long()).abs().max())
     n_iters_diff = int((out.iters != ref.iters).sum())
@@ -276,11 +324,8 @@ def _wide_witness(card: str) -> None:
     unexplained = 0
     for b, s_ in bad.nonzero().tolist():
         it = int(out.iters[b, s_])
-        rerun = ssn_solve.solve_fixed_point_plain(
-            dataclasses.replace(c, atol=0.0, max_iter=it), W[b:b + 1],
-            I[s_:s_ + 1], CHECK_EVERY).r[0, 0]
-        d_same = float((out.r[b, s_] - rerun).abs().max())
-        ok = bool(((out.r[b, s_] - rerun).abs() <= tol[b, s_]).all())
+        d_same, ok = _off_own_trajectory(out, c, W, I, b, s_, CHECK_EVERY,
+                                         False)
         unexplained += not ok
         _line(f"[kernel]   row (circuit {b}, stimulus {s_}): iters kernel "
               f"{it} fp32 {int(p32.iters[b, s_])} f64 "
@@ -313,38 +358,57 @@ def phase_kernel(card: str) -> dict:
     # run's iters (3 TF32 passes at the tensor cores' peak; the same
     # arithmetic at the fp32 peak beside it), and the slowest circuit's
     # time per substep (launch time / max iters).
-    shapes = [(name, batch, contrasts, kw, SLICE_SSN["N"])
+    # Then the shapes past one block (thread-block clusters, up to the
+    # paper's N=201 and 2N=512; ab.CLUSTER_SHAPES), with J and D scaled to
+    # N and a near-critical row held to its own fp32 trajectory.
+    shapes = [(name, batch, contrasts, kw, SLICE_SSN["N"], False)
               for name, (batch, contrasts, kw) in ab.SHAPES.items()]
     shapes.append(("wide 2N=224 S=8", ab.WIDE_BATCH, (CONTRAST,), {},
-                   ab.WIDE_N))
-    rows, max_err, fwd = [], 0.0, None
-    for name, batch, contrasts, kw, N in shapes:
+                   ab.WIDE_N, False))
+    shapes += [(name, batch, contrasts, kw, N, accel) for name, (
+        N, batch, contrasts, kw, accel) in ab.CLUSTER_SHAPES.items()]
+    rows, max_err, fwd, wide = [], 0.0, None, None
+    for name, batch, contrasts, kw, N, accel in shapes:
         c, Wk, Ik = ab.problem(batch, contrasts, kw, N=N, seed=SEED)
-        out, err = _compare(name, c, Wk, Ik, CHECK_EVERY)
+        n2, S = Wk.shape[-1], Ik.shape[0]
+        cluster, at_once = ssn_solve.active_clusters(n2, S, accel)
+        if cluster != ssn_solve.cluster_size(n2, S, accel):
+            raise AssertionError(f"{name}: the kernel takes clusters of "
+                                 f"{cluster}, the wrapper reckons "
+                                 f"{ssn_solve.cluster_size(n2, S, accel)}")
+        out, err = _compare(name, c, Wk, Ik, CHECK_EVERY, accel,
+                            witness=cluster > 1)
         fwd = fwd or (c, Wk, Ik, out)
+        if name == "2N=402 S=8 B=64":
+            wide = (c, Wk, Ik)
         max_err = max(max_err, err)
         ms = _median_ms(lambda: ssn_solve.solve_fixed_point_cuda(
-            c, Wk, Ik, CHECK_EVERY))
+            c, Wk, Ik, CHECK_EVERY, accel))
         bound_ms, bound_by = ab.bound(Wk, Ik, out.iters)
         fp32_ms = 1e3 * ab.matvec_flops(Wk, out.iters) / ab.PEAK_FP32_FLOPS
         max_iters = int(out.iters.max())
-        rows.append({"shape": name, "B": batch, "S": Ik.shape[0],
-                     "2N": Wk.shape[-1], "atol": c.atol, "ms": ms,
+        rows.append({"shape": name, "B": batch, "S": S, "2N": n2,
+                     "atol": c.atol, "accel": accel, "ms": ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "share_of_bound": bound_ms / ms,
                      "fp32_bound_ms": fp32_ms,
                      "max_iters": max_iters,
                      "us_per_substep_slowest": 1e3 * ms / max_iters,
+                     "cluster": cluster, "circuits_at_once": at_once,
+                     "smem_bytes": ssn_solve.smem_bytes(n2, S, accel,
+                                                        cluster),
                      "max_abs_err": err})
-        _line(f"[time] ssn_solve {name} (2N={Wk.shape[-1]}, atol {c.atol}): "
-              f"kernel {ms:.3f} ms (median of 5), bound {bound_ms:.4f} ms "
-              f"({bound_by}: 3xTF32 at {ab.PEAK_TF32_FLOPS:.3g} FLOP/s; "
-              f"sum iters {int(out.iters.sum())}), share "
-              f"{bound_ms / ms:.4f}; at the fp32 peak "
-              f"{ab.PEAK_FP32_FLOPS:.3g} FLOP/s {fp32_ms:.4f} ms, share "
-              f"{fp32_ms / ms:.4f}; slowest circuit "
+        _line(f"[time] ssn_solve {name} (2N={n2}, S={S}, atol {c.atol}"
+              f"{', Anderson' if accel else ''}): kernel {ms:.3f} ms (median "
+              f"of 5), bound {bound_ms:.4f} ms ({bound_by}: 3xTF32 at "
+              f"{ab.PEAK_TF32_FLOPS:.3g} FLOP/s; sum iters "
+              f"{int(out.iters.sum())}), share {bound_ms / ms:.4f}; at the "
+              f"fp32 peak {ab.PEAK_FP32_FLOPS:.3g} FLOP/s {fp32_ms:.4f} ms, "
+              f"share {fp32_ms / ms:.4f}; slowest circuit "
               f"{1e3 * ms / max_iters:.3f} us per substep over {max_iters} "
-              f"iters ({card})")
+              f"iters; {cluster} block(s) per circuit, "
+              f"{rows[-1]['smem_bytes']} B of shared memory per block, "
+              f"{at_once} circuits at once ({card})")
     _wide_witness(card)
 
     # variants on the forward slice (N=51, S=8); soft bounds under the
@@ -387,38 +451,82 @@ def phase_kernel(card: str) -> dict:
     _line(f"[time] ssn_solve B={W.shape[0]} S={I.shape[0]} N={cfg.N}: "
           f"kernel {fwd_row['ms']:.3f} ms, plain {plain_ms:.3f} ms (median "
           f"of 5; {card})")
+    wide_row = next(r for r in rows if r["shape"] == "2N=402 S=8 B=64")
+    wide_plain_ms = _median_ms(lambda: ssn_solve.solve_fixed_point_plain(
+        *wide, CHECK_EVERY), reps=3)
+    _line(f"[time] ssn_solve 2N=402 S=8 B=64: kernel {wide_row['ms']:.3f} "
+          f"ms, plain {wide_plain_ms:.3f} ms (median of 3; {card})")
     return {"name": "ssn_solve", "route": "cuda",
             "source": "tcgan_torch/csrc/ssn_solve.cu",
             "replaces": "tcgan_tpu/ops/pallas/ssn_solve.py:82",
             "max_abs_err": max_err, "ms": fwd_row["ms"],
             "plain_ms": plain_ms, "bound_ms": fwd_row["bound_ms"],
             "bound_by": fwd_row["bound_by"],
-            "library_ms": None, "shapes": rows}
+            "library_ms": None, "plain_ms_2N402": wide_plain_ms,
+            "shapes": rows}
 
 
-def _forward_argv(datastore, contrasts, total):
+def _forward_argv(datastore, contrasts, total, N=SLICE_SSN["N"],
+                  batch=BATCH, backend="cuda"):
+    """``run.forward`` on the slice's circuit at width N, J and D scaled by
+    51 / N as ``ab.problem`` scales them."""
     flat = lambda v: [str(x) for x in v]  # noqa: E731
+    scale = lambda v: [str(SLICE_SSN["N"] / N * x) for x in v]  # noqa: E731
     return [
-        "--device", "cuda", "--solver-backend", "cuda",
+        "--device", "cuda", "--solver-backend", backend,
         "--datastore", str(datastore), "--seed", str(SEED),
-        "--N", str(SLICE_SSN["N"]), "--k", str(SLICE_SSN["k"]),
+        "--N", str(N), "--k", str(SLICE_SSN["k"]),
         "--n", str(SLICE_SSN["n"]), "--dt", str(SLICE_SSN["dt"]),
         "--max-iter", str(SLICE_SSN["max_iter"]),
         "--atol", str(SLICE_SSN["atol"]),
         "--check-every", str(CHECK_EVERY),
-        "--J", *flat(SLICE_J), "--D", *flat(SLICE_D), "--S", *flat(SLICE_S),
+        "--J", *scale(SLICE_J), "--D", *scale(SLICE_D), "--S", *flat(SLICE_S),
         "--bandwidths", *flat(BANDWIDTHS), "--contrasts", *flat(contrasts),
-        "--batch-size", str(BATCH), "--total-samples", str(total),
+        "--batch-size", str(batch), "--total-samples", str(total),
     ]
 
 
-def phase_main_path() -> int:
+def _batch0_against_plain(tag, argv, data):
+    """The first batch of a ``run.forward`` run again, through the plain
+    solver from the same seed: the same flags, and the tuning curves of the
+    rows both converged within RTOL/ATOL."""
     import numpy as np
     import torch
 
     from tcgan_torch.models import generator as gen_lib
-    from tcgan_torch.ops.cuda import ssn_solve
     from tcgan_torch.run import common, forward
+
+    args = forward.make_parser().parse_args(argv)
+    cfg = common.generator_config_from_args(args, solver="ift")
+    cfg = dataclasses.replace(
+        cfg, ssn=dataclasses.replace(cfg.ssn, backend="torch"))
+    params = gen_lib.init_params(cfg, common.as22(args.J),
+                                 common.as22(args.D), common.as22(args.S),
+                                 device="cuda")
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    with torch.no_grad():
+        ref = gen_lib.sample_tuning_curves(cfg, params, args.batch_size,
+                                           generator=gen)
+    n = args.batch_size
+    ref_tc, ref_conv = ref.tc.cpu().numpy(), ref.converged.cpu().numpy()
+    if not np.array_equal(data["converged"][:n], ref_conv):
+        raise AssertionError(f"{tag}: flags differ from the plain solve")
+    ok = data["converged"][:n] & ref_conv
+    err = np.abs(data["tuning_curves"][:n] - ref_tc)[ok]
+    bound = ATOL + RTOL * np.abs(ref_tc)[ok]
+    if (err > bound).any():
+        raise AssertionError(f"{tag}: tuning curves differ from the plain "
+                             f"solve by up to {err.max():.3e}")
+    _line(f"[{tag}] batch 0 against plain solve: flags equal, max |dtc| "
+          f"{err.max() if err.size else 0.0:.3e} on {int(ok.sum())} "
+          f"converged rows")
+
+
+def phase_main_path() -> int:
+    import numpy as np
+
+    from tcgan_torch.ops.cuda import ssn_solve
+    from tcgan_torch.run import forward
 
     total = 8 * BATCH
     with tempfile.TemporaryDirectory() as tmp:
@@ -451,31 +559,7 @@ def phase_main_path() -> int:
             raise AssertionError("summary kernel_launches disagrees")
         _line(f"[main] {json.dumps(summary)}")
 
-        # The first batch again, through the plain solver from the same
-        # seed: the tuning curves must agree on the rows both converged.
-        args = forward.make_parser().parse_args(argv)
-        cfg = common.generator_config_from_args(args, solver="ift")
-        cfg = dataclasses.replace(
-            cfg, ssn=dataclasses.replace(cfg.ssn, backend="torch"))
-        params = gen_lib.init_params(cfg, common.as22(args.J),
-                                     common.as22(args.D), common.as22(args.S),
-                                     device="cuda")
-        gen = torch.Generator("cuda").manual_seed(SEED)
-        with torch.no_grad():
-            ref = gen_lib.sample_tuning_curves(cfg, params, BATCH,
-                                               generator=gen)
-        ref_tc = ref.tc.cpu().numpy()
-        ok = data["converged"][:BATCH] & ref.converged.cpu().numpy()
-        if not np.array_equal(data["converged"][:BATCH],
-                              ref.converged.cpu().numpy()):
-            raise AssertionError("main path flags differ from plain solve")
-        err = np.abs(tc[:BATCH] - ref_tc)[ok]
-        bound = ATOL + RTOL * np.abs(ref_tc)[ok]
-        if (err > bound).any():
-            raise AssertionError(f"main path tuning curves differ from the "
-                                 f"plain solve by up to {err.max():.3e}")
-        _line(f"[main] batch 0 against plain solve: max |dtc| "
-              f"{err.max():.3e} on {int(ok.sum())} converged rows")
+        _batch0_against_plain("main", argv, data)
 
         store24 = Path(tmp) / "fwd24"
         rc = forward.main(_forward_argv(store24, (5.0, 10.0, 13.0), 0))
@@ -486,6 +570,61 @@ def phase_main_path() -> int:
               f"{s24['frac_converged']} frac_diverged "
               f"{s24['frac_diverged']} circuits_per_sec "
               f"{s24['circuits_per_sec']:.1f}")
+    return launches
+
+
+def phase_wide_forward(card: str) -> int:
+    """The paper's circuit, N=201 (2N=402: clusters of blocks), through
+    ``run.forward``: WIDE_FWD_BATCHES batches of WIDE_FWD_BATCH circuits on
+    the 8-bandwidth battery at contrast 10, J and D scaled by 51 / 201; one
+    launch per batch, batch 0 against the plain solve; then the same
+    command line with the reference's ``--solver-backend pallas``."""
+    import numpy as np
+
+    from tcgan_torch.ops.cuda import ssn_solve
+    from tcgan_torch.run import forward
+
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend, n_batches in (("cuda", WIDE_FWD_BATCHES),
+                                   ("pallas", 2)):
+            store = Path(tmp) / backend
+            total = n_batches * WIDE_FWD_BATCH
+            argv = _forward_argv(store, (CONTRAST,), total, N=WIDE_FWD_N,
+                                 batch=WIDE_FWD_BATCH, backend=backend)
+            ssn_solve.launches = 0
+            t0 = time.perf_counter()
+            rc = forward.main(argv)
+            n = ssn_solve.launches
+            info = json.loads((store / "info.json").read_text())
+            summary = info["summary"]
+            data = np.load(store / "tuning_curves.npz")
+            _line(f"[wide] run.forward --N {WIDE_FWD_N} --solver-backend "
+                  f"{backend}: rc {rc} in {time.perf_counter() - t0:.1f} s; "
+                  f"kernel launches {n} for {n_batches} batches of "
+                  f"{WIDE_FWD_BATCH}; recorded backend "
+                  f"{info['config']['solver_backend']}; frac_converged "
+                  f"{summary['frac_converged']} frac_diverged "
+                  f"{summary['frac_diverged']} mean_iters "
+                  f"{summary['mean_iters']:.1f} circuits_per_sec "
+                  f"{summary['circuits_per_sec']:.1f} ({card})")
+            if rc != 0 or n != n_batches or summary["kernel_launches"] != n:
+                raise AssertionError(f"wide forward {backend}: rc {rc}, "
+                                     f"launches {n}")
+            if info["config"]["solver_backend"] != "cuda":
+                raise AssertionError("wide forward: backend not stored as "
+                                     "cuda")
+            if data["rates"].shape != (total, len(BANDWIDTHS),
+                                       2 * WIDE_FWD_N) or not np.isfinite(
+                                           data["rates"]).all():
+                raise AssertionError("wide forward: rates wrong or "
+                                     "non-finite")
+            if summary["frac_converged"] <= WIDE_FWD_MIN_CONVERGED:
+                raise AssertionError(f"wide forward: frac_converged "
+                                     f"{summary['frac_converged']}")
+            if backend == "cuda":
+                _batch0_against_plain("wide", argv, data)
+            launches += n
     return launches
 
 
@@ -1340,7 +1479,9 @@ def _ensemble_vs_solo(card: str) -> None:
           f"({card})")
 
 
-def phase_ensemble(card: str) -> int:
+def phase_ensemble(card: str, work: Path) -> int:
+    """``run.ensemble``; the WGAN ensemble's datastore stays in ``work``
+    for phase 14."""
     import numpy as np
 
     launches = 0
@@ -1352,7 +1493,7 @@ def phase_ensemble(card: str) -> int:
     flags = ("--start-jitter", "0.05", "--WGAN_n_critic0", "5")
 
     with tempfile.TemporaryDirectory() as tmp:
-        store = Path(tmp) / "ens"
+        store = work / "ens"
         n, rows, args = _run_ensemble(
             _ens_argv(store, 3, ENS_K, *flags, "--checkpoint-every", "3"),
             store, range(3), gan_step)
@@ -1560,6 +1701,71 @@ def phase_native(card: str) -> None:
         raise AssertionError(f"native: flags {flags}, rel {rel}")
 
 
+def _cli_json(main, argv):
+    """(exit code, the last line ``main`` printed, as JSON where it is)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    last = (buf.getvalue().strip().splitlines() or [""])[-1]
+    try:
+        return rc, json.loads(last)
+    except json.JSONDecodeError:
+        return rc, last
+
+
+def phase_reports(card: str, gan_store: Path, ens_store: Path) -> None:
+    """The post-fit analysis CLIs on this machine (no jax; no matplotlib,
+    so every figure must say it was skipped): ``report`` on phase 6's run
+    and phase 10's ensemble, ``fit_quality``, ``learning_curves`` and
+    ``compare`` (the run against itself) on phase 6's run,
+    ``recovery_gate`` on its exit codes, ``ensemble_view`` on phase 10's
+    ensemble."""
+    from tcgan_torch.analysis import (compare, ensemble_view, fit_quality,
+                                      learning_curves, recovery_gate, report)
+    from tcgan_torch.utils.plotting import PLOTS_SKIPPED, have_matplotlib
+
+    gan, ens = str(gan_store), str(ens_store)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = lambda name: str(Path(tmp) / name)  # noqa: E731
+        runs = {
+            "report run": (report.main, [gan, "-o", out("run.md")], 0),
+            "report ensemble": (report.main, [ens, "-o", out("ens.md")], 0),
+            "fit_quality": (fit_quality.main, [gan, "-o", out("fq.png")], 0),
+            "learning_curves": (learning_curves.main,
+                                [gan, "-o", out("lc.png")], 0),
+            "compare": (compare.main, [gan, gan, "--labels", "a", "b", "-o",
+                                       out("cmp.png")], 0),
+            # 8 steps: the gate cannot clear before --min-step 15000 (1),
+            # and clears at a gate no fit misses (0)
+            "recovery_gate": (recovery_gate.main, [gan], 1),
+            "recovery_gate --gate 100": (recovery_gate.main, [
+                gan, "--min-step", "0", "--window", "1", "--gate", "100"], 0),
+            "ensemble_view": (ensemble_view.main,
+                              [ens, "-o", out("ens.png")], 0),
+        }
+        for name, (main, argv, want) in runs.items():
+            t0 = time.perf_counter()
+            rc, res = _cli_json(main, argv)
+            plot = res.get("plot") if isinstance(res, dict) else None
+            _line(f"[reports] {name}: rc {rc} (expected {want}) in "
+                  f"{time.perf_counter() - t0:.2f} s; "
+                  f"{json.dumps(res)[:300]}")
+            if rc != want:
+                raise AssertionError(f"{name}: exit code {rc}")
+            if plot is not None and plot != PLOTS_SKIPPED and \
+                    not have_matplotlib():
+                raise AssertionError(f"{name}: plot {plot}")
+        text = Path(out("run.md")).read_text()
+        if "## Parameter recovery" not in text or "| J_EE |" not in text:
+            raise AssertionError("report: no recovery table")
+        if "Members recovered" not in Path(out("ens.md")).read_text():
+            raise AssertionError("report: no ensemble member table")
+    _line(f"[reports] matplotlib installed: {have_matplotlib()} ({card})")
+
+
 def _timed(number, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1574,6 +1780,7 @@ def main() -> int:
     _timed(2, phase_build)
     kernel = _timed(3, phase_kernel, card)
     by_path = {"run.forward": _timed(4, phase_main_path)}
+    by_path["run.forward --N 201"] = _timed("4b", phase_wide_forward, card)
     _timed(5, phase_ift, card)
     with tempfile.TemporaryDirectory() as work:
         work = Path(work)
@@ -1582,10 +1789,11 @@ def main() -> int:
         by_path["run.bptt_cwgan"] = _timed(8, phase_cwgan, card)
         by_path["run.moments + run.bptt_moments"] = _timed(
             9, phase_moments, card)
-        by_path["run.ensemble"] = _timed(10, phase_ensemble, card)
+        by_path["run.ensemble"] = _timed(10, phase_ensemble, card, work)
         by_path["run.eval"] = _timed(11, phase_eval, card, work / "gan")
         by_path["analysis.identifiability + uncertainty"] = _timed(
             12, phase_analyses, card, work / "gan")
+        _timed(14, phase_reports, card, work / "gan", work / "ens")
     _timed(13, phase_native, card)
     kernel["launches"] = sum(by_path.values())
     kernel["launches_by_path"] = by_path

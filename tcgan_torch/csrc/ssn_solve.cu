@@ -68,8 +68,10 @@
 //
 // Shared-memory layout (floats, then ints), mirrored by
 // tcgan_torch/ops/cuda/ssn_solve.py::smem_bytes:
-//   Ws   n2 * ld       weights, row-major (Ws[i * ld + j] = W[i, j])
-//   Is   rows * ld     stimulus battery
+//   Ws   n2 * ld       weights, row-major (Ws[i * ld + j] = W[i, j]); in a
+//                      cluster, the block's min(m, n2) rows
+//   Is   rows * ld     stimulus battery (in a cluster, this and the Anderson
+//                      planes hold the block's slab at stride lds)
 //   rA   rows * ld     rates, double buffer
 //   rB   rows * ld
 //   [accel] rst, rip, fpv  rows * ld each: chunk input, previous chunk
@@ -80,10 +82,36 @@
 // with rows = round_up(S, 8) and ld the least stride >= n2 that is 4 mod 8,
 // so the fragment loads and the rate stores hit 32 distinct banks
 // (round_up(n2, 4) where that padding would not fit).
+//
+// Circuits beyond one block (the paper's N=201: W alone is 646 KB in fp32,
+// about three times a block's shared memory). A thread-block cluster of c
+// blocks (c in 2, 4, 8, the least whose layout fits) solves one circuit.
+// Block `rank` owns the slab of m = round_up(ceil(2N / c), 16) neurons from
+// rank * m: its rows of W, one warp per m16 slab of them as above. Both rate
+// planes hold all 2N neurons in every block; Is and the three Anderson
+// planes hold the block's slab alone (stride lds, the same bank rule on m).
+// Each substep a block computes its slab of W r + I, the io function and the
+// step, and stores its new rates into the next rate plane of every block of
+// the cluster through distributed shared memory; one cluster barrier
+// (arrive.release / wait.acquire) per substep takes the place of
+// __syncthreads. The chunk's max |delta| goes into every block by remote
+// atomicMax, so every block reaches the same flags from its own copy of the
+// rates; Anderson's per-row sums are exchanged per rank and added in rank
+// order, so every block computes bit-identical gamma, flags, iters and
+// n_active and runs the same number of barriers (a block that disagreed
+// would deadlock the cluster). After the ints come, for Anderson, per rank
+// and row: the partial num, den and peak of the extrapolated point. The
+// work per substep is the same as in one block, spread over c SMs; a
+// substep adds c remote stores per rate and the cluster barrier's latency.
+// c = 1 is the single-block kernel, with the cluster code compiled out.
 
+#include <cooperative_groups.h>
+#include <algorithm>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -96,6 +124,7 @@ constexpr int kMaxThreads = 512;
 // it is loaded.
 constexpr int kRegK = 14;
 constexpr size_t kMaxSmemBytes = 232448;  // a block's dynamic shared memory on Hopper
+constexpr int kClusterSizes[] = {1, 2, 4, 8};  // 8: the portable maximum
 
 struct Params {
   int n2, S, ld, rows, ktiles, ntiles;
@@ -103,7 +132,16 @@ struct Params {
   float k, n, r0, r1, u0, slope;
   float atol, rate_stop_at, ceiling;
   int max_iter, check_every, init_ff, accel;
+  // cluster path: blocks per circuit, neurons per block (slab), the slab
+  // planes' stride, and W's rows per block (min(slab, n2))
+  int cluster, slab, lds, wrows;
 };
+
+// Stores v at the same shared-memory offset as p in every block of the
+// cluster (distributed shared memory).
+__device__ __forceinline__ void store_all(cg::cluster_group& cl, float* p, float v, int c) {
+  for (int q = 0; q < c; ++q) *cl.map_shared_rank(p, q) = v;
+}
 
 __host__ __device__ inline int round_up(int x, int m) {
   return ((x + m - 1) / m) * m;
@@ -206,8 +244,9 @@ __device__ __forceinline__ void io_fun4(const float (&u)[4], float (&f)[4], cons
 
 // NT: n8 tiles of rows accumulated together (min(rows / 8, kMaxGroupN));
 // more rows are taken in groups of NT. kRegA: the register path, at most
-// kRegK / 2 warps, two blocks to an SM.
-template <int NT, bool kRegA>
+// kRegK / 2 warps, two blocks to an SM. kCluster: p.cluster blocks solve
+// one circuit (the header's cluster path).
+template <int NT, bool kRegA, bool kCluster>
 __global__ void __launch_bounds__(kRegA ? 32 * kRegK / 2 : kMaxThreads, kRegA ? 2 : 1)
 ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
                  const float* __restrict__ alpha, float* __restrict__ r_out,
@@ -219,35 +258,49 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.x;
-  const size_t plane = (size_t)rows * ld;
+  // this block's neurons: base .. base + own - 1 (all of them without a
+  // cluster)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = kCluster ? (int)cluster.block_rank() : 0;
+  const int b = kCluster ? blockIdx.x / p.cluster : blockIdx.x;
+  const int base = kCluster ? rank * p.slab : 0;
+  const int own = kCluster ? max(0, min(p.slab, n2 - base)) : n2;
+  const int lds = kCluster ? p.lds : ld;
+  const size_t plane = (size_t)rows * ld, splane = (size_t)rows * lds;
 
   float* Ws = smem;
-  float* Is = Ws + (size_t)n2 * ld;
-  float* cur = Is + plane;
+  float* Is = Ws + (size_t)(kCluster ? p.wrows : n2) * ld;
+  float* cur = Is + splane;
   float* nxt = cur + plane;
   float* rst = nxt + plane;  // the three Anderson planes exist only if accel
-  float* rip = rst + plane;
-  float* fpv = rip + plane;
-  int* flag = reinterpret_cast<int*>(p.accel ? fpv + plane : rst);
+  float* rip = rst + splane;
+  float* fpv = rip + splane;
+  int* flag = reinterpret_cast<int*>(p.accel ? fpv + splane : rst);
   int* iters = flag + S;
   int* err = iters + S;
   int* live = err + rows;
   int* n_active = live + p.ntiles;
+  // cluster path with Anderson: per rank and row, the partial num, den and
+  // peak of the extrapolated point
+  float* xnum = reinterpret_cast<float*>(n_active + 1);
+  float* xden = xnum + (size_t)p.cluster * rows;
+  float* xpaa = xden + (size_t)p.cluster * rows;
 
-  const size_t n_floats = (size_t)n2 * ld + plane * (p.accel ? 6 : 3);
+  const size_t n_floats = kCluster
+      ? (size_t)p.wrows * ld + 2 * plane + splane * (p.accel ? 4 : 1)
+      : (size_t)n2 * ld + plane * (p.accel ? 6 : 3);
   for (size_t e = tid; e < n_floats; e += nthreads) smem[e] = 0.0f;
   __syncthreads();
 
-  const float* Wb = W + (size_t)b * n2 * n2;
-  for (int e = tid; e < n2 * n2; e += nthreads) {
+  const float* Wb = W + ((size_t)b * n2 + base) * n2;
+  for (int e = tid; e < own * n2; e += nthreads) {
     int i = e / n2, j = e - i * n2;
     Ws[i * ld + j] = Wb[e];
   }
   for (int e = tid; e < S * n2; e += nthreads) {
     int s = e / n2, i = e - s * n2;
     float x = I[e];
-    Is[s * ld + i] = x;
+    if (!kCluster || (i >= base && i < base + own)) Is[s * lds + i - base] = x;
     cur[s * ld + i] = p.init_ff ? io_fun(x, p) : 0.0f;
   }
   for (int s = tid; s < rows; s += nthreads) {
@@ -261,13 +314,16 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
   if (tid == 0) *n_active = S;
 
   // This thread's two neurons of the warp's m16 slab (rows g and g + 8 of
-  // the accumulator fragment); neurons past n2 read W as zero and write
-  // nothing.
-  const int i0 = warp * kTileM + g, i1 = i0 + 8;
+  // the accumulator fragment; rows l0 and l1 of this block's Ws); neurons
+  // past n2 read W as zero and write nothing.
+  const int l0 = warp * kTileM + g, l1 = l0 + 8;
+  const int i0 = base + l0, i1 = base + l1;
   const bool in0 = i0 < n2, in1 = i1 < n2;
   const float a0 = in0 ? alpha[i0] : 0.0f, a1 = in1 ? alpha[i1] : 0.0f;
-  float* w0 = Ws + (size_t)(in0 ? i0 : 0) * ld + t;
-  float* w1 = Ws + (size_t)(in1 ? i1 : 0) * ld + t;
+  float* w0 = Ws + (size_t)(in0 ? l0 : 0) * ld + t;
+  float* w1 = Ws + (size_t)(in1 ? l1 : 0) * ld + t;
+  // a warp of the cluster path whose slab lies past n2 has nothing to do
+  const bool warp_on = !kCluster || base + warp * kTileM < n2;
   __syncthreads();
 
   // Register path: split this thread's W fragments once; the high parts
@@ -290,7 +346,12 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
       }
     }
   }
-  __syncthreads();
+  // cluster: every block has set up its shared memory before any peer
+  // writes into it
+  if constexpr (kCluster)
+    cluster.sync();
+  else
+    __syncthreads();
 
   int it = 0;
   int nhist = 0;
@@ -305,7 +366,7 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
           on[q] = nb + q < p.ntiles && live[nb + q] > 0;
           any |= on[q];
         }
-        if (!any) continue;
+        if (!any || !warp_on) continue;
         float hh[NT][4], hl[NT][4], lh[NT][4];
 #pragma unroll
         for (int q = 0; q < NT; ++q)
@@ -349,16 +410,17 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
           const int s0 = (nb + q) * kTileN + 2 * t;
           const bool row_on[2] = {s0 < S && flag[s0 < S ? s0 : 0] == 0,
                                   s0 + 1 < S && flag[s0 + 1 < S ? s0 + 1 : 0] == 0};
-          int x[4];
+          int x[4], xs[4];  // offsets in the rate planes and the slab planes
           bool act[4];
           float r[4], u[4], f[4];
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int i = c < 2 ? i0 : i1;
             x[c] = (s0 + (c & 1)) * ld + (i < n2 ? i : n2 - 1);
+            xs[c] = kCluster ? (s0 + (c & 1)) * lds + (i < n2 ? i - base : 0) : x[c];
             act[c] = row_on[c & 1] && i < n2;
             r[c] = cur[x[c]];
-            u[c] = hh[q][c] + (hl[q][c] + lh[q][c]) + Is[x[c]];
+            u[c] = hh[q][c] + (hl[q][c] + lh[q][c]) + Is[xs[c]];
           }
           io_fun4(u, f, p);
           float e[2] = {0.0f, 0.0f};  // max |delta| of rows s0, s0 + 1
@@ -366,8 +428,12 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
           for (int c = 0; c < 4; ++c) {
             if (!act[c]) continue;
             const float d = f[c] - r[c];
-            if (p.accel && sub == 0) rst[x[c]] = r[c];
-            nxt[x[c]] = fminf(__fadd_rn(r[c], __fmul_rn(c < 2 ? a0 : a1, d)), p.ceiling);
+            if (p.accel && sub == 0) rst[xs[c]] = r[c];
+            const float rn = fminf(__fadd_rn(r[c], __fmul_rn(c < 2 ? a0 : a1, d)), p.ceiling);
+            if constexpr (kCluster)
+              store_all(cluster, nxt + x[c], rn, p.cluster);
+            else
+              nxt[x[c]] = rn;
             e[c & 1] = fmaxf(e[c & 1], fabsf(d));
           }
           if (last) {
@@ -379,13 +445,24 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
             if (g == 0) {
               for (int h = 0; h < 2; ++h) {
                 const int s = (nb + q) * kTileN + 2 * t + h;
-                if (s < S && flag[s] == 0) atomicMax(err + s, __float_as_int(e[h]));
+                if (s >= S || flag[s] != 0) continue;
+                if constexpr (kCluster) {
+                  for (int q2 = 0; q2 < p.cluster; ++q2)
+                    atomicMax(cluster.map_shared_rank(err + s, q2), __float_as_int(e[h]));
+                } else {
+                  atomicMax(err + s, __float_as_int(e[h]));
+                }
               }
             }
           }
         }
       }
-      __syncthreads();
+      // every block's new rates are in every block's next plane, and nobody
+      // still reads the plane the next substep overwrites
+      if constexpr (kCluster)
+        cluster.sync();
+      else
+        __syncthreads();
       float* tmp = cur;
       cur = nxt;
       nxt = tmp;
@@ -393,59 +470,165 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
 
     // Chunk epilogue: one warp per row.
     const int it_next = it + p.check_every;
-    for (int s = warp; s < S; s += nwarps) {
-      if (flag[s] != 0) continue;
-      float* rc = cur + s * ld;
-      const float e = __int_as_float(err[s]);
-      float peak = -INFINITY;
-      for (int i = lane; i < n2; i += 32) peak = fmaxf(peak, rc[i]);
-      peak = warp_max(peak);
-      const bool newly_div = peak > p.rate_stop_at;
-      const bool newly_conv = !newly_div && e < p.atol;
-      const bool resolved = newly_div || newly_conv;
-      if (p.accel) {
-        float* r_in = rst + s * ld;
-        float* r_in_prev = rip + s * ld;
-        float* f_prev = fpv + s * ld;
-        float num = 0.0f, den = 0.0f;
-        for (int i = lane; i < n2; i += 32) {
-          const float fc = rc[i] - r_in[i];
-          const float dF = fc - f_prev[i];
-          den += dF * dF;
-          num += fc * dF;
+    if constexpr (!kCluster) {
+      for (int s = warp; s < S; s += nwarps) {
+        if (flag[s] != 0) continue;
+        float* rc = cur + s * ld;
+        const float e = __int_as_float(err[s]);
+        float peak = -INFINITY;
+        for (int i = lane; i < n2; i += 32) peak = fmaxf(peak, rc[i]);
+        peak = warp_max(peak);
+        const bool newly_div = peak > p.rate_stop_at;
+        const bool newly_conv = !newly_div && e < p.atol;
+        const bool resolved = newly_div || newly_conv;
+        if (p.accel) {
+          float* r_in = rst + s * ld;
+          float* r_in_prev = rip + s * ld;
+          float* f_prev = fpv + s * ld;
+          float num = 0.0f, den = 0.0f;
+          for (int i = lane; i < n2; i += 32) {
+            const float fc = rc[i] - r_in[i];
+            const float dF = fc - f_prev[i];
+            den += dF * dF;
+            num += fc * dF;
+          }
+          den = warp_sum(den);
+          num = warp_sum(num);
+          const float gamma = num / (den + 1e-30f);
+          float peak_aa = -INFINITY;
+          for (int i = lane; i < n2; i += 32) {
+            const float h_prev = r_in_prev[i] + f_prev[i];
+            const float raa = fminf(fmaxf(rc[i] - gamma * (rc[i] - h_prev), 0.0f), p.ceiling);
+            peak_aa = fmaxf(peak_aa, raa);
+          }
+          peak_aa = warp_max(peak_aa);
+          const bool ok = nhist > 0 && fabsf(gamma) < 2.0f && den > 0.0f &&
+                          peak_aa <= p.rate_stop_at && !resolved;
+          for (int i = lane; i < n2; i += 32) {
+            const float fc = rc[i] - r_in[i];
+            const float h_prev = r_in_prev[i] + f_prev[i];
+            if (ok) rc[i] = fminf(fmaxf(rc[i] - gamma * (rc[i] - h_prev), 0.0f), p.ceiling);
+            r_in_prev[i] = r_in[i];
+            f_prev[i] = fc;
+          }
         }
-        den = warp_sum(den);
-        num = warp_sum(num);
-        const float gamma = num / (den + 1e-30f);
-        float peak_aa = -INFINITY;
-        for (int i = lane; i < n2; i += 32) {
-          const float h_prev = r_in_prev[i] + f_prev[i];
-          const float raa = fminf(fmaxf(rc[i] - gamma * (rc[i] - h_prev), 0.0f), p.ceiling);
-          peak_aa = fmaxf(peak_aa, raa);
-        }
-        peak_aa = warp_max(peak_aa);
-        const bool ok = nhist > 0 && fabsf(gamma) < 2.0f && den > 0.0f &&
-                        peak_aa <= p.rate_stop_at && !resolved;
-        for (int i = lane; i < n2; i += 32) {
-          const float fc = rc[i] - r_in[i];
-          const float h_prev = r_in_prev[i] + f_prev[i];
-          if (ok) rc[i] = fminf(fmaxf(rc[i] - gamma * (rc[i] - h_prev), 0.0f), p.ceiling);
-          r_in_prev[i] = r_in[i];
-          f_prev[i] = fc;
+        // a resolved row is frozen: both rate buffers hold its final rates,
+        // so the substeps need not copy it
+        if (resolved)
+          for (int i = lane; i < n2; i += 32) nxt[s * ld + i] = rc[i];
+        __syncwarp();
+        if (lane == 0) {
+          err[s] = 0;
+          if (resolved) {
+            flag[s] = newly_div ? 2 : 1;
+            // the last chunk may overshoot max_iter by up to check_every - 1
+            // substeps; iters == max_iter keeps meaning "unresolved"
+            iters[s] = min(it_next, p.max_iter);
+          }
         }
       }
-      // a resolved row is frozen: both rate buffers hold its final rates,
-      // so the substeps need not copy it
-      if (resolved)
-        for (int i = lane; i < n2; i += 32) nxt[s * ld + i] = rc[i];
-      __syncwarp();
-      if (lane == 0) {
-        err[s] = 0;
-        if (resolved) {
-          flag[s] = newly_div ? 2 : 1;
-          // the last chunk may overshoot max_iter by up to check_every - 1
-          // substeps; iters == max_iter keeps meaning "unresolved"
-          iters[s] = min(it_next, p.max_iter);
+    } else {
+      // Cluster path: up to three passes over the rows, each row taken by
+      // the same warp in every pass. Pass 1: the row's flags from err (the
+      // cluster's max |delta|, maxed into every block) and the peak of the
+      // full rate plane, kept in err until pass 3 (0 active, 1 converged,
+      // 2 diverged); with Anderson, this block's partial num and den go to
+      // every block. The peak is read before any block moves a rate.
+      const int c = p.cluster;
+      for (int s = warp; s < S; s += nwarps) {
+        if (flag[s] != 0) continue;
+        const float* rc = cur + s * ld;
+        const float e = __int_as_float(err[s]);
+        float peak = -INFINITY;
+        for (int i = lane; i < n2; i += 32) peak = fmaxf(peak, rc[i]);
+        peak = warp_max(peak);
+        const bool newly_div = peak > p.rate_stop_at;
+        const bool newly_conv = !newly_div && e < p.atol;
+        if (p.accel) {
+          const float* r_in = rst + s * lds;
+          const float* f_prev = fpv + s * lds;
+          float num = 0.0f, den = 0.0f;
+          for (int l = lane; l < own; l += 32) {
+            const float fc = rc[base + l] - r_in[l];
+            const float dF = fc - f_prev[l];
+            den += dF * dF;
+            num += fc * dF;
+          }
+          den = warp_sum(den);
+          num = warp_sum(num);
+          if (lane < c) {  // lane q stores into block q
+            *cluster.map_shared_rank(xnum + rank * rows + s, lane) = num;
+            *cluster.map_shared_rank(xden + rank * rows + s, lane) = den;
+          }
+        }
+        __syncwarp();
+        if (lane == 0) err[s] = newly_div ? 2 : newly_conv ? 1 : 0;
+      }
+      if (p.accel) {
+        // Pass 2: gamma from the partials added in rank order (the same
+        // bits in every block), and this block's partial peak of the
+        // extrapolated point, to every block.
+        cluster.sync();
+        for (int s = warp; s < S; s += nwarps) {
+          if (flag[s] != 0) continue;
+          float num = 0.0f, den = 0.0f;
+          for (int q = 0; q < c; ++q) {
+            num += xnum[q * rows + s];
+            den += xden[q * rows + s];
+          }
+          const float gamma = num / (den + 1e-30f);
+          const float* rc = cur + s * ld;
+          float peak_aa = -INFINITY;
+          for (int l = lane; l < own; l += 32) {
+            const float h_prev = rip[s * lds + l] + fpv[s * lds + l];
+            const float r = rc[base + l];
+            peak_aa = fmaxf(peak_aa, fminf(fmaxf(r - gamma * (r - h_prev), 0.0f), p.ceiling));
+          }
+          peak_aa = warp_max(peak_aa);
+          if (lane < c) *cluster.map_shared_rank(xpaa + rank * rows + s, lane) = peak_aa;
+        }
+        cluster.sync();
+      }
+      // Pass 3: Anderson's step on this block's neurons, stored into every
+      // block; a resolved row frozen in both rate planes; flags and iters.
+      for (int s = warp; s < S; s += nwarps) {
+        if (flag[s] != 0) continue;
+        float* rc = cur + s * ld;
+        const int code = err[s];
+        const bool resolved = code != 0;
+        if (p.accel) {
+          float num = 0.0f, den = 0.0f, peak_aa = -INFINITY;
+          for (int q = 0; q < c; ++q) {
+            num += xnum[q * rows + s];
+            den += xden[q * rows + s];
+            peak_aa = fmaxf(peak_aa, xpaa[q * rows + s]);
+          }
+          const float gamma = num / (den + 1e-30f);
+          const bool ok = nhist > 0 && fabsf(gamma) < 2.0f && den > 0.0f &&
+                          peak_aa <= p.rate_stop_at && !resolved;
+          float* r_in = rst + s * lds;
+          float* r_in_prev = rip + s * lds;
+          float* f_prev = fpv + s * lds;
+          for (int l = lane; l < own; l += 32) {
+            const float r = rc[base + l];
+            const float fc = r - r_in[l];
+            const float h_prev = r_in_prev[l] + f_prev[l];
+            if (ok)
+              store_all(cluster, rc + base + l,
+                        fminf(fmaxf(r - gamma * (r - h_prev), 0.0f), p.ceiling), c);
+            r_in_prev[l] = r_in[l];
+            f_prev[l] = fc;
+          }
+        }
+        if (resolved)
+          for (int i = lane; i < n2; i += 32) nxt[s * ld + i] = rc[i];
+        __syncwarp();
+        if (lane == 0) {
+          err[s] = 0;
+          if (resolved) {
+            flag[s] = code;
+            iters[s] = min(it_next, p.max_iter);
+          }
         }
       }
     }
@@ -462,13 +645,28 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
     }
     it = it_next;
     ++nhist;
-    __syncthreads();
+    // cluster: Anderson's rates have landed everywhere, and no block's
+    // remote writes of the next chunk meet a block still in this epilogue
+    if constexpr (kCluster)
+      cluster.sync();
+    else
+      __syncthreads();
   }
 
   float* rb = r_out + (size_t)b * S * n2;
-  for (int e = tid; e < S * n2; e += nthreads) {
-    int s = e / n2, i = e - s * n2;
-    rb[e] = cur[s * ld + i];
+  if constexpr (kCluster) {
+    for (int e = tid; e < S * own; e += nthreads) {
+      int s = e / own, l = e - s * own;
+      rb[s * n2 + base + l] = cur[s * ld + base + l];
+    }
+    // no block leaves while a peer might still address its shared memory
+    cluster.sync();
+    if (rank != 0) return;
+  } else {
+    for (int e = tid; e < S * n2; e += nthreads) {
+      int s = e / n2, i = e - s * n2;
+      rb[e] = cur[s * ld + i];
+    }
   }
   for (int s = tid; s < S; s += nthreads) {
     conv_out[(size_t)b * S + s] = flag[s] == 1;
@@ -480,59 +678,116 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
 using Kernel = void (*)(const float*, const float*, const float*, float*,
                         uint8_t*, uint8_t*, int*, Params);
 
-template <bool kRegA>
+template <bool kRegA, bool kCluster>
 Kernel kernel_for_rows(int ntiles) {
   switch (ntiles < kMaxGroupN ? ntiles : kMaxGroupN) {
-    case 1: return ssn_solve_kernel<1, kRegA>;
-    case 2: return ssn_solve_kernel<2, kRegA>;
-    case 3: return ssn_solve_kernel<3, kRegA>;
-    default: return ssn_solve_kernel<kMaxGroupN, kRegA>;
+    case 1: return ssn_solve_kernel<1, kRegA, kCluster>;
+    case 2: return ssn_solve_kernel<2, kRegA, kCluster>;
+    case 3: return ssn_solve_kernel<3, kRegA, kCluster>;
+    default: return ssn_solve_kernel<kMaxGroupN, kRegA, kCluster>;
   }
 }
 
-Kernel kernel_for(int n2, int S) {
+Kernel kernel_for(int n2, int S, int cluster) {
   const int ntiles = round_up(S, kTileN) / kTileN;
-  return n2 <= kRegK * kTileK ? kernel_for_rows<true>(ntiles) : kernel_for_rows<false>(ntiles);
+  if (cluster > 1) return kernel_for_rows<false, true>(ntiles);
+  return n2 <= kRegK * kTileK ? kernel_for_rows<true, false>(ntiles)
+                              : kernel_for_rows<false, false>(ntiles);
 }
 
-size_t layout_bytes(int n2, int S, int accel, int ld) {
+// Neurons per block of a cluster of c: one warp per m16 slab of them.
+int slab(int n2, int c) { return round_up((n2 + c - 1) / c, kTileM); }
+
+// The shared-memory layout of the header at cluster size c: W's rows of the
+// block's slab (all n2 at c = 1) and both rate planes at stride ld, Is and
+// the Anderson planes at stride lds (= ld at c = 1), then the ints and, in
+// a cluster with Anderson, the per-rank exchange.
+size_t layout_bytes(int n2, int S, int accel, int c, int ld, int lds) {
   const size_t rows = round_up(S, kTileN);
-  const size_t floats = (size_t)n2 * ld + rows * ld * (accel ? 6 : 3);
-  return (floats + 2 * (size_t)S + rows + rows / kTileN + 1) * 4;
+  const size_t w = std::min(slab(n2, c), n2);
+  const size_t floats = w * ld + 2 * rows * ld + rows * lds * (accel ? 4 : 1);
+  const size_t ints = 2 * (size_t)S + rows + rows / kTileN + 1 +
+                      (c > 1 && accel ? 3 * (size_t)c * rows : 0);
+  return (floats + ints) * 4;
 }
 
-// Row stride of Ws and the row planes: the least stride >= n2 that is 4 mod
-// 8, so that the fragment loads and the rate stores hit 32 distinct banks;
-// round_up(n2, 4) where that padding would not fit (a few rows of floats
-// at tiny N with hundreds of rows).
-int stride(int n2, int S, int accel) {
-  const int padded = round_up(n2 + 4, 8) - 4;
-  return layout_bytes(n2, S, accel, padded) <= kMaxSmemBytes ? padded : round_up(n2, 4);
+struct Layout {
+  int cluster;  // 0: no cluster size fits
+  int ld, lds;
+  size_t bytes;
+};
+
+// The least cluster size whose layout fits a block, with its strides: the
+// least stride >= the row length that is 4 mod 8, so that the fragment
+// loads and the rate stores hit 32 distinct banks; round_up(length, 4)
+// where that padding would not fit (a few rows of floats at tiny N with
+// hundreds of rows).
+Layout layout(int n2, int S, int accel) {
+  for (int c : kClusterSizes) {
+    const int w = std::min(slab(n2, c), n2);
+    if (32 * slab(n2, c) / kTileM > kMaxThreads) continue;
+    Layout L{c, round_up(n2 + 4, 8) - 4, round_up(w + 4, 8) - 4, 0};
+    L.bytes = layout_bytes(n2, S, accel, c, L.ld, L.lds);
+    if (L.bytes > kMaxSmemBytes) {
+      L.ld = round_up(n2, 4);
+      L.lds = round_up(w, 4);
+      L.bytes = layout_bytes(n2, S, accel, c, L.ld, L.lds);
+    }
+    if (L.bytes <= kMaxSmemBytes) return L;
+  }
+  return Layout{0, 0, 0, 0};
 }
 
-size_t smem_bytes(int n2, int S, int accel) {
-  return layout_bytes(n2, S, accel, stride(n2, S, accel));
+// The launch configuration of B circuits at this layout: B * c blocks in
+// clusters of c; `attr` backs the cluster attribute.
+cudaLaunchConfig_t launch_config(int B, int n2, const Layout& L, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * L.cluster);
+  cfg.blockDim = dim3(32 * slab(n2, L.cluster) / kTileM);
+  cfg.dynamicSmemBytes = L.bytes;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = L.cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
-// One warp per m16 slab of neurons.
-int block_threads(int n2) { return 32 * (round_up(n2, kTileM) / kTileM); }
+// The kernel of this shape with its dynamic shared memory admitted.
+cudaError_t prepare(int n2, int S, int accel, Layout* L, Kernel* kernel) {
+  *L = layout(n2, S, accel);
+  if (L->cluster == 0) return cudaErrorInvalidValue;
+  *kernel = kernel_for(n2, S, L->cluster);
+  return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)L->bytes);
+}
 
 }  // namespace
 
 extern "C" {
 
 // Launches the solve of B circuits on `stream`; returns the cudaError_t of
-// the attribute call or of the launch (cudaGetLastError), 0 on success.
+// the attribute call, of the cluster occupancy check (cluster sizes > 1:
+// cudaErrorLaunchOutOfResources when not one cluster fits the device) or
+// of the launch (cudaGetLastError), 0 on success; cudaErrorInvalidValue
+// when no layout fits.
 int ssn_solve_launch(const void* W, const void* I, const void* alpha, void* r,
                      void* conv, void* div, void* iters, int B, int n2, int S,
                      int io_type, float k, float n, float r0, float r1,
                      float u0, float slope, float atol, float rate_stop_at,
                      float ceiling, int max_iter, int check_every, int init_ff,
                      int accel, void* stream) {
+  Layout L;
+  Kernel kernel;
+  cudaError_t err = prepare(n2, S, accel, &L, &kernel);
+  if (err != cudaSuccess) return (int)err;
   Params p;
   p.n2 = n2;
   p.S = S;
-  p.ld = stride(n2, S, accel);
+  p.ld = L.ld;
   p.rows = round_up(S, kTileN);
   p.ktiles = round_up(n2, kTileK) / kTileK;
   p.ntiles = p.rows / kTileN;
@@ -550,16 +805,30 @@ int ssn_solve_launch(const void* W, const void* I, const void* alpha, void* r,
   p.check_every = check_every;
   p.init_ff = init_ff;
   p.accel = accel;
-  const Kernel kernel = kernel_for(n2, S);
-  const size_t bytes = smem_bytes(n2, S, accel);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  p.cluster = L.cluster;
+  p.slab = slab(n2, L.cluster);
+  p.lds = L.lds;
+  p.wrows = std::min(p.slab, n2);
+  const float* Wf = static_cast<const float*>(W);
+  const float* If = static_cast<const float*>(I);
+  const float* af = static_cast<const float*>(alpha);
+  float* rf = static_cast<float*>(r);
+  uint8_t* cf = static_cast<uint8_t*>(conv);
+  uint8_t* df = static_cast<uint8_t*>(div);
+  int* itf = static_cast<int*>(iters);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (L.cluster == 1) {
+    kernel<<<B, 32 * slab(n2, 1) / kTileM, L.bytes, st>>>(Wf, If, af, rf, cf, df, itf, p);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(B, n2, L, st, &attr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(kernel), &cfg);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<B, block_threads(n2), bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(W), static_cast<const float*>(I),
-      static_cast<const float*>(alpha), static_cast<float*>(r),
-      static_cast<uint8_t*>(conv), static_cast<uint8_t*>(div),
-      static_cast<int*>(iters), p);
+  if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, kernel, Wf, If, af, rf, cf, df, itf, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -567,15 +836,41 @@ int ssn_solve_launch(const void* W, const void* I, const void* alpha, void* r,
 // this shape (the runtime's occupancy calculation: registers, threads and
 // dynamic shared memory); minus the cudaError_t on failure.
 int ssn_solve_blocks_per_sm(int n2, int S, int accel) {
-  const Kernel kernel = kernel_for(n2, S);
-  const size_t bytes = smem_bytes(n2, S, accel);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  Layout L;
+  Kernel kernel;
+  cudaError_t err = prepare(n2, S, accel, &L, &kernel);
   int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, kernel, block_threads(n2), bytes);
+        &blocks, kernel, 32 * slab(n2, L.cluster) / kTileM, L.bytes);
   return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// Blocks per circuit at this shape: 1, or the cluster size; 0 when no
+// layout fits.
+int ssn_solve_cluster_size(int n2, int S, int accel) { return layout(n2, S, accel).cluster; }
+
+// Clusters of this shape that the current device runs at once (at cluster
+// size 1: blocks per SM times SMs), so B circuits take ceil(B / that)
+// waves; minus the cudaError_t on failure.
+int ssn_solve_active_clusters(int n2, int S, int accel) {
+  Layout L;
+  Kernel kernel;
+  cudaError_t err = prepare(n2, S, accel, &L, &kernel);
+  if (err != cudaSuccess) return -(int)err;
+  if (L.cluster == 1) {
+    int dev = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int blocks = ssn_solve_blocks_per_sm(n2, S, accel);
+    if (err != cudaSuccess) return -(int)err;
+    return blocks < 0 ? blocks : blocks * sms;
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(L.cluster, n2, L, nullptr, &attr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(kernel), &cfg);
+  return err == cudaSuccess ? clusters : -(int)err;
 }
 
 const char* ssn_solve_error_string(int err) {

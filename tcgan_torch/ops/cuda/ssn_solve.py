@@ -11,6 +11,10 @@ Anderson(1) are fused into it. Each substep's mat-vec runs on the tensor
 cores (warp-level ``mma.sync`` m16n8k8, one warp per 16 neurons); the
 kernel is bound by its arithmetic and, at small batches, by the slowest
 circuit's substep latency (see the note at the top of the CUDA source).
+A circuit whose state passes one block's shared memory (2N beyond about
+220, the paper's N=201 among them) is solved by a thread-block cluster of
+2, 4 or 8 blocks (:func:`cluster_size`), each holding a slab of W's rows
+and exchanging rates through distributed shared memory.
 
 Precision (``KERNEL_PRECISION``): the mat-vec is 3xTF32, i.e. each fp32
 operand is split into a TF32 high part and a TF32 low part and the products
@@ -44,6 +48,9 @@ KERNEL_PRECISION = "3xtf32"
 # Largest dynamic shared memory a block may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232448
 TILE_N = 8  # kTileN in the CUDA source: stimulus rows per mma tile
+TILE_M = 16  # kTileM: neurons per warp
+MAX_THREADS = 512  # kMaxThreads: threads per block
+CLUSTER_SIZES = (1, 2, 4, 8)  # blocks per circuit; 8 is the portable maximum
 _IO_CODES = {"asym_power": 0, "asym_tanh": 1, "asym_linear": 2}
 
 # Kernel launches since import (or since a caller reset it to 0).
@@ -54,20 +61,50 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def _layout_bytes(n2: int, S: int, accel: bool, ld: int) -> int:
+def slab(n2: int, cluster: int) -> int:
+    """Neurons per block of a cluster: round_up(ceil(2N / c), 16)."""
+    return _round_up(-(-n2 // cluster), TILE_M)
+
+
+def _layout_bytes(n2: int, S: int, accel: bool, cluster: int, ld: int,
+                  lds: int) -> int:
     rows = _round_up(S, TILE_N)
-    floats = n2 * ld + rows * ld * (6 if accel else 3)
-    return 4 * (floats + 2 * S + rows + rows // TILE_N + 1)
+    w = min(slab(n2, cluster), n2)
+    floats = w * ld + 2 * rows * ld + rows * lds * (4 if accel else 1)
+    ints = 2 * S + rows + rows // TILE_N + 1 + (
+        3 * cluster * rows if cluster > 1 and accel else 0)
+    return 4 * (floats + ints)
 
 
-def smem_bytes(n2: int, S: int, accel: bool) -> int:
-    """Dynamic shared memory of one block: the layout in ``ssn_solve.cu``,
-    with its row stride (the least stride >= 2N that is 4 mod 8, or
-    ``round_up(2N, 4)`` where that padding would not fit)."""
-    padded = _round_up(n2 + 4, 8) - 4
-    if _layout_bytes(n2, S, accel, padded) <= MAX_SMEM_BYTES:
-        return _layout_bytes(n2, S, accel, padded)
-    return _layout_bytes(n2, S, accel, _round_up(n2, 4))
+def smem_bytes(n2: int, S: int, accel: bool, cluster: int = 1) -> int:
+    """Dynamic shared memory of one block of a cluster of ``cluster``
+    blocks per circuit: the layout in ``ssn_solve.cu``. W's rows of the
+    block's slab (all 2N at one block) and both rate planes at stride ld,
+    the battery and Anderson's planes over the slab at stride lds, each
+    the least stride >= its row that is 4 mod 8, or the row rounded up to
+    4 where that padding would not fit."""
+    w = min(slab(n2, cluster), n2)
+    padded = _layout_bytes(n2, S, accel, cluster, _round_up(n2 + 4, 8) - 4,
+                           _round_up(w + 4, 8) - 4)
+    if padded <= MAX_SMEM_BYTES:
+        return padded
+    return _layout_bytes(n2, S, accel, cluster, _round_up(n2, 4),
+                         _round_up(w, 4))
+
+
+def cluster_size(n2: int, S: int, accel: bool) -> int:
+    """Blocks per circuit the kernel takes at this shape: the least of
+    :data:`CLUSTER_SIZES` whose layout fits a block (1 for every shape one
+    block held before clusters). Raises ``ValueError`` beyond 8."""
+    for c in CLUSTER_SIZES:
+        if (32 * slab(n2, c) // TILE_M <= MAX_THREADS
+                and smem_bytes(n2, S, accel, c) <= MAX_SMEM_BYTES):
+            return c
+    c = CLUSTER_SIZES[-1]
+    raise ValueError(
+        f"2N={n2}, S={S}{' with Anderson' if accel else ''} needs "
+        f"{smem_bytes(n2, S, accel, c)} bytes of shared memory per block at "
+        f"cluster size {c}, the largest tried; the limit is {MAX_SMEM_BYTES}")
 
 
 def solve_fixed_point_plain(cfg: SSNConfig, W: torch.Tensor,
@@ -92,6 +129,11 @@ def bind(path) -> ctypes.CDLL:
     lib.ssn_solve_error_string.restype = ctypes.c_char_p
     lib.ssn_solve_blocks_per_sm.argtypes = [i, i, i]
     lib.ssn_solve_blocks_per_sm.restype = i
+    for name in ("ssn_solve_cluster_size", "ssn_solve_active_clusters"):
+        fn = getattr(lib, name, None)  # absent from pre-cluster builds
+        if fn is not None:
+            fn.argtypes = [i, i, i]
+            fn.restype = i
     return lib
 
 
@@ -117,6 +159,21 @@ def blocks_per_sm(n2: int, S: int, accel: bool = False,
     return n
 
 
+def active_clusters(n2: int, S: int, accel: bool = False,
+                    device: torch.device | str = "cuda") -> tuple[int, int]:
+    """(blocks per circuit, circuits ``device`` solves at once) at this
+    shape, by the CUDA runtime (at one block per circuit: blocks per SM
+    times SMs); a batch of B circuits runs in ceil(B / that) waves."""
+    lib = _library()
+    with torch.cuda.device(device):
+        c = lib.ssn_solve_cluster_size(n2, S, int(accel))
+        n = lib.ssn_solve_active_clusters(n2, S, int(accel))
+    if n < 0:
+        raise RuntimeError(f"cluster occupancy query failed: cudaError {-n} "
+                           f"({lib.ssn_solve_error_string(-n).decode()})")
+    return c, n
+
+
 def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
                            I_ext: torch.Tensor, check_every: int = 1,
                            accel: bool = False
@@ -125,7 +182,9 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
 
     Returns fp32 rates (B, S, 2N), bool converged/diverged (B, S) and int32
     iters (B, S), on the inputs' device. Raises ``ValueError`` when one
-    circuit's state does not fit in shared memory (2N beyond about 220).
+    circuit's state does not fit a cluster of 8 blocks
+    (:func:`cluster_size`; every 2N <= 512 at S <= 16 fits), and
+    ``RuntimeError`` when the launch fails.
     """
     global launches
     if (W.ndim != 3 or I_ext.ndim != 2 or W.shape[1] != W.shape[2]
@@ -136,11 +195,7 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
         raise ValueError(f"check_every must be >= 1; got {check_every}")
     B, n2 = W.shape[0], W.shape[2]
     S = I_ext.shape[0]
-    need = smem_bytes(n2, S, accel)
-    if need > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"2N={n2}, S={S} needs {need} bytes of shared memory per block; "
-            f"the limit is {MAX_SMEM_BYTES}")
+    cluster_size(n2, S, accel)  # raises beyond the largest cluster
     if W.device.type == "cpu" and I_ext.device.type == "cpu":
         return solve_fixed_point_plain(cfg, W, I_ext, check_every, accel)
     if W.device.type != "cuda" or I_ext.device != W.device:

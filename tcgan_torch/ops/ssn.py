@@ -37,6 +37,15 @@ DEFAULT_BANDWIDTHS = (0.0, 0.0625, 0.125, 0.1875, 0.25, 0.5, 0.75, 1.0)
 DEFAULT_CONTRASTS = (20.0,)
 
 BACKENDS = ("torch", "cuda")
+# The reference's names of the same two backends (tcgan_tpu/ops/ssn.py):
+# accepted everywhere a backend is named, and stored as the port's name.
+BACKEND_ALIASES = {"xla": "torch", "pallas": "cuda"}
+
+
+def canonical_backend(name: str) -> str:
+    """The port's name of a forward-solver backend: ``xla`` is ``torch``,
+    ``pallas`` is ``cuda``; any other name is returned as it is."""
+    return BACKEND_ALIASES.get(name, name)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +71,7 @@ class SSNConfig:
     # Forward-solver backend: "torch" = lockstep batched solve (the
     # reference's "xla"); "cuda" = the fused SSN solver kernel (the
     # reference's "pallas"), used for a (B, 2N, 2N) W and a shared (S, 2N)
-    # battery, the lockstep solve otherwise.
+    # battery. The reference's names are stored as the port's.
     backend: str = "torch"
     # The pallas_* fields keep the reference's flags parseable. The CUDA
     # kernel computes every substep in fp32 and reads none of them: the
@@ -93,9 +102,11 @@ class SSNConfig:
         if self.accel not in ("none", "anderson"):
             raise ValueError("accel must be 'none' or 'anderson'; "
                              f"got {self.accel!r}")
+        object.__setattr__(self, "backend", canonical_backend(self.backend))
         if self.backend not in BACKENDS:
-            raise ValueError(f"backend must be one of {BACKENDS}; "
-                             f"got {self.backend!r}")
+            raise ValueError(
+                f"backend must be one of {BACKENDS} (or the reference's "
+                f"{tuple(BACKEND_ALIASES)}); got {self.backend!r}")
         # asym_tanh saturates over the (soft, hard) band: a zero-width band
         # divides by zero
         if (self.io_type == "asym_tanh"

@@ -2,9 +2,10 @@
 
 Port of :mod:`tcgan_tpu.run.common`: the same option strings, dests and
 defaults, so a command line of ``tcgan_tpu.run.forward`` or
-``tcgan_tpu.run.gan`` parses here too, with two differences:
-``--solver-backend`` takes ``torch`` or ``cuda`` (for the reference's
-``xla`` and ``pallas``), and ``--device`` names the torch device.
+``tcgan_tpu.run.gan`` parses here too. ``--solver-backend`` takes the
+port's ``torch`` and ``cuda`` and the reference's ``xla`` and ``pallas`` for
+the same two, stored as the port's names; ``--device`` names the torch
+device.
 
 :func:`apply_run_config` lets the evaluation and analysis entry points
 rebuild a training run's scientific configuration from its ``info.json``
@@ -24,6 +25,7 @@ import torch
 
 from tcgan_torch.models.generator import GeneratorConfig
 from tcgan_torch.ops.ssn import (
+    BACKEND_ALIASES,
     BACKENDS,
     DEFAULT_BANDWIDTHS,
     DEFAULT_CONTRASTS,
@@ -31,6 +33,7 @@ from tcgan_torch.ops.ssn import (
     DEFAULT_J,
     DEFAULT_S,
     SSNConfig,
+    canonical_backend,
 )
 
 
@@ -74,10 +77,15 @@ def add_ssn_flags(p: argparse.ArgumentParser):
     g.add_argument("--rate-hard-bound", type=float, default=200.0)
     g.add_argument("--smoothness", type=float, default=0.03125,
                    help="stimulus edge smoothness")
-    g.add_argument("--solver-backend", choices=BACKENDS, default="torch",
+    g.add_argument("--solver-backend", type=canonical_backend,
+                   choices=BACKENDS, default="torch",
+                   metavar="{" + ",".join(BACKENDS + tuple(BACKEND_ALIASES))
+                   + "}",
                    help="fixed-point forward: lockstep torch solve, or the "
                         "fused CUDA solver kernel (runs its plain torch "
-                        "version on CPU tensors)")
+                        "version on CPU tensors); the reference's xla and "
+                        "pallas name the same two and are stored as torch "
+                        "and cuda")
     g.add_argument("--check-every", type=int, default=32,
                    help="convergence-check stride (Euler steps); the solve "
                         "returns the same fixed points at the same atol, "
@@ -386,8 +394,9 @@ def apply_run_config(args, parser: argparse.ArgumentParser, argv,
     ``run_dir``) onto ``args`` for every scientific-config dest the user
     did not set explicitly. An explicit flag wins, and a mismatch against
     the recorded value is reported (returned and printed to stderr). A
-    recorded value this parser's option does not accept (the reference's
-    ``--solver-backend pallas``) keeps the CLI's value, with a notice.
+    recorded value is read through its option's type, as on a command line
+    (the reference's ``--solver-backend pallas`` is ``cuda``); one this
+    parser's option does not accept keeps the CLI's value, with a notice.
 
     Returns the notices (empty when the CLI agrees with the run's config or
     no info.json exists)."""
@@ -399,11 +408,14 @@ def apply_run_config(args, parser: argparse.ArgumentParser, argv,
     run_cfg = json.loads(info_path.read_text()).get("config", {})
     explicit = explicit_dests(parser, argv)
     choices = {a.dest: a.choices for a in parser._actions if a.choices}
+    types = {a.dest: a.type for a in parser._actions if callable(a.type)}
     notices = []
     for dest in sorted(run_config_dests()):
         if dest not in run_cfg:
             continue
         run_val = run_cfg[dest]
+        if isinstance(run_val, str) and dest in types:
+            run_val = types[dest](run_val)
         cur = getattr(args, dest, None)
         if dest in explicit:
             if cur != run_val:

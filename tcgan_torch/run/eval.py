@@ -30,8 +30,7 @@ import sys
 import numpy as np
 
 from tcgan_torch.run import common
-
-PLOTS_SKIPPED = "skipped: matplotlib not installed"
+from tcgan_torch.utils.plotting import PLOTS_SKIPPED, have_matplotlib
 
 
 def _plot_tc_comparison(gen_tc: np.ndarray, data_tc: np.ndarray, out_path):
@@ -62,14 +61,6 @@ def _plot_tc_comparison(gen_tc: np.ndarray, data_tc: np.ndarray, out_path):
     fig.tight_layout()
     fig.savefig(out_path, dpi=110)
     plt.close(fig)
-
-
-def have_matplotlib() -> bool:
-    try:
-        import matplotlib  # noqa: F401
-    except ImportError:
-        return False
-    return True
 
 
 def make_parser() -> argparse.ArgumentParser:

@@ -13,7 +13,9 @@ ssn_solve.cu`` with the same C interface (for example unpacked from git into
 a git-ignored directory); it is compiled with the flags of
 ``tcgan_torch/ops/cuda/build.py``. At each shape of :data:`SHAPES` both
 kernels solve the same inputs in turns: baseline, this, this, baseline, each
-turn the median of ``--reps`` launches timed with CUDA events. Printed per
+turn the median of ``--reps`` launches timed with CUDA events (at
+:data:`CLUSTER_SHAPES`, which a baseline without thread-block clusters
+refuses, this kernel alone). Printed per
 shape and kernel: the time, the bound from the run's own ``iters`` and its
 share, and the slowest circuit's time per substep (launch time / max iters),
 with the card's name and power limit; per kernel: registers and spills
@@ -72,8 +74,19 @@ SHAPES = {
     "gan B=256 S=16": (256, (5.0, CONTRAST), dict(atol=1e-5, max_iter=10000)),
     "bench_step B=32 S=8": (32, (CONTRAST,), {}),
 }
-# The shared-memory limit at S=8: 2N=224, 64 circuits.
+# The shared-memory limit of one block at S=8: 2N=224, 64 circuits.
 WIDE_N, WIDE_BATCH = 112, 64
+# Beyond one block: thread-block clusters, up to the paper's N=201 and
+# 2N=512. name -> (N, circuits, contrasts, SSNConfig overrides, accel); J and
+# D scaled by 51 / N (``problem``).
+CLUSTER_SHAPES = {
+    "2N=240 S=8 B=64": (120, 64, (CONTRAST,), {}, False),
+    "2N=402 S=8 B=64": (201, 64, (CONTRAST,), {}, False),
+    "2N=402 S=16 B=32 anderson": (201, 32, (5.0, CONTRAST),
+                                  dict(atol=1e-5, max_iter=10000), True),
+    "2N=402 S=24 B=16": (201, 16, (5.0, CONTRAST, 13.0), {}, False),
+    "2N=512 S=16 B=16": (256, 16, (5.0, CONTRAST), {}, False),
+}
 
 
 def problem(batch: int, contrasts=(CONTRAST,), ssn_overrides=None,
@@ -233,18 +246,28 @@ def main(argv=None) -> int:
     report = {"card": name, "reps": args.reps, "shapes": {}, "kernels": {
         k: {kk: vv for kk, vv in v.items() if kk != "lib"}
         for k, v in kernels.items()}}
-    cases = {k: (b, c, kw, {}) for k, (b, c, kw) in SHAPES.items()}
+    cases = {k: (b, c, kw, {}, False) for k, (b, c, kw) in SHAPES.items()}
     cases["wide 2N=224 S=8, J and D unscaled"] = (
-        WIDE_BATCH, (CONTRAST,), {}, dict(N=WIDE_N, rescale=False))
-    for shape, (batch, contrasts, overrides, kw) in cases.items():
+        WIDE_BATCH, (CONTRAST,), {}, dict(N=WIDE_N, rescale=False), False)
+    for k, (N, b, c, kw, accel) in CLUSTER_SHAPES.items():
+        cases[k] = (b, c, kw, dict(N=N), accel)
+    for shape, (batch, contrasts, overrides, kw, accel) in cases.items():
         cfg, W, I = problem(batch, contrasts, overrides, **kw)
         solve = {k: (lambda lib=v["lib"]: ssn_solve.launch(
-            lib, cfg, W, I, CHECK_EVERY, False)) for k, v in kernels.items()}
-        outs = {k: fn() for k, fn in solve.items()}
-        plain = ssn_solve.solve_fixed_point_plain(cfg, W, I, CHECK_EVERY)
+            lib, cfg, W, I, CHECK_EVERY, accel)) for k, v in kernels.items()}
+        outs = {}
+        for k, fn in list(solve.items()):
+            try:
+                outs[k] = fn()
+            except RuntimeError as e:  # a baseline that refuses the shape
+                print(f"[ab] {shape} {k}: refused ({e})", flush=True)
+                del solve[k]
+        plain = ssn_solve.solve_fixed_point_plain(cfg, W, I, CHECK_EVERY,
+                                                  accel)
         torch.cuda.synchronize()
         turns = [(k, median_ms(solve[k], args.reps))
-                 for k in ("baseline", "this", "this", "baseline")]
+                 for k in ("baseline", "this", "this", "baseline")
+                 if k in solve]
         rows = {}
         for k, out in outs.items():
             ms = statistics.median(t for kk, t in turns if kk == k)
@@ -264,6 +287,13 @@ def main(argv=None) -> int:
                   f"{max_iters} iters; rows both converged outside rtol "
                   f"{RTOL} atol {ATOL} of the fp32 plain solve: "
                   f"{rows[k]['rows_off_plain']}; {name}", flush=True)
+        c, n = ssn_solve.active_clusters(W.shape[-1], I.shape[0], accel)
+        rows["cluster"], rows["active_clusters"] = c, n
+        print(f"[ab] {shape}: cluster size {c}, {n} circuits at once",
+              flush=True)
+        if "baseline" not in outs:
+            report["shapes"][shape] = rows
+            continue
         a, b = outs["baseline"], outs["this"]
         both = a.converged & b.converged
         rows["flag_mismatch"] = int((a.converged != b.converged).sum()

@@ -140,14 +140,23 @@ def test_apply_run_config_matches_the_reference(gan_run, capsys):
 
 
 def test_apply_run_config_keeps_options_this_parser_lacks(tmp_path):
-    """A reference run records ``--solver-backend pallas``: the port keeps
-    its own value and says so."""
+    """A reference run records ``--solver-backend pallas``: the port reads
+    it as ``cuda``, the kernel, with no notice. A recorded value no option
+    here accepts keeps the CLI's value, with a notice."""
     (tmp_path / "info.json").write_text(json.dumps(
         {"config": {"solver_backend": "pallas", "N": 8}}))
     args = teval.make_parser().parse_args(["--run", str(tmp_path)])
     notes = tcommon.apply_run_config(args, teval.make_parser(),
                                      ["--run", str(tmp_path)], tmp_path)
-    assert args.solver_backend == "torch" and args.N == 8
-    assert len(notes) == 1 and "'pallas'" in notes[0]
+    assert args.solver_backend == "cuda" and args.N == 8
+    assert notes == []
+    assert tcommon.ssn_config_from_args(args).backend == "cuda"
+    (tmp_path / "info.json").write_text(json.dumps(
+        {"config": {"io_type": "relu", "N": 8}}))
+    args = teval.make_parser().parse_args(["--run", str(tmp_path)])
+    notes = tcommon.apply_run_config(args, teval.make_parser(),
+                                     ["--run", str(tmp_path)], tmp_path)
+    assert args.io_type == "asym_power" and args.N == 8
+    assert len(notes) == 1 and "'relu'" in notes[0]
     assert tcommon.apply_run_config(args, teval.make_parser(), [],
                                     tmp_path / "missing") == []

@@ -42,7 +42,15 @@ def test_parser_matches_reference_flags():
         assert port[dest][0] == opts
         if dest != "solver_backend":
             assert port[dest][1] == choices, dest
+    # the port's names, and the reference's for the same two backends,
+    # stored as the port's
     assert port["solver_backend"][1] == ("torch", "cuda")
+    assert ref["solver_backend"][1] == ("xla", "pallas")
+    for ref_name, port_name in zip(ref["solver_backend"][1],
+                                   port["solver_backend"][1]):
+        args = tforward.make_parser().parse_args(
+            ["--datastore", "x", "--solver-backend", ref_name])
+        assert args.solver_backend == port_name
 
 
 def _run(main, argv, path):

@@ -34,11 +34,13 @@ def test_parser_matches_jax_flags():
     for dest, ja in j.items():
         ta = t[dest]
         assert ta.option_strings == ja.option_strings, dest
-        assert ta.nargs == ja.nargs and ta.type == ja.type, dest
         if dest == "solver_backend":
+            # the reference's names are read as the port's
             assert ja.choices == ("xla", "pallas")
             assert ta.choices == ("torch", "cuda")
+            assert tuple(map(ta.type, ja.choices)) == ta.choices
             continue
+        assert ta.nargs == ja.nargs and ta.type == ja.type, dest
         assert ta.default == ja.default, dest
         assert ta.choices == ja.choices, dest
     assert tgan.make_parser().format_help()
@@ -168,3 +170,33 @@ def test_critic_input_scales_and_weights_match_jax(flags, conditional):
     for a, b in zip(t_scale, j_scale):
         assert (a is None) == (b is None)
         np.testing.assert_allclose(a or [], b or [], rtol=1e-6)
+
+
+def test_reference_command_line_with_pallas_reaches_the_kernel(
+        tmp_path, monkeypatch):
+    """A ``tcgan_tpu.run.gan`` command line with ``--solver-backend pallas``
+    parses unchanged in ``tcgan_torch.run.gan`` and runs every solve
+    through the kernel wrapper (its plain version on CPU tensors); the run
+    records ``cuda``."""
+    from tcgan_torch.ops.cuda import ssn_solve
+
+    argv = TINY_GAN + ["--n-steps", "1", "--solver-backend", "pallas"]
+    assert jgan.make_parser().parse_args(
+        argv + ["--datastore", "x"]).solver_backend == "pallas"
+    calls = []
+    real = ssn_solve.solve_fixed_point_cuda
+
+    def spy(*a, **kw):
+        calls.append(a[1].shape)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(ssn_solve, "solve_fixed_point_cuda", spy)
+    store = tmp_path / "port"
+    assert tgan.main(argv + ["--device", "cpu", "--datastore",
+                             str(store)]) == 0
+    info = json.loads((store / "info.json").read_text())
+    assert info["config"]["solver_backend"] == "cuda"
+    assert info["kernel_precision"] == ssn_solve.KERNEL_PRECISION
+    # the fake truth (8 samples in one batch of 64), then n_critic0 + 1
+    # solves and the tc_mean snapshot of step 0
+    assert len(calls) == 1 + 2 + 1 + 1

@@ -63,11 +63,14 @@ def test_ssn_config_fields_and_validation():
     j_fields = [f.name for f in jssn.SSNConfig.__dataclass_fields__.values()]
     assert t_fields == j_fields
     for bad in (dict(io_type="relu"), dict(init="warm"),
-                dict(accel="broyden"), dict(backend="pallas"),
+                dict(accel="broyden"), dict(backend="tpu"),
                 dict(io_type="asym_tanh", rate_soft_bound=5.0,
                      rate_hard_bound=5.0)):
         with pytest.raises(ValueError):
             tssn.SSNConfig(**bad)
+    # the reference's backend names are stored as the port's
+    assert tssn.SSNConfig(backend="pallas").backend == "cuda"
+    assert tssn.SSNConfig(backend="xla").backend == "torch"
 
 
 def test_recurrent_drive_matches():

@@ -184,15 +184,75 @@ def test_shape_and_device_errors():
             torch.empty(I.shape, device="meta"))
 
 
-def test_shared_memory_limit_raises():
-    """One circuit's state must fit in a block's shared memory: 2N=102
-    fits with the 24-row battery and Anderson, 2N=240 does not."""
-    assert ssn_solve.smem_bytes(102, 24, True) <= ssn_solve.MAX_SMEM_BYTES
-    assert ssn_solve.smem_bytes(240, 8, False) > ssn_solve.MAX_SMEM_BYTES
-    cfg = tssn.SSNConfig(N=120)
+@pytest.mark.parametrize("n2,S,accel,cluster", [
+    (102, 24, True, 1), (224, 8, False, 1), (240, 8, False, 2),
+    (402, 8, False, 4), (402, 24, True, 8), (512, 16, True, 8),
+    (512, 16, False, 8)])
+def test_shared_memory_limit_raises(n2, S, accel, cluster):
+    """One circuit's state fits one block up to 2N=224 at S=8; past that a
+    cluster of 2, 4 or 8 blocks takes it, each block's layout within the
+    limit, up to every 2N <= 512 at S <= 16 and 2N=402 with the 24-row
+    battery and Anderson. Beyond a cluster of 8 the wrapper raises, on CPU
+    tensors too, naming the bytes and the cluster size tried."""
+    assert ssn_solve.cluster_size(n2, S, accel) == cluster
+    assert ssn_solve.smem_bytes(n2, S, accel, cluster) <= \
+        ssn_solve.MAX_SMEM_BYTES
+    if cluster > 1:  # the least cluster size that fits
+        assert ssn_solve.smem_bytes(n2, S, accel, cluster // 2) > \
+            ssn_solve.MAX_SMEM_BYTES
+    for n2, S, accel in ((512, 24, True), (600, 8, False), (402, 64, False)):
+        with pytest.raises(ValueError, match="cluster size 8") as e:
+            ssn_solve.cluster_size(n2, S, accel)
+        assert str(ssn_solve.smem_bytes(n2, S, accel, 8)) in str(e.value)
     with pytest.raises(ValueError, match=str(ssn_solve.MAX_SMEM_BYTES)):
-        ssn_solve.solve_fixed_point_cuda(cfg, torch.zeros(1, 240, 240),
-                                         torch.zeros(8, 240))
+        ssn_solve.solve_fixed_point_cuda(tssn.SSNConfig(N=300),
+                                         torch.zeros(1, 600, 600),
+                                         torch.zeros(8, 600))
+
+
+def test_every_width_to_512_fits_a_cluster():
+    for n2 in range(2, 513):
+        for S in range(1, 17):
+            for accel in (False, True):
+                c = ssn_solve.cluster_size(n2, S, accel)
+                assert ssn_solve.smem_bytes(n2, S, accel, c) <= \
+                    ssn_solve.MAX_SMEM_BYTES
+                assert 32 * ssn_solve.slab(n2, c) // 16 <= 512
+    for S in range(17, 25):
+        assert ssn_solve.cluster_size(402, S, True) == 8
+
+
+def test_cpu_path_matches_xla_at_paper_width():
+    """N=201 (2N=402, a cluster of 4 on the card), 2 circuits x 2 rows, J
+    and D scaled by 51 / 201 (``ssn_solve_ab.problem``): the wrapper's CPU
+    path against the reference's lockstep (XLA) solve."""
+    from tcgan_tpu.ops import fixed_point as jfp
+    from tcgan_torch.tools import ssn_solve_ab as ab
+
+    N, scale = 201, 51 / 201
+    z = np.random.default_rng(5).standard_normal((2, 2 * N, 2 * N))
+    x = np.linspace(-0.5, 0.5, N)
+    m22 = lambda v, c=1.0: c * np.array(v).reshape(2, 2)  # noqa: E731
+    W = np.asarray(jw.build_weight(m22(ab.SLICE_J, scale),
+                                   m22(ab.SLICE_D, scale), m22(ab.SLICE_S),
+                                   z, x), dtype=np.float32)
+    I = np.asarray(jstim.stimulus_battery((0.25, 1.0), (ab.CONTRAST,),
+                                          jnp.asarray(x), 0.03125),
+                   dtype=np.float32)
+    kw = {**ab.SLICE_SSN, "N": N}
+    ref = jfp.solve_fixed_point(jssn.SSNConfig(**kw), jnp.asarray(W),
+                                jnp.asarray(I), check_every=ab.CHECK_EVERY)
+    assert ssn_solve.cluster_size(2 * N, 2, False) == 4
+    out = ssn_solve.solve_fixed_point_cuda(
+        tssn.SSNConfig(**kw), torch.tensor(W), torch.tensor(I),
+        check_every=ab.CHECK_EVERY)
+    assert out.r.shape == (2, 2, 2 * N) and out.converged.all()
+    np.testing.assert_array_equal(out.converged.numpy(),
+                                  np.asarray(ref.converged))
+    np.testing.assert_array_equal(out.diverged.numpy(),
+                                  np.asarray(ref.diverged))
+    np.testing.assert_allclose(out.r.numpy(), np.asarray(ref.r), rtol=RTOL,
+                               atol=ATOL)
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):

@@ -151,6 +151,54 @@ def test_kernel_matches_plain_at_slice_shapes(cuda_device, case):
     assert float(out.converged.float().mean()) > 0.5
 
 
+CLUSTER_CASES = {
+    # name: (N, B, contrasts or bandwidth count, SSNConfig overrides,
+    # accel): thread-block clusters of 2, 4 and 8 blocks per circuit, the
+    # slice's circuit with J and D scaled to N (ab.problem)
+    "2N240_S8": (120, 8, (10.0,), {}, False),
+    "2N402_S8": (201, 8, (10.0,), {}, False),
+    "2N402_anderson_S16": (201, 8, (5.0, 10.0),
+                           dict(atol=1e-5, max_iter=10000), True),
+    "2N402_ragged_B3_S11": (201, 3, 11, {}, False),
+    "2N402_S24": (201, 4, (5.0, 10.0, 13.0), {}, False),
+    "2N512_S16": (256, 4, (5.0, 10.0), {}, False),
+    "2N512_anderson_S16": (256, 4, (5.0, 10.0), {}, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CLUSTER_CASES))
+def test_cluster_kernel_matches_plain(cuda_device, case):
+    N, B, contrasts, cfg_kw, accel = CLUSTER_CASES[case]
+    if isinstance(contrasts, int):  # a ragged battery: S bandwidths
+        cfg, W, _ = ab.problem(B, (10.0,), cfg_kw, N=N)
+        I = stimulus.stimulus_battery(
+            tuple(np.linspace(0, 1, contrasts)), (10.0,),
+            cfg.site_pos(device=cuda_device), cfg.smoothness)
+    else:
+        cfg, W, I = ab.problem(B, contrasts, cfg_kw, N=N)
+    assert ssn_solve.cluster_size(2 * N, I.shape[0], accel) > 1
+    out = _check(cfg, W, I, 32, accel, converged_rows_only=True)
+    assert torch.isfinite(out.r).all()
+    assert out.r.shape == (B, I.shape[0], 2 * N)
+    assert float(out.converged.float().mean()) > 0.5
+
+
+@pytest.mark.cuda
+def test_cluster_kernel_flags_runaway_divergence(cuda_device):
+    """Hard divergers at 2N=402 (a cluster of 4): every row diverges, under
+    the ceiling, as in the plain solve."""
+    cfg = SSNConfig(N=201, k=0.05, n=2.2, dt=0.002, max_iter=512,
+                    rate_stop_at=200.0, atol=1e-6)
+    W = 0.05 * torch.tensor(
+        np.abs(np.random.default_rng(0).standard_normal((3, 402, 402))),
+        dtype=torch.float32, device=cuda_device)
+    I = 50.0 * torch.ones((8, 402), device=cuda_device)
+    out = _check(cfg, W, I, 32, False)
+    assert out.diverged.all() and torch.isfinite(out.r).all()
+    assert float(out.r.max()) <= 10.0 * cfg.rate_stop_at
+
+
 @pytest.mark.cuda
 def test_kernel_flags_runaway_divergence(cuda_device):
     cfg = SSNConfig(N=4, k=0.05, n=2.2, dt=0.002, max_iter=512,
