@@ -95,7 +95,21 @@ no result line):
    matplotlib: ``report``, ``fit_quality``, ``learning_curves``,
    ``compare`` and ``recovery_gate`` (on its exit codes) on phase 6's run,
    ``report`` and ``ensemble_view`` on phase 10's ensemble; each finishes
-   and says its figure was skipped.
+   and says its figure was skipped;
+15. ``--parallel mesh`` (``tcgan_torch/parallel``): (a) ``run.gan`` at the
+   round-2 configuration for 3 steps, ``run.moments --fixed-z`` at 64
+   circuits for 3 and ``run.forward`` for 2 batches of 512, each on one
+   NCCL rank per card and against the unsharded run of the same seed
+   (learning rows to rtol 1e-4, the npz bit-equal, the same launches);
+   (b) two gloo ranks sharing the card: ``make_sharded_gan_step`` at the
+   round-2 shape, each rank launching the kernel on its 128 of 256
+   circuits, held to the unsharded step on the same noise (losses to
+   rtol 1e-4, generator parameters and first Adam moments to 1e-6), with one
+   step's host time, each rank's device busy time and the collectives per
+   step; then an 8 x 64 ensemble split 4 + 4 against the unsharded
+   ensemble step; (c) ``tcgan_torch.entry.dryrun_multichip(4,
+   device="cpu")`` on 4 gloo CPU ranks (a 2 x 2 mesh, W's columns over the
+   model axis).
 
 Every phase prints its seconds.
 
@@ -1766,6 +1780,268 @@ def phase_reports(card: str, gan_store: Path, ens_store: Path) -> None:
     _line(f"[reports] matplotlib installed: {have_matplotlib()} ({card})")
 
 
+# Phase 15: a sharded run or step against the unsharded one of the same
+# seed, to the reference's rtol 1e-4 (tests/test_parallel.py:57-65). The
+# adjoint's stop test spans every rank's circuits, so the sharded gradient
+# is the unsharded one up to float32 roundoff: the sharded step's generator
+# parameters and first Adam moments are held to MESH_GRAD_RTOL, which a
+# per-rank stop test misses (9.640e-05 on the moments, against 1.161e-07
+# with the batch's stop test, on an H100). The forward path's kernel solves
+# each circuit alone, so its npz is bit-equal.
+MESH_RTOL = 1e-4
+MESH_GRAD_RTOL = 1e-6
+MESH_STEPS = 3
+CLOCK_COLUMNS = {"train_time", "SSsolve_time", "gradient_time"}
+
+
+def _rel(a, b) -> float:
+    """max |a - b| / max |b| over tensors (or dicts of them)."""
+    import torch
+
+    if isinstance(b, dict):
+        return max(_rel(a[k], v) for k, v in b.items())
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _rows_rel(mesh_rows, plain_rows) -> float:
+    """The largest relative difference of two runs' learning rows, the
+    columns of a rank's clock aside."""
+    if [r["step"] for r in mesh_rows] != [r["step"] for r in plain_rows]:
+        raise AssertionError("mesh: the runs' steps differ")
+    worst = 0.0
+    for a, b in zip(mesh_rows, plain_rows):
+        for k in a.keys() - CLOCK_COLUMNS:
+            x, y = float(a[k]), float(b[k])
+            if x != y:
+                worst = max(worst, abs(x - y) / max(abs(y), 1e-12))
+    return worst
+
+
+def _mesh_cli(card: str, work: Path) -> dict:
+    """Phase 15(a): each entry point with and without ``--parallel mesh``
+    (one NCCL rank per card; on one card, the rank is this process)."""
+    import numpy as np
+    import torch
+
+    from tcgan_torch.ops.cuda import ssn_solve
+    from tcgan_torch.run import forward, moments
+
+    world = torch.cuda.device_count()
+    if world != 1:
+        raise AssertionError(f"phase 15(a) counts the launches of one rank "
+                             f"in this process; {world} cards are visible "
+                             "(set CUDA_VISIBLE_DEVICES to one)")
+    mesh = ("--parallel", "mesh")
+    by_path = {}
+    t0 = time.perf_counter()
+    n_plain, plain = _run_gan(work / "gan_plain", MESH_STEPS, 0)
+    t1 = time.perf_counter()
+    n_mesh, rows = _run_gan(work / "gan_mesh", MESH_STEPS, 0, *mesh)
+    t2 = time.perf_counter()
+    rel = _rows_rel(rows, plain)
+    _line(f"[mesh] run.gan --parallel mesh, round-2, {MESH_STEPS} steps on "
+          f"{world} NCCL rank(s): launches {n_mesh} (unsharded {n_plain}), "
+          f"max rel d learning row {rel:.3e} (rtol {MESH_RTOL}), "
+          f"{t2 - t1:.1f} s (unsharded {t1 - t0:.1f} s; {card})")
+    if n_mesh != n_plain or not rel <= MESH_RTOL:
+        raise AssertionError("mesh: run.gan differs from the unsharded run")
+    by_path["run.gan --parallel mesh"] = n_mesh
+
+    extra = ("--batch-size", str(MM_BATCH), "--fixed-z")
+    t0 = time.perf_counter()
+    n_plain, plain = _run_mm(moments, work / "mm_plain", MESH_STEPS, 0,
+                             *extra)
+    t1 = time.perf_counter()
+    n_mesh, rows = _run_mm(moments, work / "mm_mesh", MESH_STEPS, 0, *extra,
+                           *mesh)
+    t2 = time.perf_counter()
+    rel = _rows_rel(rows, plain)
+    _line(f"[mesh] run.moments --parallel mesh --fixed-z, B={MM_BATCH}, "
+          f"{MESH_STEPS} steps: launches {n_mesh} (unsharded {n_plain}), "
+          f"max rel d learning row {rel:.3e} (rtol {MESH_RTOL}), "
+          f"{t2 - t1:.1f} s (unsharded {t1 - t0:.1f} s; {card})")
+    if n_mesh != n_plain or not rel <= MESH_RTOL:
+        raise AssertionError("mesh: run.moments differs from the unsharded "
+                             "run")
+    by_path["run.moments --parallel mesh"] = n_mesh
+
+    data, launches, summary = {}, {}, {}
+    for name, more in (("plain", ()), ("mesh", mesh)):
+        store = work / f"fwd_{name}"
+        ssn_solve.launches = 0
+        if forward.main(_forward_argv(store, (CONTRAST,), 2 * BATCH)
+                        + list(more)) != 0:
+            raise AssertionError(f"mesh: run.forward ({name}) failed")
+        launches[name] = ssn_solve.launches
+        data[name] = np.load(store / "tuning_curves.npz")
+        summary[name] = json.loads((store / "info.json").read_text())[
+            "summary"]
+    equal = all(np.array_equal(data["mesh"][k], data["plain"][k])
+                for k in data["plain"].files)
+    _line(f"[mesh] run.forward --parallel mesh, 2 batches of {BATCH}: "
+          f"launches {launches['mesh']} (unsharded {launches['plain']}), "
+          f"npz bit-equal {equal}, n_devices "
+          f"{summary['mesh']['n_devices']}, circuits/s "
+          f"{summary['mesh']['circuits_per_sec']:.1f} (unsharded "
+          f"{summary['plain']['circuits_per_sec']:.1f}; {card})")
+    if not equal or launches["mesh"] != launches["plain"] or \
+            summary["mesh"]["n_devices"] != world:
+        raise AssertionError("mesh: run.forward differs from the unsharded "
+                             "run")
+    by_path["run.forward --parallel mesh"] = launches["mesh"]
+    return by_path
+
+
+def _mesh_rank(card: str) -> dict:
+    """Phase 15(b), one of two gloo ranks sharing the card: the sharded
+    round-2 WGAN step and the 8 x 64 ensemble step split 4 + 4, each with
+    the kernel's launches and circuits per launch in this rank; rank 0
+    also runs the unsharded steps on the same noise and returns the
+    differences."""
+    import torch
+    import torch.distributed as dist
+
+    from tcgan_torch import parallel as par
+    from tcgan_torch.models import ensemble as ens_lib
+    from tcgan_torch.models import wgan
+    from tcgan_torch.ops.cuda import ssn_solve
+
+    rank = dist.get_rank()
+    mesh = par.make_mesh()
+    circuits = []
+    solve = ssn_solve.solve_fixed_point_cuda
+
+    def counted(cfg, W, *args, **kw):
+        circuits.append(int(W.shape[0]))
+        return solve(cfg, W, *args, **kw)
+
+    ssn_solve.solve_fixed_point_cuda = counted
+
+    def run(fn):
+        """fn() once with the counts at 0: (result, launches, circuits per
+        launch, collectives)."""
+        ssn_solve.launches = 0
+        circuits.clear()
+        mesh.counts.clear()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, ssn_solve.launches, list(circuits), dict(mesh.counts)
+
+    wcfg, state, real, gen = _step_setup(GAN_BATCH, GAN_SSN, GAN_CONTRASTS,
+                                         clip_grad=1.0)
+    n_c = wcfg.n_critic
+    noise = wgan.draw_step_noise(wcfg, n_c, real, gen)
+    scfg = dataclasses.replace(wcfg, gen=par.with_mesh_axes(wcfg.gen))
+    step = par.make_sharded_gan_step(wgan.train_step_impl, mesh)
+    (new, m), launches, per, counts = run(
+        lambda: step(scfg, n_c, state, real, noise=noise))
+    out = {"rank": rank, "gan": dict(launches=launches, circuits=per,
+                                     collectives=counts)}
+    if rank == 0:
+        ref, rm = wgan.train_step_impl(wcfg, n_c, state, real, noise=noise)
+        out["gan"]["rel"] = {
+            "d_loss": _rel(m.d_loss, rm.d_loss),
+            "g_loss": _rel(m.g_loss, rm.g_loss),
+            "gen_params": _rel(new.gen_params, ref.gen_params),
+            "gen_mu": _rel(new.gen_opt.mu, ref.gen_opt.mu)}
+    prof = _profile_step(f"sharded round-2 WGAN step, rank {rank} of 2 "
+                         "sharing the card over gloo", card,
+                         lambda: step(scfg, n_c, state, real, noise=noise),
+                         n_c + 1)
+    out["gan"].update(step_ms=prof["step_ms_unprofiled"],
+                      device_busy=prof["device_busy"],
+                      idle_share=prof["idle_share"])
+    if rank == 0:  # the same step unsharded, while rank 1 waits
+        prof = _profile_step(
+            "unsharded round-2 WGAN step, rank 0 alone on the card", card,
+            lambda: wgan.train_step_impl(wcfg, n_c, state, real,
+                                         noise=noise), n_c + 1)
+        out["gan"].update(unsharded_ms=prof["step_ms_unprofiled"],
+                          unsharded_busy=prof["device_busy"])
+
+    ecfg = dataclasses.replace(wcfg, batch_size=ENS_BATCH)
+    gen = torch.Generator(DEVICE).manual_seed(SEED)
+    states = ens_lib.init_ensemble(ecfg, ENS_K, generator=gen,
+                                   gen_init=state.gen_params,
+                                   start_jitter=0.05)
+    real = 1.0 + 0.1 * torch.randn(
+        (ENS_K, n_c, ecfg.critic_batch, ecfg.gen.tc_dim), generator=gen,
+        device=DEVICE)
+    noise = wgan.draw_step_noise(ecfg, n_c, real.transpose(0, 1), gen)
+    estep = par.make_sharded_ensemble_step(ens_lib.ensemble_train_step,
+                                           mesh)
+    (new, m), launches, per, counts = run(lambda: mesh.gather_members(
+        estep(ecfg, n_c, mesh.member_shard(states), real, noise=noise)))
+    out["ensemble"] = dict(launches=launches, circuits=per,
+                           collectives=counts)
+    if rank == 0:
+        ref, rm = ens_lib.ensemble_train_step(ecfg, n_c, states, real,
+                                              noise=noise)
+        out["ensemble"]["rel"] = {
+            "d_loss": _rel(m.d_loss, rm.d_loss),
+            "g_loss": _rel(m.g_loss, rm.g_loss),
+            "gen_params": _rel(new.gen_params, ref.gen_params),
+            "gen_mu": _rel(new.gen_opt.mu, ref.gen_opt.mu)}
+    return out
+
+
+def phase_mesh(card: str) -> dict:
+    """Phase 15 (a)-(c); returns the kernel's launches by mesh path."""
+    from tcgan_torch.entry import dryrun_multichip
+    from tcgan_torch.parallel import launch
+
+    with tempfile.TemporaryDirectory() as work:
+        by_path = _mesh_cli(card, Path(work))
+
+    t0 = time.perf_counter()
+    ranks = launch.spawn(_mesh_rank, 2, (card,), backend="gloo",
+                         devices=[DEVICE + ":0"] * 2, timeout=600,
+                         deadline=900)
+    seconds = time.perf_counter() - t0
+    n_c = 5
+    for kind, batch in (("gan", GAN_BATCH), ("ensemble", ENS_K * ENS_BATCH)):
+        for r in ranks:
+            got = r[kind]
+            _line(f"[mesh] {kind}, rank {r['rank']} of 2 on one card over "
+                  f"gloo: kernel launches {got['launches']} on "
+                  f"{got['circuits']} circuits each, collectives per step "
+                  f"{json.dumps(got['collectives'])}")
+            if got["circuits"] != [batch // 2] * (n_c + 1):
+                raise AssertionError(f"mesh: {kind} rank {r['rank']} "
+                                     f"launched on {got['circuits']}")
+        rel = ranks[0][kind]["rel"]
+        rtol = {k: MESH_GRAD_RTOL if k.startswith("gen_") else MESH_RTOL
+                for k in rel}
+        _line(f"[mesh] {kind} sharded over 2 ranks against the unsharded "
+              f"step on the same noise: {json.dumps(rel)} (rtol "
+              f"{json.dumps(rtol)})")
+        if not all(v <= rtol[k] for k, v in rel.items()):
+            raise AssertionError(f"mesh: {kind} differs from the unsharded "
+                                 "step")
+    for r in ranks:
+        g = r["gan"]
+        _line(f"[mesh] sharded round-2 WGAN step, rank {r['rank']} of 2: "
+              f"host {g['step_ms']:.3f} ms, device busy "
+              f"{g['device_busy']:.3f} ms, idle {g['idle_share']:.4f} "
+              f"({card})")
+    g = ranks[0]["gan"]
+    _line(f"[mesh] the same step unsharded in rank 0's process: host "
+          f"{g['unsharded_ms']:.3f} ms, device busy "
+          f"{g['unsharded_busy']:.3f} ms ({card})")
+    _line(f"[mesh] the two ranks took {seconds:.1f} s, process start "
+          "included")
+    by_path["make_sharded_gan_step + ensemble, 2 ranks sharing the card"] = \
+        sum(r[k]["launches"] for r in ranks for k in ("gan", "ensemble"))
+
+    t0 = time.perf_counter()
+    out = dryrun_multichip(4, device="cpu")
+    _line(f"[mesh] dryrun_multichip(4, device='cpu'): gloo ranks: collectives "
+          f"{json.dumps(out['collectives'])}, {time.perf_counter() - t0:.1f}"
+          " s")
+    return by_path
+
+
 def _timed(number, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1795,6 +2071,7 @@ def main() -> int:
             12, phase_analyses, card, work / "gan")
         _timed(14, phase_reports, card, work / "gan", work / "ens")
     _timed(13, phase_native, card)
+    by_path.update(_timed(15, phase_mesh, card))
     kernel["launches"] = sum(by_path.values())
     kernel["launches_by_path"] = by_path
     _line(f"[smoke] all phases took {time.perf_counter() - t_start:.1f} s")

@@ -194,7 +194,7 @@ def train_step_impl(cfg: CWGANConfig, n_critic: int, state: TrainState,
     (``gp_eps[i]`` is (B*S, 1))."""
     def fake_batch(z):
         fake, out = sample_conditional(cfg, state.gen_params, cfg.batch_size,
-                                       z=z, generator=generator)
+                                       z=z)
         return fake, fake_row_weights(cfg, out)
 
     return wgan.run_step(

@@ -13,9 +13,14 @@ C2/C4/C5) or by backpropagation through a fixed-length Euler unroll
 
 Parameters may carry a leading member axis (an ensemble of K fits,
 :mod:`tcgan_torch.models.ensemble`): J/D/S (K, 2, 2) give W (K, B, 2N, 2N),
-solved in one kernel launch, and every output gains the K axis. Mesh
-sharding (``parallel/mesh.py``) is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP item.
+solved in one kernel launch, and every output gains the K axis.
+
+Mesh axes (``mesh_axis``, ``model_axis``; :mod:`tcgan_torch.parallel.mesh`)
+split one batch over the ranks of the active mesh: every rank draws the
+whole noise and keeps its rows of z (after the antithetic pairing), solves
+them, and the outputs are gathered back, so the result is the unsharded
+one on every rank. With ``model_axis`` W's columns split too (plain
+lockstep solve with implicit gradients only).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from tcgan_torch.ops.ssn import (
     DEFAULT_S,
     SSNConfig,
 )
+from tcgan_torch.parallel import mesh as mesh_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +58,8 @@ class GeneratorConfig:
     bptt_checkpoint_chunk: int = 0  # 0 = no remat
     param_space: str = "log"  # "log" | "raw"
     dtype: Any = torch.float32
-    # Mesh axes of the reference's sharded generator; not ported yet.
+    # Mesh axes of the active mesh (parallel.set_mesh) the batch's circuits
+    # and W's columns split over; None = unsharded.
     mesh_axis: str | None = None
     model_axis: str | None = None
     # Antithetic quenched noise: batch/2 z-draws used as (+z, -z) pairs.
@@ -175,14 +182,12 @@ def sample_tuning_curves(cfg: GeneratorConfig, params: Dict[str, torch.Tensor],
     parameters have one), otherwise one draw from ``generator``. Everything
     runs on the device of ``params``; differentiable with respect to
     ``params`` through the chosen solver; with a member axis the implicit
-    backward stops per member.
+    backward stops per member. With mesh axes (see the module docstring)
+    every rank passes the same ``z`` or a generator seeded alike.
     """
     if cfg.solver not in ("ift", "bptt"):
         raise ValueError(f"unknown solver {cfg.solver!r}")
-    if cfg.mesh_axis or cfg.model_axis:
-        raise NotImplementedError(
-            "mesh sharding is not ported yet (ROADMAP Queue 1, "
-            "parallel/mesh.py)")
+    mesh = _active_mesh(cfg)
     J, D, S = param_values(cfg, params)
     lead = J.shape[:-2]  # member axes
     device = J.device
@@ -196,19 +201,33 @@ def sample_tuning_curves(cfg: GeneratorConfig, params: Dict[str, torch.Tensor],
         z = torch.as_tensor(z, dtype=cfg.dtype, device=device)
     if cfg.antithetic:
         z = torch.cat([z, -z], dim=-3)
+    split = model = None
+    if mesh is not None:
+        if cfg.mesh_axis:
+            z = z[..., mesh.rows(batch), :, :]
+        axes = [a for a, on in ((mesh_lib.BATCH_AXIS, cfg.mesh_axis),
+                                (mesh_lib.MODEL_AXIS, cfg.model_axis)) if on]
+        J, D, S = mesh.reduce_grad(J, D, S, axes=axes)
+        split = mesh.split(axes)
+        model = None if split is None else split.model
     if lead:  # one (2, 2) block per member, broadcast over its circuits
         J, D, S = (p.unsqueeze(-3) for p in (J, D, S))
     x = cfg.ssn.site_pos(dtype=cfg.dtype, device=device)
     W = weights.build_weight(J, D, S, z, x)
+    if model is not None:  # this rank's presynaptic columns
+        W = W[..., model.cols(W.shape[-1])]
     I_ext = cfg.stimulus_battery(device)
     if cfg.solver == "ift":
         res = ift.solve_fixed_point_implicit(cfg.ssn, W, I_ext,
                                              grad_method=cfg.grad_method,
-                                             group_axes=len(lead))
+                                             group_axes=len(lead),
+                                             split=split)
     else:
         res = euler.solve_dynamics(
             cfg.ssn, W, I_ext,
             checkpoint_chunk=cfg.bptt_checkpoint_chunk or None)
+    if mesh is not None and cfg.mesh_axis:
+        res = _gather_rows(mesh, res)
 
     tc = res.r[..., cfg.probe_indices(device)]  # (..., B, S, P)
     if cfg.track_offset_identity:
@@ -217,6 +236,40 @@ def sample_tuning_curves(cfg: GeneratorConfig, params: Dict[str, torch.Tensor],
         tc = tc.transpose(-1, -2).reshape(
             lead + (batch * cfg.n_probe, cfg.n_stim))
     return GeneratorOutput(tc, res.r, res.converged, res.diverged, res.iters)
+
+
+def _active_mesh(cfg: GeneratorConfig):
+    """The mesh a config's axes split over (None without axes), checked
+    against what the axes can shard."""
+    if not (cfg.mesh_axis or cfg.model_axis):
+        return None
+    if cfg.model_axis and (cfg.solver != "ift" or cfg.ssn.backend == "cuda"
+                           or cfg.grad_method == "direct"):
+        raise ValueError(
+            "the model axis splits W's columns over ranks on the lockstep "
+            "torch solve with the iterative or jfb adjoint only: the CUDA "
+            "kernel solves a whole circuit on one device, and the kernel or "
+            "a BPTT unroll spanning devices would take a collective per "
+            "substep (ROADMAP Queue 1)")
+    mesh = mesh_lib.current_mesh()
+    if mesh is None:
+        raise ValueError("a generator config with mesh axes runs inside "
+                         "tcgan_torch.parallel.set_mesh(mesh)")
+    return mesh
+
+
+def _gather_rows(mesh, res):
+    """The batch group's solver outputs, gathered along the circuit axis
+    in one collective: flags and iters ride in the rates' buffer (float32
+    at least, exact for them)."""
+    r = res.r
+    dtype = torch.promote_types(r.dtype, torch.float32)
+    flags = torch.stack([t.to(dtype) for t in
+                         (res.converged, res.diverged, res.iters)], dim=-1)
+    full = mesh.gather_rows(torch.cat([r.to(dtype), flags], dim=-1), dim=-3)
+    n2 = r.shape[-1]
+    return type(res)(full[..., :n2].to(r.dtype), full[..., n2] > 0,
+                     full[..., n2 + 1] > 0, full[..., n2 + 2].to(torch.int32))
 
 
 def rate_penalty(cfg: GeneratorConfig, rates: torch.Tensor,

@@ -57,6 +57,7 @@ from tcgan_torch.models.critic import CriticConfig
 from tcgan_torch.models.generator import GeneratorConfig
 from tcgan_torch.models.moments import (data_moments, effective_gamma,
                                         survivor_chain)
+from tcgan_torch.ops import weights
 
 Params = Dict[str, torch.Tensor]
 _INT32_MAX = 2**31 - 1
@@ -184,6 +185,33 @@ class StepNoise(NamedTuple):
     gp_eps: Sequence[Any]
     gen_z: Any
     anchor_z: Sequence[Any] | None = None
+
+
+def draw_step_noise(cfg: WGANConfig, n_critic: int, real_stack,
+                    generator: torch.Generator) -> StepNoise:
+    """The noise of one step on ``real_stack`` (its layout: (n_critic, ...,
+    rows, d), any member axes after the first), drawn from ``generator``:
+    the step's only draw path (:func:`run_step` calls it when no noise is
+    injected), so a sharded ensemble step that draws it for all members and
+    keeps its own equals the unsharded step."""
+    lead = tuple(real_stack.shape[1:-2])
+    n_draw = cfg.batch_size // 2 if cfg.gen.antithetic else cfg.batch_size
+    device = real_stack.device
+
+    def z():
+        return weights.sample_z(generator, lead + (n_draw,), cfg.gen.ssn.N,
+                                device=device, dtype=cfg.gen.dtype)
+
+    critic_z, gp_eps = [], []
+    for i in range(n_critic):
+        critic_z.append(z())
+        gp_eps.append(torch.rand(real_stack[i].shape[:-1] + (1,),
+                                 generator=generator, dtype=real_stack.dtype,
+                                 device=device))
+    gen_z = z()
+    anchor_z = ([z() for _ in range(max(1, int(cfg.anchor_updates)))]
+                if cfg.moment_anchor > 0 else None)
+    return StepNoise(critic_z, gp_eps, gen_z, anchor_z)
 
 
 # -- optax-exact Adam ------------------------------------------------------
@@ -668,12 +696,12 @@ def anchor_loss(cfg: WGANConfig, state: TrainState, out):
 
 
 def apply_anchor_update(cfg: WGANConfig, state: TrainState,
-                        gen_params: Params, anchor_z=None,
-                        generator: torch.Generator | None = None,
+                        gen_params: Params, anchor_z,
                         gen_cfg: GeneratorConfig | None = None):
     """``anchor_updates`` composed Adam updates on the anchor residual,
-    each on a fresh generator batch, after the adversarial update.
-    Returns (params, anchor TrainState fields, last residual)."""
+    update k on the generator batch of ``anchor_z[k]``, after the
+    adversarial update. Returns (params, anchor TrainState fields, last
+    residual)."""
     if cfg.moment_anchor <= 0:
         return gen_params, dict(mom_ema_mean=None, mom_ema_second=None,
                                 mom_ema_count=None, anchor_opt=None), None
@@ -689,8 +717,7 @@ def apply_anchor_update(cfg: WGANConfig, state: TrainState,
                             mom_ema_count=cnt)
         leaves = _leaves(params)
         out = gen_lib.sample_tuning_curves(
-            gen_cfg, leaves, cfg.batch_size,
-            z=None if anchor_z is None else anchor_z[k], generator=generator)
+            gen_cfg, leaves, cfg.batch_size, z=anchor_z[k])
         aloss, em, es, cnt = anchor_loss(cfg, st, out)
         updates, opt = anchor_tx.update(_grad(aloss, leaves), opt)
         params = apply_updates(params, updates)
@@ -740,8 +767,10 @@ def run_step(cfg: WGANConfig, n_critic: int, state: TrainState,
     (their batches in ``anchor_gen_cfg``'s layout), the drift latch and the
     parameter EMA."""
     _check_config(cfg)
-    if noise is None and generator is None:
-        raise ValueError("train_step_impl needs noise= or generator=")
+    if noise is None:
+        if generator is None:
+            raise ValueError("train_step_impl needs noise= or generator=")
+        noise = draw_step_noise(cfg, n_critic, real_stack, generator)
     if gen_lib.member_axes(state.gen_params) and cfg.moment_anchor > 0:
         raise NotImplementedError(
             "the moment anchor is single-fit only: a member-stacked state "
@@ -753,15 +782,10 @@ def run_step(cfg: WGANConfig, n_critic: int, state: TrainState,
         real = real_stack[i]
         # the fake batch is data to the critic: no graph through the solve
         with record_function("wgan.critic_solve"), torch.no_grad():
-            fake, fake_w = fake_batch(None if noise is None
-                                      else noise.critic_z[i])
+            fake, fake_w = fake_batch(noise.critic_z[i])
         with record_function("wgan.critic_update"):
-            if noise is None:
-                eps = torch.rand(real.shape[:-1] + (1,), generator=generator,
-                                 dtype=real.dtype, device=real.device)
-            else:
-                eps = torch.as_tensor(noise.gp_eps[i], dtype=real.dtype,
-                                      device=real.device)
+            eps = torch.as_tensor(noise.gp_eps[i], dtype=real.dtype,
+                                  device=real.device)
             leaves = _leaves(critic_params)
             loss, (w, gp, acc) = critic_loss(cfg, leaves, real, fake, eps,
                                              fake_w=fake_w)
@@ -776,8 +800,7 @@ def run_step(cfg: WGANConfig, n_critic: int, state: TrainState,
     with record_function("wgan.gen_forward"):
         leaves = _leaves(state.gen_params)
         g_loss, (pen, fconv, fdiv, miters, cyield) = gen_loss(
-            cfg, leaves, critic_params,
-            z=None if noise is None else noise.gen_z, generator=generator)
+            cfg, leaves, critic_params, z=noise.gen_z)
     with record_function("wgan.gen_backward"):
         g_grads = _grad(g_loss, leaves)
     with record_function("wgan.gen_update"):
@@ -786,9 +809,8 @@ def run_step(cfg: WGANConfig, n_critic: int, state: TrainState,
         gen_params = apply_updates(state.gen_params, g_updates)
     with record_function("wgan.anchor"):
         gen_params, anchor_state, a_res = apply_anchor_update(
-            cfg, state, gen_params,
-            anchor_z=None if noise is None else noise.anchor_z,
-            generator=generator, gen_cfg=anchor_gen_cfg)
+            cfg, state, gen_params, anchor_z=noise.anchor_z,
+            gen_cfg=anchor_gen_cfg)
     drift_fields, drift_ratio = next_drift_latch(cfg, state, gen_params)
 
     ema_params = state.ema_params
@@ -842,8 +864,7 @@ def train_step_impl(cfg: WGANConfig, n_critic: int, state: TrainState,
     anchor. Noise is ``noise`` when given, else drawn from ``generator``."""
     def fake_batch(z):
         out = gen_lib.sample_tuning_curves(cfg.gen, state.gen_params,
-                                           cfg.batch_size, z=z,
-                                           generator=generator)
+                                           cfg.batch_size, z=z)
         return out.tc, fake_sample_weights(cfg, out)
 
     return run_step(cfg, n_critic, state, real_stack, noise, generator,

@@ -40,8 +40,8 @@ class FixedPointResult(NamedTuple):
     iters: torch.Tensor
 
 
-def solve_any(cfg: SSNConfig, W: torch.Tensor, I_ext: torch.Tensor
-              ) -> FixedPointResult:
+def solve_any(cfg: SSNConfig, W: torch.Tensor, I_ext: torch.Tensor,
+              model=None) -> FixedPointResult:
     """Backend-dispatching fixed-point solve (forward only).
 
     With ``cfg.backend == "cuda"`` every solve goes to the CUDA kernel
@@ -50,11 +50,17 @@ def solve_any(cfg: SSNConfig, W: torch.Tensor, I_ext: torch.Tensor
     ONE launch and the outputs unfolded to (..., B, S, ...). Any other
     layout raises ``ValueError``; nothing falls back to the lockstep solve.
     The kernel path computes and returns float32 rates whatever the input
-    dtype; the lockstep path keeps ``W.dtype``.
+    dtype; the lockstep path keeps ``W.dtype``. ``model`` (W's columns split
+    over a model axis) is the lockstep path's only: the kernel solves a
+    whole circuit on one device.
     """
     check_every = max(cfg.check_every, 1)
     if cfg.backend != "cuda":
-        return solve_fixed_point(cfg, W, I_ext, check_every=check_every)
+        return solve_fixed_point(cfg, W, I_ext, check_every=check_every,
+                                 model=model)
+    if model is not None:
+        raise ValueError("the cuda backend solves whole circuits; a model "
+                         "axis runs on the torch backend")
     if W.ndim < 3 or I_ext.ndim != 2:
         raise ValueError(
             "the cuda backend solves W (..., B, 2N, 2N) under a shared "
@@ -75,6 +81,7 @@ def solve_fixed_point(
     I_ext: torch.Tensor,
     r0: torch.Tensor | None = None,
     check_every: int = 1,
+    model=None,
 ) -> FixedPointResult:
     """Solve the SSN fixed point for a batch of circuits and stimuli.
 
@@ -87,6 +94,9 @@ def solve_fixed_point(
       r0: optional initial rates; defaults to zeros or f(I_ext) by
         ``cfg.init``.
       check_every: run the convergence/divergence check every k steps.
+      model: a :class:`tcgan_torch.parallel.mesh.ModelAxis` when W holds
+        this rank's columns only; the rates stay whole on every rank of the
+        model group, and the group takes each stop decision together.
 
     Returns:
       FixedPointResult on W's device, rates in W's dtype. Not
@@ -95,7 +105,7 @@ def solve_fixed_point(
     f = cfg.io_fun()
     dtype, device = W.dtype, W.device
     lead = torch.broadcast_shapes(W.shape[:-2], I_ext.shape[:-2])
-    S, n2 = I_ext.shape[-2], W.shape[-1]
+    S, n2 = I_ext.shape[-2], I_ext.shape[-1]
     I_ext = I_ext.to(dtype)
     if r0 is None:
         if cfg.init == "feedforward":
@@ -112,8 +122,12 @@ def solve_fixed_point(
     r_ceiling = torch.tensor(10.0 * cfg.rate_stop_at, dtype=dtype,
                              device=device)
 
+    # unsharded, the drive keeps its three-argument call (an emulated
+    # drive, tests/test_torch_ssn_solve_tf32.py, takes three)
+    sharded = {} if model is None else {"model": model}
+
     def step(r):
-        delta = -r + f(recurrent_drive(W, r, I_ext))
+        delta = -r + f(recurrent_drive(W, r, I_ext, **sharded))
         return torch.minimum(r + alpha * delta, r_ceiling), delta
 
     anderson = cfg.accel == "anderson"
@@ -126,7 +140,10 @@ def solve_fixed_point(
     # one host sync per chunk: the lockstep loop's "any row active" test
     while it < cfg.max_iter:
         active = ~(converged | diverged)
-        if not bool(active.any()):
+        more = active.any()
+        if model is not None:
+            more = model.max(more.to(torch.int32))
+        if not bool(more):
             break
         r_new = r
         for _ in range(check_every):

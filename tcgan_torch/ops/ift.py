@@ -27,6 +27,16 @@ adjoint system by one of three methods:
 - ``"direct"``: batched dense solve of the transposed system.
 - ``"jfb"``: Jacobian-free backprop, lam = g.
 
+Split over ranks (``split``, a :class:`tcgan_torch.parallel.mesh.Split`),
+the iterative adjoint's stop test takes its max over every rank's
+circuits, one all-reduce per check stride (:func:`_chunk_over_ranks`), so
+each rank stops on the iteration the unsharded batch would. With a model axis (``split.model``)
+W holds this rank's columns only: the forward is the lockstep solve with
+the drive summed over the model group, the adjoint gathers each rank's
+columns of ``(phi * lam) @ W`` (lam stays whole on every rank), and W's
+cotangent comes back for this rank's columns. ``"direct"`` needs all of
+W and refuses a model axis.
+
 Cotangents, io slopes, adjoints and rates of samples whose forward solve did
 not converge are zeroed with ``torch.where`` (not a multiply: NaN * 0 is
 NaN), so an excluded sample is inert in every method and cannot poison the
@@ -53,28 +63,32 @@ host_syncs = 0
 
 def _bwd(cfg: SSNConfig, grad_method: str, bwd_max_iter: int,
          bwd_atol: float, residuals, g: torch.Tensor,
-         check_stride: int = DEFAULT_CHECK_STRIDE, group_axes: int = 0):
+         check_stride: int = DEFAULT_CHECK_STRIDE, group_axes: int = 0,
+         split=None):
     """(W_bar, I_bar) for the rates' cotangent ``g`` at the saved fixed point
     ``residuals = (W, I_ext, r_star, converged)``, reduced to the shapes of
     W and I_ext."""
     W, I_ext = residuals[:2]
     W_bar, philam = _adjoint(cfg, grad_method, bwd_max_iter, bwd_atol,
-                             residuals, g, check_stride, group_axes)
+                             residuals, g, check_stride, group_axes, split)
     return _unbroadcast(W_bar, W.shape), _unbroadcast(philam, I_ext.shape)
 
 
 def _adjoint(cfg: SSNConfig, grad_method: str, bwd_max_iter: int,
              bwd_atol: float, residuals, g: torch.Tensor, check_stride: int,
-             group_axes: int):
+             group_axes: int, split=None):
     """(W_bar, phi * lam) in the broadcast shape of ``g`` and the
     residuals, not reduced; the iterative method's stop rule runs per group
-    of the ``group_axes`` leading axes."""
+    of the ``group_axes`` leading axes (over every rank's circuits of a
+    ``split``)."""
     global adjoint_iterations, host_syncs
     W, I_ext, r_star, converged = residuals
+    model = None if split is None else split.model
     dtype = W.dtype
     r_star = r_star.to(dtype)
     g = g.to(dtype)
-    phi = cfg.io_deriv()(recurrent_drive(W, r_star, I_ext))  # (..., S, 2N)
+    # (..., S, 2N)
+    phi = cfg.io_deriv()(recurrent_drive(W, r_star, I_ext, model))
     ok = converged[..., None]
     zero = torch.zeros((), dtype=dtype, device=W.device)
     g = torch.where(ok, g, zero)
@@ -83,6 +97,9 @@ def _adjoint(cfg: SSNConfig, grad_method: str, bwd_max_iter: int,
     if grad_method == "jfb":
         lam = g
     elif grad_method == "direct":
+        if model is not None:
+            raise ValueError("the direct adjoint needs all of W; a model "
+                             "axis runs the iterative or jfb adjoint")
         n2 = W.shape[-1]
         eye = torch.eye(n2, dtype=dtype, device=W.device)
         A = eye - phi[..., :, None] * W[..., None, :, :]  # (..., S, 2N, 2N)
@@ -101,17 +118,31 @@ def _adjoint(cfg: SSNConfig, grad_method: str, bwd_max_iter: int,
         delta_norm = torch.full(groups, float("inf"), dtype=dtype,
                                 device=W.device)
         iters = torch.zeros(groups, dtype=dtype, device=W.device)
+
+        def iteration(lam, active):
+            """One damped step where ``active``; (lam, this rank's
+            max |delta| per group)."""
+            jt = torch.matmul(phi * lam, W)
+            if model is not None:
+                jt = model.gather_cols(jt, lam.shape[-1])
+            delta = -lam + jt + g
+            lam = torch.where(active.reshape(groups + (1,) * len(per_group)),
+                              lam + alpha * delta, lam)
+            return lam, delta.abs().amax(per_group)
+
         done, n_it = 0, 0.0
         while done < bwd_max_iter:
-            for _ in range(min(check_stride, bwd_max_iter - done)):
-                active = delta_norm >= bwd_atol
-                delta = -lam + torch.matmul(phi * lam, W) + g
-                lam = torch.where(
-                    active.reshape(groups + (1,) * len(per_group)),
-                    lam + alpha * delta, lam)
-                delta_norm = torch.where(active, delta.abs().amax(per_group),
-                                         delta_norm)
-                iters = iters + active
+            steps = min(check_stride, bwd_max_iter - done)
+            if split is None:
+                for _ in range(steps):
+                    active = delta_norm >= bwd_atol
+                    lam, norm = iteration(lam, active)
+                    delta_norm = torch.where(active, norm, delta_norm)
+                    iters = iters + active
+            else:
+                lam, delta_norm, applied = _chunk_over_ranks(
+                    iteration, lam, delta_norm, steps, bwd_atol, split)
+                iters = iters + applied
             done += check_stride
             host_syncs += 1
             # one copy: "any group active" and the slowest group's count
@@ -129,7 +160,38 @@ def _adjoint(cfg: SSNConfig, grad_method: str, bwd_max_iter: int,
 
     philam = phi * lam
     r_ok = torch.where(ok, r_star, zero)
+    if model is not None:
+        r_ok = r_ok[..., model.cols(r_ok.shape[-1])]
     return torch.matmul(philam.transpose(-1, -2), r_ok), philam
+
+
+def _chunk_over_ranks(iteration, lam, delta_norm, steps: int,
+                      bwd_atol: float, split):
+    """``steps`` adjoint iterations on this rank's circuits under the
+    stop rule of the whole split batch, at one collective: the chunk runs
+    as if no group stopped, recording this rank's max |delta| per
+    iteration; one all-reduce gives the batch's, hence the iteration at
+    which each group stops; where one stopped inside the chunk, the chunk
+    is replayed from its start with those decisions. lam is then the
+    unsharded loop's (the same arithmetic up to each stop). Returns (lam,
+    delta_norm, iterations applied per group)."""
+    global host_syncs
+    start, live = lam, delta_norm >= bwd_atol
+    norms = []
+    for _ in range(steps):
+        lam, norm = iteration(lam, live)
+        norms.append(norm)
+    norms = split.max(torch.stack(norms))  # (steps,) + groups
+    before = torch.cat([delta_norm[None], norms[:-1]])
+    active = torch.cumprod((before >= bwd_atol).to(torch.int32), 0) > 0
+    applied = active.sum(0)
+    host_syncs += 1
+    if bool((live & ~active[-1]).any()):
+        lam = start
+        for i in range(steps):
+            lam, _ = iteration(lam, active[i])
+    last = norms.gather(0, (applied - 1).clamp(min=0).unsqueeze(0))[0]
+    return lam, torch.where(applied > 0, last, delta_norm), applied
 
 
 def _unbroadcast(bar: torch.Tensor, shape) -> torch.Tensor:
@@ -155,29 +217,31 @@ class FixedPointRates(torch.autograd.Function):
 
     @staticmethod
     def forward(W, I_ext, cfg, grad_method, bwd_max_iter, bwd_atol,
-                check_stride, group_axes):
-        return tuple(solve_any(cfg, W, I_ext))
+                check_stride, group_axes, split):
+        return tuple(solve_any(cfg, W, I_ext,
+                               None if split is None else split.model))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         (W, I_ext, cfg, grad_method, bwd_max_iter, bwd_atol, stride,
-         group_axes) = inputs
+         group_axes, split) = inputs
         r, converged, diverged, iters = output
         ctx.save_for_backward(W, I_ext, r, converged)
         ctx.mark_non_differentiable(converged, diverged, iters)
         ctx.args = (cfg, grad_method, bwd_max_iter, bwd_atol)
         ctx.check_stride = stride
         ctx.group_axes = group_axes
+        ctx.split = split
 
     @staticmethod
     def backward(ctx, g_r, _g_conv, _g_div, _g_iters):
         W, I_ext, r, converged = ctx.saved_tensors
         with torch.profiler.record_function("ift.adjoint"):
             W_bar, I_bar = _bwd(*ctx.args, (W, I_ext, r, converged), g_r,
-                                ctx.check_stride, ctx.group_axes)
+                                ctx.check_stride, ctx.group_axes, ctx.split)
         return (W_bar if ctx.needs_input_grad[0] else None,
                 I_bar.to(I_ext.dtype) if ctx.needs_input_grad[1] else None,
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 def solve_fixed_point_implicit(
@@ -189,15 +253,18 @@ def solve_fixed_point_implicit(
     bwd_atol: float = 1e-6,
     check_stride: int = DEFAULT_CHECK_STRIDE,
     group_axes: int = 0,
+    split=None,
 ) -> FixedPointResult:
     """User-facing differentiable fixed-point solve (see module docstring).
     ``group_axes`` leading axes of W (an ensemble's members) are
-    independent problems: each keeps its own adjoint stop rule."""
+    independent problems: each keeps its own adjoint stop rule. ``split``:
+    W holds this rank's part of a batch split over ranks (see the module
+    docstring)."""
     if grad_method not in GRAD_METHODS:
         raise ValueError(f"grad_method must be one of {GRAD_METHODS}")
     return FixedPointResult(*FixedPointRates.apply(
         W, I_ext, cfg, grad_method, bwd_max_iter, bwd_atol, check_stride,
-        group_axes))
+        group_axes, split))
 
 
 def vjp_W_batched(cfg: SSNConfig, W: torch.Tensor, I_ext: torch.Tensor,

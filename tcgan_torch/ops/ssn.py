@@ -156,9 +156,16 @@ class SSNConfig:
 
 
 def recurrent_drive(W: torch.Tensor, r: torch.Tensor,
-                    I_ext: torch.Tensor) -> torch.Tensor:
+                    I_ext: torch.Tensor, model=None) -> torch.Tensor:
     """u = r @ W^T + I_ext with r: (..., S, 2N), W: (..., 2N, 2N).
 
-    Runs in full fp32 (or f64): TF32 is off, see the module header.
+    With ``model`` (a :class:`tcgan_torch.parallel.mesh.ModelAxis`), W holds
+    this rank's columns ``model.cols`` only (..., 2N, 2N/M): each rank
+    contracts its slice of r and the partial drives are summed over the
+    model group. Runs in full fp32 (or f64): TF32 is off, see the module
+    header.
     """
-    return torch.matmul(r, W.transpose(-1, -2)) + I_ext
+    if model is None:
+        return torch.matmul(r, W.transpose(-1, -2)) + I_ext
+    cols = model.cols(r.shape[-1])
+    return model.psum(torch.matmul(r[..., cols], W.transpose(-1, -2))) + I_ext

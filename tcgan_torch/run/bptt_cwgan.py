@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import sys
 
+from tcgan_torch.run import common
 from tcgan_torch.run.gan_common import make_gan_parser, run_gan
 
 
@@ -29,6 +30,9 @@ def make_parser():
 
 def main(argv=None):
     args = make_parser().parse_args(argv)
+    rc = common.mesh_ranks(main, argv, args)
+    if rc is not None:
+        return rc
     return run_gan(args, solver=args.solver, conditional=True)
 
 

@@ -150,8 +150,9 @@ def add_run_flags(p: argparse.ArgumentParser):
     g.add_argument("--divergence-abort", type=float, default=0.5)
     g.add_argument("--divergence-patience", type=int, default=20)
     g.add_argument("--parallel", choices=("none", "mesh"), default="none",
-                   help="'mesh': shard the sample batch over all devices "
-                        "(not ported yet)")
+                   help="'mesh': shard the sample batch over all devices: "
+                        "one rank per visible CUDA device (or per torchrun "
+                        "process; one on the CPU)")
     g.add_argument("--profile-dir", type=str, default=None,
                    help="write a torch.profiler trace of the run here "
                         "(training entry points)")
@@ -435,14 +436,38 @@ def apply_run_config(args, parser: argparse.ArgumentParser, argv,
 
 
 def resolve_device(args) -> torch.device:
-    """``--device`` as a torch device; a CUDA device with none visible is an
-    error, never a CPU fallback."""
+    """``--device`` as a torch device (``cuda`` is the current CUDA device:
+    a mesh rank's own); a CUDA device with none visible is an error, never
+    a CPU fallback."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is "
                            "visible (there is no CPU fallback; pass "
                            "--device cpu to run on the CPU)")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def mesh_ranks(main, argv, args) -> int | None:
+    """``--parallel mesh`` in a process that is not yet a rank: run
+    ``main(argv)`` on every rank (:func:`tcgan_torch.parallel.launch.
+    run_ranks`) and return the exit code; None when the entry point should
+    run its body here (no mesh, or this process is a rank)."""
+    from tcgan_torch.parallel import launch
+
+    if args.parallel != "mesh" or launch.in_group():
+        return None
+    return launch.run_ranks(main, argv, resolve_device(args))
+
+
+def make_mesh(args):
+    """The run's mesh over every rank (``--parallel mesh``), else None."""
+    if args.parallel != "mesh":
+        return None
+    from tcgan_torch.parallel import mesh
+
+    return mesh.make_mesh()
 
 
 def ssn_config_from_args(args) -> SSNConfig:

@@ -4,8 +4,11 @@
 Port of :mod:`tcgan_tpu.run.ensemble`, with the same flags, estimators and
 artifacts. Every solve of a step is one CUDA kernel launch for all K
 members, so a step launches the kernel n_critic + 1 times (one for moment
-matching), as one fit's step does. ``--parallel mesh`` is not ported yet
-and raises ``NotImplementedError`` naming its ROADMAP item. Usage::
+matching), as one fit's step does. ``--parallel mesh`` splits the MEMBERS
+over the ranks (``--ensemble`` divisible by their count): each steps its
+K/P members with no collective across members, on the noise the unsharded
+run would give them, and rank 0 gathers the members for the CSV, the
+checkpoints and the final artifacts. Usage::
 
     python -m tcgan_torch.run.ensemble --datastore runs/ens \\
         --ensemble 8 --start-jitter 0.05 --batch-size 64 \\
@@ -96,14 +99,17 @@ def main(argv=None) -> int:
             raise SystemExit("--estimator mm does not support --parallel "
                              "mesh (members are not sharded); drop the "
                              "flag to run single-device")
-    if args.parallel == "mesh":
-        raise NotImplementedError(
-            "--parallel mesh is not ported yet (ROADMAP Queue 1, item 20, "
-            "parallel/mesh.py)")
+    rc = common.mesh_ranks(main, argv, args)
+    if rc is not None:
+        return rc
     device = common.resolve_device(args)
     if estimator == "mm":
         return _run_mm(args, gen_cfg, device)
-    return _run(args, gen_cfg, device)
+    mesh = common.make_mesh(args)
+    if mesh is not None and args.ensemble % mesh.size:
+        raise SystemExit(f"--ensemble {args.ensemble} must be divisible by "
+                         f"the {mesh.size}-device mesh")
+    return _run(args, gen_cfg, device, mesh)
 
 
 COLUMNS = {
@@ -152,12 +158,12 @@ def _true_params(args):
 
 
 def _loop(args, K, estimator, store, states, step_fn, gen_cfg, device,
-          ema_of=None):
+          ema_of=None, mesh=None):
     """The step loop shared by the estimators: ``step_fn(step, states,
-    generator)`` -> (states, metrics) of one step of every member. Records
-    ensemble.csv rows every ``--record-every`` steps (and at the last),
-    accounts for divergence every step, checkpoints, then writes the final
-    artifacts."""
+    generator)`` -> (states, metrics) of one step of every member (of this
+    rank's members under ``mesh``). Records ensemble.csv rows every
+    ``--record-every`` steps (and at the last), accounts for divergence
+    every step, checkpoints, then writes the final artifacts."""
     import numpy as np
 
     from tcgan_torch.models import ensemble as ens_lib
@@ -171,6 +177,9 @@ def _loop(args, K, estimator, store, states, step_fn, gen_cfg, device,
     ckpt = CheckpointManager(store.subdir("ckpt"))
     if args.resume and ckpt.latest_step() is not None:
         states = ckpt.restore(states)
+    gather = (lambda tree: tree) if mesh is None else mesh.gather_members
+    if mesh is not None:
+        states = mesh.member_shard(states)
     rec = CSVRecorder(store.file("ensemble.csv"), _columns(estimator))
     watch = StopWatch()
     start = int(states.step)
@@ -194,10 +203,10 @@ def _loop(args, K, estimator, store, states, step_fn, gen_cfg, device,
                 _sync(device)
             record = (step % args.record_every == 0
                       or step == start + args.n_steps - 1)
-            # ONE device->host copy per step
-            host, gp_host = device_get((
+            # ONE device->host copy per step (all K members on every rank)
+            host, gp_host = device_get(gather((
                 {f: getattr(metrics, f) for f in fields},
-                states.gen_params if record else None))
+                states.gen_params if record else None)))
             if record:
                 for m in range(K):
                     rec.record({"step": step, "member": m,
@@ -217,12 +226,13 @@ def _loop(args, K, estimator, store, states, step_fn, gen_cfg, device,
                 divergence_strikes = 0
             if (args.checkpoint_every
                     and (step + 1) % args.checkpoint_every == 0):
-                ckpt.save(step + 1, states)
+                ckpt.save(step + 1, gather(states))
     except PervasiveDivergenceError as e:
         status = f"aborted: {e}"
     finally:
         rec.close()
 
+    states = gather(states)
     ckpt.save(int(states.step), states)
     gp_host, ema_host = device_get((states.gen_params,
                                     None if ema_of is None
@@ -230,15 +240,16 @@ def _loop(args, K, estimator, store, states, step_fn, gen_cfg, device,
     npz = _stack_member_params(gen_cfg, gp_host, K)
     if ema_host is not None:
         npz.update(_stack_member_params(gen_cfg, ema_host, K, suffix="_ema"))
-    np.savez(store.file("ensemble_params.npz"), **npz)
     summary = ens_lib.ensemble_summary(gen_cfg, gp_host, _true_params(args))
-    with open(store.file("ensemble_summary.json"), "w") as f:
-        json.dump(summary, f, indent=2)
-    out = {"status": status, "n_members": K}
-    if estimator == "mm":
-        out["estimator"] = "mm"
-    print(json.dumps({**out, "mean": summary["mean"],
-                      "std": summary["std"]}))
+    if store.writer:
+        np.savez(store.file("ensemble_params.npz"), **npz)
+        with open(store.file("ensemble_summary.json"), "w") as f:
+            json.dump(summary, f, indent=2)
+        out = {"status": status, "n_members": K}
+        if estimator == "mm":
+            out["estimator"] = "mm"
+        print(json.dumps({**out, "mean": summary["mean"],
+                          "std": summary["std"]}))
     store.finalize(status)
     # Restore the SIGTERM handler only AFTER the summary/params/finalize
     # are on disk: a preemption landing during finalization is the window
@@ -331,7 +342,7 @@ def _run_mm(args, gen_cfg, device) -> int:
     return 0
 
 
-def _run(args, gen_cfg, device) -> int:
+def _run(args, gen_cfg, device, mesh=None) -> int:
     import dataclasses
 
     import torch
@@ -340,6 +351,7 @@ def _run(args, gen_cfg, device) -> int:
     from tcgan_torch.models import ensemble as ens_lib
     from tcgan_torch.models import generator as gen_lib
     from tcgan_torch.models import wgan as wgan_lib
+    from tcgan_torch.parallel import make_sharded_ensemble_step
     from tcgan_torch.run import common
     from tcgan_torch.train.datastore import DataStore
 
@@ -415,15 +427,20 @@ def _run(args, gen_cfg, device) -> int:
             return dataset.sample_stack(generator, n_stacks,
                                         cfg.critic_batch)
 
+    train_step = ens_lib.ensemble_train_step
+    if mesh is not None:
+        train_step = make_sharded_ensemble_step(train_step, mesh)
+
     def step_fn(step, states, generator):
         n_critic = cfg.n_critic0 if step == 0 else cfg.n_critic
         stacks = sample_real(generator, K * n_critic)
         real = stacks.reshape((K, n_critic) + stacks.shape[1:])
-        return ens_lib.ensemble_train_step(cfg, n_critic, states, real,
-                                           model=model, generator=generator)
+        return train_step(cfg, n_critic, states, real, model=model,
+                          generator=generator)
 
     _loop(args, K, "wgan", store, states, step_fn, cfg.gen, device,
-          ema_of=(lambda s: s.ema_params) if cfg.ema_decay > 0 else None)
+          ema_of=(lambda s: s.ema_params) if cfg.ema_decay > 0 else None,
+          mesh=mesh)
     return 0
 
 

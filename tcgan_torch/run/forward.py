@@ -8,6 +8,10 @@ mat-vec is fp32-accurate 3xTF32 on the tensor cores (``info.json`` records
 ``"kernel_precision": "3xtf32"``). ``--solver bptt`` integrates a fixed
 ``--seqlen`` Euler steps instead (no kernel). Batches are solved under
 ``torch.inference_mode()``: nothing is kept for a backward pass.
+``--parallel mesh`` splits each batch's circuits over the ranks (one
+kernel launch per rank and batch) and gathers them back: the npz holds
+every circuit in the unsharded run's order, and the summary's
+``n_devices`` counts the ranks.
 
 Usage:
     python -m tcgan_torch.run.forward --datastore /tmp/run1 --batch-size 512 \
@@ -47,17 +51,20 @@ def make_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = make_parser().parse_args(argv)
+    rc = common.mesh_ranks(main, argv, args)
+    if rc is not None:
+        return rc
     from tcgan_torch.models import generator as gen_lib
     from tcgan_torch.ops.cuda import ssn_solve
+    from tcgan_torch.parallel import set_mesh, with_mesh_axes
     from tcgan_torch.train.datastore import DataStore
     from tcgan_torch.utils.stopwatch import StopWatch
 
-    if args.parallel == "mesh":
-        raise NotImplementedError(
-            "--parallel mesh is not ported yet (ROADMAP Queue 1, "
-            "parallel/mesh.py)")
     device = common.resolve_device(args)
+    mesh = common.make_mesh(args)
     gen_cfg = common.generator_config_from_args(args, solver=args.solver)
+    if mesh is not None:
+        gen_cfg = with_mesh_axes(gen_cfg)
     params = gen_lib.init_params(gen_cfg, common.as22(args.J),
                                  common.as22(args.D), common.as22(args.S),
                                  device=device)
@@ -77,7 +84,7 @@ def main(argv=None):
     n_batches = max(1, math.ceil((args.total_samples or args.batch_size)
                                  / args.batch_size))
     launches0 = ssn_solve.launches
-    with torch.inference_mode():
+    with torch.inference_mode(), set_mesh(mesh):
         # the first batch pays the one-time costs (the kernel's build and
         # load); the timed batches after it are warm
         with watch.time("compile+solve"):
@@ -105,19 +112,20 @@ def main(argv=None):
 
     tc, converged, diverged, iters = (cat(n) for n in (
         "tc", "converged", "diverged", "iters"))
-    np.savez(
-        store.file("tuning_curves.npz"),
-        tuning_curves=tc,
-        rates=cat("rates"),
-        converged=converged,
-        diverged=diverged,
-        iters=iters,
-    )
+    if store.writer:
+        np.savez(
+            store.file("tuning_curves.npz"),
+            tuning_curves=tc,
+            rates=cat("rates"),
+            converged=converged,
+            diverged=diverged,
+            iters=iters,
+        )
     solve_s = max(watch.last("solve"), 1e-9)
     summary = {
         "n_samples": int(tc.shape[0]),
         "tc_dim": int(tc.shape[1]),
-        "n_devices": 1,
+        "n_devices": 1 if mesh is None else mesh.size,
         "frac_converged": float(converged.mean()),
         "frac_diverged": float(diverged.mean()),
         "mean_iters": float(iters.mean()),
@@ -129,7 +137,8 @@ def main(argv=None):
         "kernel_launches": ssn_solve.launches - launches0,
     }
     store.finalize("finished", {"summary": summary})
-    print(json.dumps(summary))
+    if store.writer:
+        print(json.dumps(summary))
     return 0
 
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import sys
 
+from tcgan_torch.run import common
 from tcgan_torch.run.gan_common import make_gan_parser, run_gan
 
 
@@ -22,6 +23,9 @@ def make_parser():
 
 def main(argv=None):
     args = make_parser().parse_args(argv)
+    rc = common.mesh_ranks(main, argv, args)
+    if rc is not None:
+        return rc
     return run_gan(args, solver="ift", conditional=False)
 
 

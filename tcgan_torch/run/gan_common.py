@@ -3,8 +3,9 @@
 Port of :mod:`tcgan_tpu.run.gan_common`: load or generate the real data,
 build the WGAN or conditional-WGAN config, init or resume the state and run
 the driver, with the fixed-point (``ift``) or the unrolled Euler (``bptt``)
-solver. ``--parallel mesh`` is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP item.
+solver. Under ``--parallel mesh`` every rank runs this body: each makes the
+same real data, the generator's circuits split over the ranks (the step's
+mesh axes) and the run directory is rank 0's.
 """
 
 from __future__ import annotations
@@ -34,16 +35,14 @@ def run_gan(args, solver: str, conditional: bool) -> int:
     from tcgan_torch.models import generator as gen_lib
     from tcgan_torch.models import wgan as wgan_lib
     from tcgan_torch.ops.cuda import ssn_solve
+    from tcgan_torch.parallel import set_mesh, with_mesh_axes
     from tcgan_torch.train.checkpoint import CheckpointManager
     from tcgan_torch.train.datastore import DataStore
     from tcgan_torch.train.driver import DriverConfig, GANDriver
     from tcgan_torch.utils.profiling import maybe_trace
 
-    if args.parallel == "mesh":
-        raise NotImplementedError(
-            "--parallel mesh is not ported yet (ROADMAP Queue 1, item 20, "
-            "parallel/mesh.py)")
     device = common.resolve_device(args)
+    mesh = common.make_mesh(args)
     gen_cfg = common.generator_config_from_args(args, solver=solver)
     if getattr(args, "bptt_checkpoint_chunk", 0):
         gen_cfg = dataclasses.replace(
@@ -69,7 +68,7 @@ def run_gan(args, solver: str, conditional: bool) -> int:
                              args, conditional))
     mk_cfg = cwgan_lib.CWGANConfig if conditional else wgan_lib.WGANConfig
     cfg = mk_cfg(
-        gen=gen_cfg,
+        gen=gen_cfg if mesh is None else with_mesh_axes(gen_cfg),
         input_scale=input_scale,
         **extra_cfg,
         critic_lr_decay_steps=args.critic_lr_decay_steps,
@@ -147,6 +146,6 @@ def run_gan(args, solver: str, conditional: bool) -> int:
     driver = GANDriver(cfg, driver_cfg, store, model.train_step, state,
                        sampler, checkpoints=ckpt,
                        gen_loss_fn=model.gen_loss_fn)
-    with maybe_trace(args.profile_dir):
+    with maybe_trace(args.profile_dir), set_mesh(mesh):
         driver.run()
     return 0

@@ -1,10 +1,12 @@
 """C5: moment-matching fit.
 
-Port of :mod:`tcgan_tpu.run.moments`: the same flags (``--parallel mesh`` is
-not ported yet and raises). Each step solves a generator batch (the CUDA
-kernel with ``--solver-backend cuda`` and ``--solver ift``, or the unrolled
-Euler loop with ``--solver bptt``) and takes one Adam step on the normalized
-moment distance to the data.
+Port of :mod:`tcgan_tpu.run.moments`, with the same flags. Each step solves
+a generator batch (the CUDA kernel with ``--solver-backend cuda`` and
+``--solver ift``, or the unrolled Euler loop with ``--solver bptt``) and
+takes one Adam step on the normalized moment distance to the data.
+``--parallel mesh`` shards the batch's circuits over the ranks (the
+large-N sample-parallel configuration); under ``--fixed-z`` every rank
+holds the whole z-set and solves its rows of it.
 
 Usage:
     python -m tcgan_torch.run.moments --datastore runs/mm --n-steps 500 \
@@ -59,22 +61,23 @@ def make_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = make_parser().parse_args(argv)
+    rc = common.mesh_ranks(main, argv, args)
+    if rc is not None:
+        return rc
     from tcgan_torch.models import generator as gen_lib
     from tcgan_torch.models import moments as mm_lib
     from tcgan_torch.ops.cuda import ssn_solve
+    from tcgan_torch.parallel import set_mesh, with_mesh_axes
     from tcgan_torch.train.checkpoint import CheckpointManager
     from tcgan_torch.train.datastore import DataStore
     from tcgan_torch.train.driver import DriverConfig, MomentMatchingDriver
     from tcgan_torch.utils.profiling import maybe_trace
 
-    if args.parallel == "mesh":
-        raise NotImplementedError(
-            "--parallel mesh is not ported yet (ROADMAP Queue 1, item 20, "
-            "parallel/mesh.py)")
     device = common.resolve_device(args)
+    mesh = common.make_mesh(args)
     gen_cfg = common.generator_config_from_args(args, solver=args.solver)
     cfg = mm_lib.MomentMatchingConfig(
-        gen=gen_cfg,
+        gen=gen_cfg if mesh is None else with_mesh_axes(gen_cfg),
         batch_size=args.batch_size,
         lr=args.lr,
         beta1=args.adam_beta1,
@@ -111,7 +114,7 @@ def main(argv=None):
         state = ckpt.restore(state)
     driver = MomentMatchingDriver(cfg, driver_cfg, store, mm_lib.train_step,
                                   state, dataset.moments(), checkpoints=ckpt)
-    with maybe_trace(args.profile_dir):
+    with maybe_trace(args.profile_dir), set_mesh(mesh):
         driver.run()
     return 0
 

@@ -7,7 +7,10 @@ dicts of their fields), one file per step written atomically, the newest
 ``max_to_keep`` kept. ``restore`` rebuilds the structure of a template
 state, so a field added to ``TrainState`` after a checkpoint was written
 takes the template's fresh-init value (the reference's forward-compatible
-restore); any other mismatch raises.
+restore); any other mismatch raises. Under a mesh of several ranks the
+saved state must be equal on every rank (checked), rank 0 writes and
+every rank waits at a barrier after each save; every rank restores the
+same file.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from pathlib import Path
 from typing import Any
 
 import torch
+
+from tcgan_torch.parallel.mesh import barrier, check_replicated, is_writer
 
 _NAME = re.compile(r"^(\d+)\.pt$")
 
@@ -67,21 +72,28 @@ class CheckpointManager:
 
     def __init__(self, directory: str | Path, max_to_keep: int = 3):
         self.directory = Path(directory).resolve()
-        self.directory.mkdir(parents=True, exist_ok=True)
+        self.writer = is_writer()
+        if self.writer:
+            self.directory.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
 
     def _steps(self):
+        if not self.directory.is_dir():  # a rank ahead of rank 0's mkdir
+            return []
         return sorted(int(m.group(1)) for p in self.directory.iterdir()
                       if (m := _NAME.match(p.name)))
 
     def save(self, step: int, state: Any):
-        path = self.directory / f"{step}.pt"
-        tmp = self.directory / f"{step}.pt.tmp"
-        torch.save(_to_plain(state), tmp)
-        os.replace(tmp, path)
-        if self.max_to_keep:
-            for old in self._steps()[:-self.max_to_keep]:
-                (self.directory / f"{old}.pt").unlink()
+        check_replicated(state, f"checkpoint {step}")
+        if self.writer:
+            path = self.directory / f"{step}.pt"
+            tmp = self.directory / f"{step}.pt.tmp"
+            torch.save(_to_plain(state), tmp)
+            os.replace(tmp, path)
+            if self.max_to_keep:
+                for old in self._steps()[:-self.max_to_keep]:
+                    (self.directory / f"{old}.pt").unlink()
+        barrier()
 
     def latest_step(self) -> int | None:
         steps = self._steps()

@@ -4,7 +4,8 @@ Port of :mod:`tcgan_tpu.train.datastore`: creates the run directory,
 writes ``info.json`` (config, git revision, library versions, timing)
 atomically, and defines the ``KnownError`` taxonomy of recoverable
 numerical failures (pervasive SSN divergence aborts a run as a
-``KnownError``, not a crash).
+``KnownError``, not a crash). Under a mesh of several ranks only rank 0
+writes (:func:`tcgan_torch.parallel.mesh.is_writer`).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import sys
 import time
 from pathlib import Path
 from typing import Any, Dict
+
+from tcgan_torch.parallel.mesh import is_writer
 
 
 class KnownError(Exception):
@@ -69,13 +72,16 @@ class DataStore:
 
     def __init__(self, path: str | os.PathLike):
         self.path = Path(path)
-        self.path.mkdir(parents=True, exist_ok=True)
+        self.writer = is_writer()
+        if self.writer:
+            self.path.mkdir(parents=True, exist_ok=True)
         self._t0 = time.time()
         self._info: Dict[str, Any] = {}
 
     def subdir(self, name: str) -> Path:
         p = self.path / name
-        p.mkdir(parents=True, exist_ok=True)
+        if self.writer:
+            p.mkdir(parents=True, exist_ok=True)
         return p
 
     def file(self, name: str) -> Path:
@@ -103,6 +109,8 @@ class DataStore:
         self._flush_info()
 
     def _flush_info(self):
+        if not self.writer:
+            return
         # atomic: a kill mid-write must not leave a truncated manifest
         tmp = self.path / "info.json.tmp"
         with open(tmp, "w") as fh:

@@ -18,6 +18,11 @@ Port of :class:`tcgan_tpu.train.driver.GANDriver`:
   CUDA kernel takes ``max_iter`` at run time, so a new budget costs
   nothing.
 
+Under a mesh (``--parallel mesh``) every rank runs the loop on replicated
+metrics, so all take the same decisions (abort, budget, checkpoint) and
+reach the same collectives; only rank 0 writes (the recorders, the
+checkpoints, the exports and the sidecar).
+
 :class:`MomentMatchingDriver` runs the moment-matching fit with the same
 stream handling, one host copy per step, divergence accounting and graceful
 stop.
@@ -253,6 +258,8 @@ class GANDriver:
     def _export_params(self, step: int):
         """``disc_params.npz``: critic params and generator values (and
         their EMA), readable without torch."""
+        if not self.store.writer:
+            return
         host = device_get((self.state.gen_params, self.state.ema_params,
                            self.state.critic_params))
         gen, ema, critic = host
@@ -387,7 +394,8 @@ class GANDriver:
         self.model_cfg = dataclasses.replace(self.model_cfg, gen=gen)
 
     def _save_adaptive_state(self):
-        if not self.cfg.adaptive_max_iter or self._iter_ema is None:
+        if (not self.cfg.adaptive_max_iter or self._iter_ema is None
+                or not self.store.writer):
             return
         path = self.store.file(self._ADAPTIVE_SIDECAR)
         tmp = path.with_suffix(".tmp")

@@ -12,7 +12,8 @@ files, headers, column order and number formatting, so
 - ``learning.jsonl``       JSONL mirror of learning.csv.
 
 Values arrive as host scalars or arrays (the driver copies everything a
-step records to the host at once).
+step records to the host at once). Under a mesh of several ranks only rank
+0's recorders touch their files.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Any, Dict, Iterable, Sequence
 
 import numpy as np
 
+from tcgan_torch.parallel.mesh import is_writer
 from tcgan_torch.train.datastore import DataStore
 
 
@@ -41,6 +43,9 @@ class CSVRecorder:
     def __init__(self, path: Path, columns: Sequence[str]):
         self.path = Path(path)
         self.columns = list(columns)
+        self.enabled = is_writer()
+        if not self.enabled:
+            return
         self._fh = open(self.path, "a", newline="")
         self._writer = csv.writer(self._fh)
         if self.path.stat().st_size == 0:
@@ -48,13 +53,15 @@ class CSVRecorder:
             self._fh.flush()
 
     def record(self, row: Dict[str, Any]):
+        if not self.enabled:
+            return
         self._writer.writerow([_scalar(row.get(c, "")) for c in self.columns])
         self._fh.flush()
 
     def truncate_from(self, step: int):
         """Drop rows with step >= ``step`` (resume: checkpoints are
         periodic, the streams are flushed every step)."""
-        if "step" not in self.columns:
+        if "step" not in self.columns or not self.enabled:
             return
         idx = self.columns.index("step")
         self._fh.close()
@@ -67,7 +74,8 @@ class CSVRecorder:
         self._writer = csv.writer(self._fh)
 
     def close(self):
-        self._fh.close()
+        if self.enabled:
+            self._fh.close()
 
 
 class JSONLRecorder:
@@ -75,9 +83,13 @@ class JSONLRecorder:
 
     def __init__(self, path: Path):
         self.path = Path(path)
-        self._fh = open(path, "a")
+        self.enabled = is_writer()
+        if self.enabled:
+            self._fh = open(path, "a")
 
     def record(self, row: Dict[str, Any]):
+        if not self.enabled:
+            return
         self._fh.write(json.dumps({k: _scalar(v) for k, v in row.items()})
                        + "\n")
         self._fh.flush()
@@ -85,6 +97,8 @@ class JSONLRecorder:
     def truncate_from(self, step: int):
         """Drop rows with step >= ``step`` (see CSVRecorder.truncate_from);
         lines that do not parse are kept."""
+        if not self.enabled:
+            return
         self._fh.close()
         kept = []
         with open(self.path) as f:
@@ -100,7 +114,8 @@ class JSONLRecorder:
         self._fh = open(self.path, "a")
 
     def close(self):
-        self._fh.close()
+        if self.enabled:
+            self._fh.close()
 
 
 LEARNING_COLUMNS = [

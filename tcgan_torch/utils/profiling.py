@@ -2,7 +2,8 @@
 :func:`maybe_trace` in code) records a ``torch.profiler`` trace of the run,
 host and CUDA activity, as a Chrome/Perfetto ``trace.json`` in that
 directory. Port of :mod:`tcgan_tpu.utils.profiling` (``jax.profiler``
-there)."""
+there). Under a mesh every rank traces its own process: rank r > 0 writes
+``trace.rank<r>.json`` beside rank 0's ``trace.json``."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 
 @contextmanager
@@ -21,7 +23,10 @@ def trace(profile_dir: str):
     out.mkdir(parents=True, exist_ok=True)
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(str(out / "trace.json"))
+    rank = dist.get_rank() if dist.is_available() and \
+        dist.is_initialized() else 0
+    prof.export_chrome_trace(
+        str(out / ("trace.json" if rank == 0 else f"trace.rank{rank}.json")))
 
 
 def maybe_trace(profile_dir: str | None):

@@ -97,14 +97,11 @@ def test_conditional_ensemble_and_resume(tmp_path):
     (["--moment-anchor", "1e-3"], SystemExit),
     (["--estimator", "mm", "--data-seed-per-member", "--dataset", "x.npz"],
      SystemExit),
-    (["--parallel", "mesh"], NotImplementedError),
 ])
 def test_flag_contradictions_raise(tmp_path, extra, err):
     argv = ["--datastore", str(tmp_path / "x"), *TINY_CLI, "--batch-size",
             "4", "--truth-samples", "8", "--n-steps", "1", *PORT_CPU, *extra]
     with pytest.raises(err) as info:
         tens_cli.main(argv)
-    if err is NotImplementedError:
-        assert "item 20" in str(info.value)
     if "--moment-anchor" in extra:
         assert "--moment-anchor" in str(info.value)

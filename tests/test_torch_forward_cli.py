@@ -113,15 +113,22 @@ def test_device_cuda_without_gpu_raises(tmp_path, monkeypatch):
     (["--solver", "bptt"], "ops/euler.py"),
 ])
 def test_unported_modes_raise(tmp_path, flags, item):
-    """``--parallel mesh`` still raises. ``--solver bptt`` (ported, in
+    """Both modes are ported now. ``--parallel mesh`` (``parallel/mesh.py``)
+    from a plain process on the CPU is one gloo rank: the same arrays as
+    the unsharded run, bit for bit, and ``n_devices`` 1 (several ranks:
+    ``tests/test_torch_parallel.py``). ``--solver bptt`` (ported, in
     ``ops/euler.py``) writes the reference's artifacts: the same arrays
     with the same shapes and dtypes, iters equal to ``--seqlen``, no kernel
     launch (the noise draws differ, so values are compared in
     ``tests/test_torch_generator.py``)."""
     if item == "parallel/mesh.py":
-        with pytest.raises(NotImplementedError, match=item):
-            tforward.main(TINY + PORT_CPU + flags
-                          + ["--datastore", str(tmp_path / "x")])
+        info, mesh = _run(tforward.main, TINY + PORT_CPU + flags,
+                          tmp_path / "mesh")
+        _, plain = _run(tforward.main, TINY + PORT_CPU, tmp_path / "plain")
+        assert info["summary"]["n_devices"] == 1
+        assert mesh.keys() == plain.keys()
+        for k in plain:
+            np.testing.assert_array_equal(mesh[k], plain[k], err_msg=k)
         return
     argv = TINY + flags + ["--seqlen", "300", "--dt", "0.001"]
     _, j_data = _run(jforward.main, argv, tmp_path / "jax")

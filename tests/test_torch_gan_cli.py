@@ -90,16 +90,14 @@ def test_tiny_cpu_fit_reads_like_a_jax_run_and_resumes(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    """``--parallel mesh`` still raises. The options that raised before
-    they were ported now run as the reference does, one step each: the
-    velocity-latched late gamma records ``drift_ratio`` in learning.jsonl,
-    and the conditional path (``run_gan(..., conditional=True)``) writes
-    an ``entry: cwgan`` run; the streams' columns and keys equal those of
-    ``tcgan_tpu`` on the same command line."""
+    """The options that raised before they were ported now run as the
+    reference does, one step each: the velocity-latched late gamma records
+    ``drift_ratio`` in learning.jsonl, and the conditional path
+    (``run_gan(..., conditional=True)``) writes an ``entry: cwgan`` run;
+    the streams' columns and keys equal those of ``tcgan_tpu`` on the same
+    command line. (``--parallel mesh``, which raised here too, runs in
+    ``tests/test_torch_parallel.py``.)"""
     base = TINY_GAN + ["--n-steps", "1"]
-    with pytest.raises(NotImplementedError, match="item 20"):
-        tgan.main(base + ["--device", "cpu", "--parallel", "mesh",
-                          "--datastore", str(tmp_path / "x")])
 
     def columns(path):
         rows = [json.loads(line) for line in
