@@ -109,7 +109,16 @@ no result line):
    step; then an 8 x 64 ensemble split 4 + 4 against the unsharded
    ensemble step; (c) ``tcgan_torch.entry.dryrun_multichip(4,
    device="cpu")`` on 4 gloo CPU ranks (a 2 x 2 mesh, W's columns over the
-   model axis).
+   model axis); (d) the model axis on the card: two gloo ranks sharing it
+   as a 1 x 2 (batch x model) mesh: the round-2 generator forward and
+   WGAN step on the kernel, where the model group splits the circuits (6
+   launches a rank on 128 circuits each; rates, flags and iters bit-equal
+   to one unsharded launch; the step within MESH_RTOL / MESH_GRAD_RTOL of
+   the unsharded step), the same step with the direct adjoint and a BPTT
+   step (seqlen cut to 200, chunk 100; gate MODEL_BPTT_RTOL), both with
+   W's 102 columns split 51 a rank, and the paper's N=201 forward at 64
+   circuits (a cluster launch a rank on 32, bit-equal), each rank's
+   launches, circuits per launch, collectives, host and device-busy ms.
 
 Every phase prints its seconds.
 
@@ -1015,17 +1024,19 @@ def _device_split(prof, solves_per_step, n_steps):
     return out
 
 
-def _profile_step(name, card, step, solves_per_step):
-    """One warm step's host time unprofiled (median of 3, each ending in a
-    synchronize), then the device-time split of one more step under
-    ``torch.profiler`` (``_device_split``); the idle share is 1 - device
-    busy / unprofiled step time."""
+def _profile_step(name, card, step, solves_per_step, reps=3, warm=False):
+    """One warm step's host time unprofiled (median of ``reps``, each
+    ending in a synchronize), then the device-time split of one more step
+    under ``torch.profiler`` (``_device_split``); the idle share is 1 -
+    device busy / unprofiled step time. ``warm``: the caller has just run
+    the step, so no warm-up step runs first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    step()  # warm-up
+    if not warm:
+        step()
     times = []
-    for _ in range(3):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step()
@@ -1792,6 +1803,22 @@ MESH_RTOL = 1e-4
 MESH_GRAD_RTOL = 1e-6
 MESH_STEPS = 3
 CLOCK_COLUMNS = {"train_time", "SSsolve_time", "gradient_time"}
+# Phase 15(d): a model axis of 2 (a 1 x 2 mesh). The kernel and
+# direct-adjoint steps are held to MESH_RTOL / MESH_GRAD_RTOL: the kernel
+# solves each circuit alone and the model group splits the circuits, so
+# the forward is bit-equal and only the gradient's sum over the ranks
+# rounds differently; the direct adjoint gathers W's columns and solves
+# the same dense systems. The BPTT step
+# (depth cut from 4000 Euler steps to 200, chunk 100, for the smoke's
+# time) sums each step's drive as two 51-term partial sums: in float32
+# that moves a drive by about sqrt(102) * 2^-24 ~ 6e-7 of its absolute
+# terms, up to ~1e-5 of the drive where E and I inputs cancel, and 200
+# contracting steps carry that into the rates and gradients at 1e-6 to
+# 1e-5; the gate on its losses, parameters and first Adam moments is 10x
+# the top of that, 1e-4 (a dropped or doubled cotangent term is O(1)).
+MODEL_BPTT_SEQLEN, MODEL_BPTT_CHUNK = 200, 100
+MODEL_BPTT_RTOL = 1e-4
+MODEL_WIDE_BATCH = 64
 
 
 def _rel(a, b) -> float:
@@ -1986,8 +2013,183 @@ def _mesh_rank(card: str) -> dict:
     return out
 
 
+def _model_rank(card: str) -> dict:
+    """Phase 15(d), one of two gloo ranks sharing the card as a 1 x 2
+    (batch x model) mesh: (i) the generator forward and the round-2 WGAN
+    step on the kernel (the model group splits the circuits), (ii) the
+    same step with the direct adjoint and (iii) a BPTT step (W's columns
+    split over the model axis), (iv) the paper's N=201 forward. Each with this rank's kernel launches, circuits per
+    launch, collectives by kind and host and device-busy ms; the forwards
+    against the unsharded forward (both ranks), the steps against the
+    unsharded step on the same noise (rank 0)."""
+    import torch
+    import torch.distributed as dist
+
+    from tcgan_torch import parallel as par
+    from tcgan_torch.models import generator as gen_lib
+    from tcgan_torch.models import wgan
+    from tcgan_torch.ops import weights
+    from tcgan_torch.ops.cuda import ssn_solve
+    from tcgan_torch.ops.ssn import SSNConfig
+
+    rank = dist.get_rank()
+    mesh = par.make_mesh(n_batch=1, n_model=2)
+    circuits = []
+    solve = ssn_solve.solve_fixed_point_cuda
+
+    def counted(cfg, W, *args, **kw):
+        circuits.append(int(W.shape[0]))
+        return solve(cfg, W, *args, **kw)
+
+    ssn_solve.solve_fixed_point_cuda = counted
+
+    def run(fn):
+        """fn() on the mesh once, with the counts at 0: (result, this
+        rank's launches, circuits per launch, collectives and host ms)."""
+        ssn_solve.launches = 0
+        circuits.clear()
+        mesh.counts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with par.set_mesh(mesh):
+            out = fn()
+        torch.cuda.synchronize()
+        return out, dict(launches=ssn_solve.launches,
+                         circuits=list(circuits),
+                         collectives=dict(mesh.counts),
+                         host_ms=(time.perf_counter() - t0) * 1e3)
+
+    def forward(cfg, params, z):
+        """The sharded generator forward against the unsharded one:
+        max |dr| and whether the flags and iters are equal."""
+        model_cfg = par.with_mesh_axes(cfg, model=True)
+        with torch.no_grad():
+            got, info = run(lambda: gen_lib.sample_tuning_curves(
+                model_cfg, params, z.shape[0], z=z))
+            ref = gen_lib.sample_tuning_curves(cfg, params, z.shape[0], z=z)
+        info["max_dr"] = float((got.rates - ref.rates).abs().max())
+        info["flags_equal"] = all(torch.equal(a, b) for a, b in zip(
+            got[2:], ref[2:]))
+        return info
+
+    wcfg, state, real, gen = _step_setup(GAN_BATCH, GAN_SSN, GAN_CONTRASTS,
+                                         clip_grad=1.0)
+    n_c = wcfg.n_critic
+    noise = wgan.draw_step_noise(wcfg, n_c, real, gen)
+    out = {"rank": rank,
+           "forward": forward(wcfg.gen, state.gen_params, noise.gen_z)}
+    step = par.make_sharded_gan_step(wgan.train_step_impl, mesh)
+    bptt_ssn = dataclasses.replace(wcfg.gen.ssn, seqlen=MODEL_BPTT_SEQLEN)
+    for name, gen_kw in (
+            ("kernel", {}), ("direct", dict(grad_method="direct")),
+            ("bptt", dict(solver="bptt", ssn=bptt_ssn,
+                          bptt_checkpoint_chunk=MODEL_BPTT_CHUNK))):
+        cfg = dataclasses.replace(wcfg, gen=dataclasses.replace(wcfg.gen,
+                                                                **gen_kw))
+        scfg = dataclasses.replace(cfg, gen=par.with_mesh_axes(cfg.gen,
+                                                               model=True))
+        (new, m), info = run(lambda: step(scfg, n_c, state, real,
+                                          noise=noise))
+        if rank == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref, rm = wgan.train_step_impl(cfg, n_c, state, real,
+                                           noise=noise)
+            torch.cuda.synchronize()
+            info["unsharded_ms"] = (time.perf_counter() - t0) * 1e3
+            info["rel"] = {
+                "d_loss": _rel(m.d_loss, rm.d_loss),
+                "g_loss": _rel(m.g_loss, rm.g_loss),
+                "gen_params": _rel(new.gen_params, ref.gen_params),
+                "gen_mu": _rel(new.gen_opt.mu, ref.gen_opt.mu)}
+        prof = _profile_step(
+            f"model-axis {name} WGAN step, rank {rank} of 2 sharing the card "
+            "over gloo", card,
+            lambda: step(scfg, n_c, state, real, noise=noise), n_c + 1,
+            reps=1 if name == "bptt" else 3, warm=True)
+        info.update(step_ms=prof["step_ms_unprofiled"],
+                    device_busy=prof["device_busy"],
+                    idle_share=prof["idle_share"])
+        out[name] = info
+
+    as22 = lambda v: ((v[0], v[1]), (v[2], v[3]))  # noqa: E731
+    scale = lambda v: as22([SLICE_SSN["N"] / WIDE_FWD_N * x  # noqa: E731
+                            for x in v])
+    wide = gen_lib.GeneratorConfig(
+        ssn=SSNConfig(**dict(SLICE_SSN, N=WIDE_FWD_N),
+                      check_every=CHECK_EVERY, backend="cuda"),
+        bandwidths=BANDWIDTHS, contrasts=(CONTRAST,))
+    dev = torch.device(DEVICE)
+    params = gen_lib.init_params(wide, scale(SLICE_J), scale(SLICE_D),
+                                 as22(SLICE_S), device=dev)
+    z = weights.sample_z(torch.Generator(dev).manual_seed(SEED),
+                         (MODEL_WIDE_BATCH,), WIDE_FWD_N, device=dev)
+    out["wide"] = forward(wide, params, z)
+    return out
+
+
+def _model_axis(card: str) -> int:
+    """Phase 15(d) (``_model_rank`` on two gloo ranks sharing the card):
+    each check raises; returns the kernel's launches on the model-axis
+    paths over both ranks."""
+    from tcgan_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    ranks = launch.spawn(_model_rank, 2, (card,), backend="gloo",
+                         devices=[DEVICE + ":0"] * 2, timeout=600,
+                         deadline=900)
+    seconds = time.perf_counter() - t0
+    n_c = 5
+    want = {"forward": [GAN_BATCH // 2], "kernel": [GAN_BATCH // 2] * (
+        n_c + 1), "direct": [GAN_BATCH // 2] * (n_c + 1), "bptt": [],
+        "wide": [MODEL_WIDE_BATCH // 2]}
+    gates = {"kernel": (MESH_RTOL, MESH_GRAD_RTOL),
+             "direct": (MESH_RTOL, MESH_GRAD_RTOL),
+             "bptt": (MESH_RTOL, MODEL_BPTT_RTOL)}
+    launches = 0
+    for r in ranks:
+        for kind, circuits in want.items():
+            got = r[kind]
+            busy = (f", device busy {got['device_busy']:.3f} ms, idle "
+                    f"{got['idle_share']:.4f}, profiled host "
+                    f"{got['step_ms']:.3f} ms" if "step_ms" in got else "")
+            _line(f"[model] {kind}, rank {r['rank']} of 2 (1 x 2 mesh, a "
+                  f"model axis of 2): kernel launches "
+                  f"{got['launches']} on {got['circuits']} circuits, "
+                  f"collectives {json.dumps(got['collectives'])}, host "
+                  f"{got['host_ms']:.3f} ms{busy} ({card})")
+            if got["circuits"] != circuits or got["launches"] != len(
+                    circuits):
+                raise AssertionError(f"model axis: {kind} rank {r['rank']} "
+                                     f"launched on {got['circuits']}, not "
+                                     f"{circuits}")
+            launches += got["launches"]
+            if "max_dr" in got:
+                _line(f"[model] {kind}, rank {r['rank']}: the generator's "
+                      f"outputs against one unsharded launch: max |dr| "
+                      f"{got['max_dr']}, flags and iters equal "
+                      f"{got['flags_equal']}")
+                if got["max_dr"] != 0.0 or not got["flags_equal"]:
+                    raise AssertionError(f"model axis: the {kind} forward "
+                                         "differs from the unsharded one")
+    for kind, (loss_rtol, grad_rtol) in gates.items():
+        got = ranks[0][kind]
+        rtol = {k: grad_rtol if k.startswith("gen_") else loss_rtol
+                for k in got["rel"]}
+        _line(f"[model] {kind} step over the model axis against the "
+              f"unsharded step on the same noise: {json.dumps(got['rel'])} "
+              f"(rtol {json.dumps(rtol)}); unsharded host "
+              f"{got['unsharded_ms']:.3f} ms ({card})")
+        if not all(v <= rtol[k] for k, v in got["rel"].items()):
+            raise AssertionError(f"model axis: the {kind} step differs from "
+                                 "the unsharded step")
+    _line(f"[model] the two ranks took {seconds:.1f} s, process start "
+          "included")
+    return launches
+
+
 def phase_mesh(card: str) -> dict:
-    """Phase 15 (a)-(c); returns the kernel's launches by mesh path."""
+    """Phase 15 (a)-(d); returns the kernel's launches by mesh path."""
     from tcgan_torch.entry import dryrun_multichip
     from tcgan_torch.parallel import launch
 
@@ -2039,6 +2241,7 @@ def phase_mesh(card: str) -> dict:
     _line(f"[mesh] dryrun_multichip(4, device='cpu'): gloo ranks: collectives "
           f"{json.dumps(out['collectives'])}, {time.perf_counter() - t0:.1f}"
           " s")
+    by_path["model axis, 2 ranks sharing the card"] = _model_axis(card)
     return by_path
 
 

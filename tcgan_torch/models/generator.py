@@ -19,8 +19,14 @@ Mesh axes (``mesh_axis``, ``model_axis``; :mod:`tcgan_torch.parallel.mesh`)
 split one batch over the ranks of the active mesh: every rank draws the
 whole noise and keeps its rows of z (after the antithetic pairing), solves
 them, and the outputs are gathered back, so the result is the unsharded
-one on every rank. With ``model_axis`` W's columns split too (plain
-lockstep solve with implicit gradients only).
+one on every rank. With ``model_axis`` the model group splits each batch
+shard further, on every solver path. The lockstep solve and the BPTT
+unroll split W's columns over it and sum the drive over the group, each
+rank's W cotangent covering its own columns. The kernel solves whole
+circuits, so on that backend the group splits the circuits instead: each
+rank builds W whole for its share, solves it and runs its adjoint, and the
+outputs are gathered back over the group. Either way the sum over the mesh
+in ``Mesh.reduce_grad`` makes the whole gradient.
 """
 
 from __future__ import annotations
@@ -201,7 +207,7 @@ def sample_tuning_curves(cfg: GeneratorConfig, params: Dict[str, torch.Tensor],
         z = torch.as_tensor(z, dtype=cfg.dtype, device=device)
     if cfg.antithetic:
         z = torch.cat([z, -z], dim=-3)
-    split = model = None
+    split = model = row_model = None
     if mesh is not None:
         if cfg.mesh_axis:
             z = z[..., mesh.rows(batch), :, :]
@@ -210,6 +216,13 @@ def sample_tuning_curves(cfg: GeneratorConfig, params: Dict[str, torch.Tensor],
         J, D, S = mesh.reduce_grad(J, D, S, axes=axes)
         split = mesh.split(axes)
         model = None if split is None else split.model
+        if model is not None and cfg.solver == "ift" \
+                and cfg.ssn.backend == "cuda":
+            # the kernel solves whole circuits: the model group splits the
+            # circuits, each rank building W whole for its share of them
+            z = z[..., model.rows(z.shape[-3]), :, :]
+            split = dataclasses.replace(split, model=None)
+            model, row_model = None, model
     if lead:  # one (2, 2) block per member, broadcast over its circuits
         J, D, S = (p.unsqueeze(-3) for p in (J, D, S))
     x = cfg.ssn.site_pos(dtype=cfg.dtype, device=device)
@@ -225,7 +238,9 @@ def sample_tuning_curves(cfg: GeneratorConfig, params: Dict[str, torch.Tensor],
     else:
         res = euler.solve_dynamics(
             cfg.ssn, W, I_ext,
-            checkpoint_chunk=cfg.bptt_checkpoint_chunk or None)
+            checkpoint_chunk=cfg.bptt_checkpoint_chunk or None, model=model)
+    if row_model is not None:
+        res = _gather_rows(row_model, res)
     if mesh is not None and cfg.mesh_axis:
         res = _gather_rows(mesh, res)
 
@@ -239,18 +254,9 @@ def sample_tuning_curves(cfg: GeneratorConfig, params: Dict[str, torch.Tensor],
 
 
 def _active_mesh(cfg: GeneratorConfig):
-    """The mesh a config's axes split over (None without axes), checked
-    against what the axes can shard."""
+    """The mesh a config's axes split over (None without axes)."""
     if not (cfg.mesh_axis or cfg.model_axis):
         return None
-    if cfg.model_axis and (cfg.solver != "ift" or cfg.ssn.backend == "cuda"
-                           or cfg.grad_method == "direct"):
-        raise ValueError(
-            "the model axis splits W's columns over ranks on the lockstep "
-            "torch solve with the iterative or jfb adjoint only: the CUDA "
-            "kernel solves a whole circuit on one device, and the kernel or "
-            "a BPTT unroll spanning devices would take a collective per "
-            "substep (ROADMAP Queue 1)")
     mesh = mesh_lib.current_mesh()
     if mesh is None:
         raise ValueError("a generator config with mesh axes runs inside "
@@ -258,15 +264,16 @@ def _active_mesh(cfg: GeneratorConfig):
     return mesh
 
 
-def _gather_rows(mesh, res):
-    """The batch group's solver outputs, gathered along the circuit axis
-    in one collective: flags and iters ride in the rates' buffer (float32
-    at least, exact for them)."""
+def _gather_rows(axis, res):
+    """The solver outputs of ``axis``'s group (the mesh's batch group or
+    its model axis), gathered along the circuit axis in one collective:
+    flags and iters ride in the rates' buffer (float32 at least, exact for
+    them)."""
     r = res.r
     dtype = torch.promote_types(r.dtype, torch.float32)
     flags = torch.stack([t.to(dtype) for t in
                          (res.converged, res.diverged, res.iters)], dim=-1)
-    full = mesh.gather_rows(torch.cat([r.to(dtype), flags], dim=-1), dim=-3)
+    full = axis.gather_rows(torch.cat([r.to(dtype), flags], dim=-1), dim=-3)
     n2 = r.shape[-1]
     return type(res)(full[..., :n2].to(r.dtype), full[..., n2] > 0,
                      full[..., n2 + 1] > 0, full[..., n2 + 2].to(torch.int32))

@@ -17,6 +17,13 @@ Divergence is flagged on the FIRST step any rate exceeds ``rate_stop_at``
 (on detached rates, OR'd on the device); the clip sits above that ceiling,
 so a clipped sample stays flagged and its gradient dies at the clip.
 ``torch.minimum``, like ``lax.min``, splits the gradient at ties.
+
+Under a model axis (``model``, :class:`tcgan_torch.parallel.mesh.ModelAxis`)
+W holds this rank's columns: each Euler step's drive is one all-reduce over
+the model group (again in each checkpoint recompute), its backward one
+gather of r's cotangent (``ModelAxis.drive``). The rates stay whole and
+alike on every rank of the group, so the divergence flag and the clip take
+no collective, and every rank replays the same chunks in the same order.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ def solve_dynamics(
     checkpoint_chunk: int | None = None,
     return_trajectory: bool = False,
     clip_factor: float = 10.0,
+    model=None,
 ):
     """Integrate the SSN for a fixed number of Euler steps (differentiable).
 
@@ -50,6 +58,8 @@ def solve_dynamics(
       return_trajectory: also return the (seqlen, ..., S, 2N) trajectory
         (memory-heavy; for tests and analysis; no checkpointing then).
       clip_factor: rates are clipped at ``clip_factor * rate_stop_at``.
+      model: the model axis W's columns split over (see the module
+        docstring); None: W whole.
 
     Returns:
       FixedPointResult (``converged`` from the final state's residual,
@@ -60,7 +70,7 @@ def solve_dynamics(
     f = cfg.io_fun()
     dtype, device = W.dtype, W.device
     lead = torch.broadcast_shapes(W.shape[:-2], I_ext.shape[:-2])
-    S, n2 = I_ext.shape[-2], W.shape[-1]
+    S, n2 = I_ext.shape[-2], W.shape[-2]
     if r0 is None:
         r0 = torch.zeros(lead + (S, n2), dtype=dtype, device=device)
     else:
@@ -72,7 +82,7 @@ def solve_dynamics(
     stop_at = cfg.rate_stop_at
 
     def step(r, div):
-        r_next = r + alpha * (-r + f(recurrent_drive(W, r, I_ext)))
+        r_next = r + alpha * (-r + f(recurrent_drive(W, r, I_ext, model)))
         div = div | (r_next.detach().amax(dim=-1) > stop_at)
         return torch.minimum(r_next, ceiling), div
 
@@ -106,7 +116,8 @@ def solve_dynamics(
     # convergence diagnostics on the final state, outside the gradient path
     with torch.no_grad():
         rT = r.detach()
-        delta = -rT + f(recurrent_drive(W.detach(), rT, I_ext.detach()))
+        delta = -rT + f(recurrent_drive(W.detach(), rT, I_ext.detach(),
+                                        model))
         err = delta.abs().amax(dim=-1)
     converged = ~div & (err < cfg.atol)
     iters = torch.full(lead + (S,), seqlen, dtype=torch.int32, device=device)

@@ -50,17 +50,23 @@ def solve_any(cfg: SSNConfig, W: torch.Tensor, I_ext: torch.Tensor,
     ONE launch and the outputs unfolded to (..., B, S, ...). Any other
     layout raises ``ValueError``; nothing falls back to the lockstep solve.
     The kernel path computes and returns float32 rates whatever the input
-    dtype; the lockstep path keeps ``W.dtype``. ``model`` (W's columns split
-    over a model axis) is the lockstep path's only: the kernel solves a
-    whole circuit on one device.
+    dtype; the lockstep path keeps ``W.dtype``.
+
+    ``model`` (a :class:`tcgan_torch.parallel.mesh.ModelAxis`): W holds this
+    rank's columns (..., B, 2N, 2N/M), and the lockstep path sums the drive
+    over the model group at every step. The kernel solves whole circuits
+    of a whole W and raises ``ValueError`` on a model axis: there the
+    generator splits the circuits over the model group instead
+    (``models/generator.py``).
     """
     check_every = max(cfg.check_every, 1)
     if cfg.backend != "cuda":
         return solve_fixed_point(cfg, W, I_ext, check_every=check_every,
                                  model=model)
     if model is not None:
-        raise ValueError("the cuda backend solves whole circuits; a model "
-                         "axis runs on the torch backend")
+        raise ValueError("the cuda backend solves whole circuits of a whole "
+                         "W; under a model axis the generator splits the "
+                         "circuits over the model group")
     if W.ndim < 3 or I_ext.ndim != 2:
         raise ValueError(
             "the cuda backend solves W (..., B, 2N, 2N) under a shared "

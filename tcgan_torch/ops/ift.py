@@ -30,12 +30,14 @@ adjoint system by one of three methods:
 Split over ranks (``split``, a :class:`tcgan_torch.parallel.mesh.Split`),
 the iterative adjoint's stop test takes its max over every rank's
 circuits, one all-reduce per check stride (:func:`_chunk_over_ranks`), so
-each rank stops on the iteration the unsharded batch would. With a model axis (``split.model``)
-W holds this rank's columns only: the forward is the lockstep solve with
-the drive summed over the model group, the adjoint gathers each rank's
-columns of ``(phi * lam) @ W`` (lam stays whole on every rank), and W's
-cotangent comes back for this rank's columns. ``"direct"`` needs all of
-W and refuses a model axis.
+each rank stops on the iteration the unsharded batch would. With a model
+axis (``split.model``) W holds this rank's columns only: the forward is
+the lockstep solve with the drive summed over the model group, the
+iterative adjoint gathers each rank's columns of ``(phi * lam) @ W`` (lam
+stays whole on every rank), ``"direct"`` gathers W's columns once and
+solves the dense system, and W's cotangent comes back for this rank's
+columns. (On the kernel backend the model group splits the circuits
+instead, and ``split.model`` is None: ``models/generator.py``.)
 
 Cotangents, io slopes, adjoints and rates of samples whose forward solve did
 not converge are zeroed with ``torch.where`` (not a multiply: NaN * 0 is
@@ -97,12 +99,12 @@ def _adjoint(cfg: SSNConfig, grad_method: str, bwd_max_iter: int,
     if grad_method == "jfb":
         lam = g
     elif grad_method == "direct":
-        if model is not None:
-            raise ValueError("the direct adjoint needs all of W; a model "
-                             "axis runs the iterative or jfb adjoint")
-        n2 = W.shape[-1]
+        n2 = W.shape[-2]
+        W_all = W if model is None else model.gather_cols(
+            W, n2, kind="model_gather_W")
         eye = torch.eye(n2, dtype=dtype, device=W.device)
-        A = eye - phi[..., :, None] * W[..., None, :, :]  # (..., S, 2N, 2N)
+        # (..., S, 2N, 2N)
+        A = eye - phi[..., :, None] * W_all[..., None, :, :]
         # solve_ex: a singular system yields non-finite values, as in the
         # reference, instead of raising
         lam = torch.linalg.solve_ex(A.transpose(-1, -2), g[..., None])[0]

@@ -162,10 +162,10 @@ def recurrent_drive(W: torch.Tensor, r: torch.Tensor,
     With ``model`` (a :class:`tcgan_torch.parallel.mesh.ModelAxis`), W holds
     this rank's columns ``model.cols`` only (..., 2N, 2N/M): each rank
     contracts its slice of r and the partial drives are summed over the
-    model group. Runs in full fp32 (or f64): TF32 is off, see the module
+    model group (``model.drive``: one all-reduce, differentiable for the
+    BPTT unroll). Runs in full fp32 (or f64): TF32 is off, see the module
     header.
     """
     if model is None:
         return torch.matmul(r, W.transpose(-1, -2)) + I_ext
-    cols = model.cols(r.shape[-1])
-    return model.psum(torch.matmul(r[..., cols], W.transpose(-1, -2))) + I_ext
+    return model.drive(r, W) + I_ext

@@ -10,8 +10,8 @@ ways in:
   stops the others; each collective and the whole run have a timeout. The
   tests, the multichip dryrun (:mod:`tcgan_torch.entry`) and
   ``chip_smoke.py`` use it; what they run in a rank lives in the package
-  (:func:`call_each`, :func:`sharded_step`), so a rank imports no test
-  module and no jax.
+  (:func:`call_each`, :func:`sharded_step`) or in a module that imports
+  torch only, so a rank imports no jax.
 - :func:`run_ranks` runs a CLI's ``main`` on every rank of
   ``--parallel mesh``: under ``torchrun`` the process is one rank (the
   environment's ``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK``); from a plain

@@ -23,8 +23,15 @@ is split.
 - **Model axis (tensor parallel over 2N, optional).** W's columns, the
   presynaptic axis, split over the model group (:class:`ModelAxis`): the
   drive ``r @ W^T`` is a sum of per-rank partial products (the psum XLA
-  inserts), the adjoint's ``(phi * lam) @ W`` a gather of per-rank column
-  slices. Plain lockstep solve with implicit gradients only.
+  inserts; differentiable through :class:`_ModelDrive`, for the BPTT
+  unroll), the adjoint's ``(phi * lam) @ W`` a gather of per-rank column
+  slices; the direct adjoint gathers W's columns once per backward. The
+  CUDA kernel solves whole circuits of a whole W, so on that backend the
+  model group splits the circuits instead (:meth:`ModelAxis.rows`): each
+  of its ranks builds W whole for its 1/M of them, solves them and runs
+  their adjoint, and the outputs are gathered back over the group
+  (:meth:`ModelAxis.gather_rows`); the adjoint's stop test then spans the
+  model group too.
 - **Members (ensembles).** :func:`make_sharded_ensemble_step`: each rank
   steps its K/P members, with no collective across members.
 
@@ -79,12 +86,13 @@ def mesh_shape(world_size: int, n_batch: int | None = None,
     return n_batch, n_model
 
 
-def row_slice(n: int, parts: int, index: int) -> slice:
+def row_slice(n: int, parts: int, index: int,
+              axis: str = BATCH_AXIS) -> slice:
     """Part ``index`` of ``n`` rows split into ``parts`` equal parts; a
     split that would drop rows raises ``ValueError``."""
     if n % parts:
         raise ValueError(f"batch {n} does not split over the {parts}-rank "
-                         "batch axis of the mesh")
+                         f"{axis} axis of the mesh")
     k = n // parts
     return slice(index * k, (index + 1) * k)
 
@@ -134,12 +142,42 @@ class _ReduceGrad(torch.autograd.Function):
         return (None, None, *out)
 
 
+class _ModelDrive(torch.autograd.Function):
+    """The drive ``r @ W^T`` with W's columns split over the model group:
+    ``r`` (..., S, 2N) whole on every rank, ``W`` this rank's columns
+    (..., 2N, 2N/M). The forward sums the partial products in one
+    all-reduce; the backward, given the replicated cotangent ``g`` of the
+    drive, returns W's columns' cotangent ``g^T r[..., cols]`` (local) and
+    r's, ``W^T g`` made whole from each rank's columns in one collective:
+    slicing r alone would drop the other ranks' columns of it."""
+
+    @staticmethod
+    def forward(ctx, r, W, model):
+        cols = model.cols(r.shape[-1])
+        rc = r[..., cols]
+        ctx.save_for_backward(rc, W)
+        ctx.model, ctx.shapes = model, (r.shape, W.shape)
+        return model.psum(torch.matmul(rc, W.transpose(-1, -2)))
+
+    @staticmethod
+    def backward(ctx, g):
+        rc, W = ctx.saved_tensors
+        r_shape, w_shape = ctx.shapes
+        g_r = g_w = None
+        if ctx.needs_input_grad[0]:
+            g_r = ctx.model.gather_cols(torch.matmul(g, W), r_shape[-1])
+            g_r = g_r.sum_to_size(r_shape)
+        if ctx.needs_input_grad[1]:
+            g_w = torch.matmul(g.transpose(-1, -2), rc).sum_to_size(w_shape)
+        return g_r, g_w, None
+
+
 @dataclasses.dataclass
 class ModelAxis:
     """This rank's part of the model axis: the contiguous slice ``cols`` of
-    W's 2N columns and the collectives over its model group that the plain
-    solver and the adjoint call (``ops.ssn.recurrent_drive``,
-    ``ops.fixed_point.solve_fixed_point``, ``ops.ift``)."""
+    W's 2N columns and the collectives over its model group that the
+    solvers and the adjoint call (``ops.ssn.recurrent_drive``,
+    ``ops.fixed_point``, ``ops.euler``, ``ops.ift``)."""
 
     index: int
     size: int
@@ -159,13 +197,29 @@ class ModelAxis:
         self.counts["model_psum"] += 1
         return x
 
-    def gather_cols(self, x: torch.Tensor, n2: int) -> torch.Tensor:
+    def drive(self, r: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+        """``r @ W^T`` summed over the group, differentiable with respect to
+        r and this rank's columns W (:class:`_ModelDrive`)."""
+        return _ModelDrive.apply(r, W, self)
+
+    def gather_cols(self, x: torch.Tensor, n2: int,
+                    kind: str = "model_gather") -> torch.Tensor:
         """The full (..., 2N) from each rank's column slice (..., 2N/M)."""
         full = x.new_zeros(x.shape[:-1] + (n2,))
         full[..., self.cols(n2)] = x
         dist.all_reduce(full, group=self.group)
-        self.counts["model_gather"] += 1
+        self.counts[kind] += 1
         return full
+
+    def rows(self, n: int) -> slice:
+        """This rank's share of ``n`` circuits (:func:`row_slice`)."""
+        return row_slice(n, self.size, self.index, MODEL_AXIS)
+
+    def gather_rows(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's :meth:`rows` of ``x`` along ``dim``, in rank order,
+        on every rank of the group, in one collective."""
+        self.counts["model_gather_rows"] += 1
+        return _GatherRows.apply(x, dim, self.index, self.size, self.group)
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
         """Elementwise max over the group, in place: every rank takes the

@@ -15,6 +15,14 @@ median of steps 1 on) and wall time, the largest relative difference of
 the two runs' learning rows (held to rtol 1e-4), with the cards' names and
 power limit; then ``tcgan_torch.entry.dryrun_multichip`` on the cards
 (NCCL, a batch x model mesh). One JSON line at the end.
+
+With ``--model-axis`` (four cards), the library instead: ``--steps``
+round-2 WGAN steps on the kernel at each batch size on a 2 x 2 (batch x
+model) NCCL mesh (on the kernel the model group splits the circuits, as
+the batch group does), then the same steps on card 0 alone on the same
+noise: the generator forward's rates and flags (bit-equal), the final
+generator parameters (rtol 1e-4), each run's host ms per step, and the
+collectives per step.
 """
 
 from __future__ import annotations
@@ -64,14 +72,129 @@ def _run(argv: list) -> tuple[list, float]:
         return list(csv.DictReader(f)), seconds
 
 
+def _model_axis_rank(steps: int, batch: int) -> dict:
+    """One rank of the ``--model-axis`` mode (a 2 x 2 mesh of 4 NCCL ranks,
+    one per card): ``steps`` round-2 WGAN steps on the kernel, the circuits
+    split over both axes; rank 0 then runs them unsharded on its card and
+    compares."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from tcgan_torch import parallel as par
+    from tcgan_torch.models import generator as gen_lib
+    from tcgan_torch.models import wgan
+    from tcgan_torch.ops.cuda import ssn_solve
+    from tcgan_torch.ops.ssn import SSNConfig
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gcfg = gen_lib.GeneratorConfig(
+        ssn=SSNConfig(N=51, max_iter=10000, atol=1e-5, check_every=32,
+                      backend="cuda"),
+        bandwidths=BANDWIDTHS, contrasts=(5.0, 10.0))
+    cfg = wgan.WGANConfig(gen=gcfg, batch_size=batch, n_critic=5,
+                          n_critic0=5, clip_grad=1.0)
+    as22 = lambda v: ((v[0], v[1]), (v[2], v[3]))  # noqa: E731
+    params = gen_lib.init_params(gcfg, as22(SLICE_J), as22(SLICE_D),
+                                 as22(SLICE_S), device=dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    state0 = wgan.init_state(cfg, generator=gen, gen_init=params)
+    real = 1.0 + 0.1 * torch.randn((5, cfg.critic_batch, gcfg.tc_dim),
+                                   generator=gen, device=dev)
+    noises = [wgan.draw_step_noise(cfg, 5, real, gen) for _ in range(steps)]
+    mesh = par.make_mesh(n_batch=2, n_model=2)
+    scfg = dataclasses.replace(cfg, gen=par.with_mesh_axes(gcfg, model=True))
+
+    def run(step, c):
+        state, ms = state0, []
+        ssn_solve.launches = 0
+        for noise in noises:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(c, 5, state, real, noise=noise)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return state, ms, ssn_solve.launches
+
+    def forward(c):
+        with torch.no_grad(), par.set_mesh(mesh):
+            return gen_lib.sample_tuning_curves(c, params, batch,
+                                                z=noises[0].gen_z)
+
+    fwd = forward(scfg.gen)
+    mesh.counts.clear()
+    state, ms, launches = run(
+        par.make_sharded_gan_step(wgan.train_step_impl, mesh), scfg)
+    out = {"rank": dist.get_rank(), "mesh_ms": ms, "launches": launches,
+           "collectives": {k: v / steps for k, v in mesh.counts.items()}}
+    if dist.get_rank() == 0:
+        ref = forward(gcfg)
+        ref_state, out["one_card_ms"], out["one_card_launches"] = run(
+            wgan.train_step_impl, cfg)
+        out["max_dr"] = float((fwd.rates - ref.rates).abs().max())
+        out["flags_equal"] = all(torch.equal(a, b)
+                                 for a, b in zip(fwd[2:], ref[2:]))
+        out["rel_params"] = max(
+            float((state.gen_params[k] - v).abs().max()
+                  / v.abs().max().clamp_min(1e-30))
+            for k, v in ref_state.gen_params.items())
+    dist.barrier()
+    return out
+
+
+def _model_axis(steps: int, batches) -> int:
+    """The ``--model-axis`` mode on four cards; 0 when every check held."""
+    from tcgan_torch.parallel import launch
+
+    if torch.cuda.device_count() != 4:
+        raise SystemExit("mesh_ab --model-axis needs 4 visible cards (a 2 x "
+                         f"2 mesh); {torch.cuda.device_count()} are visible")
+    out = {"cards": 4, "card": card(), "steps": steps, "batches": {}}
+    ok = True
+    for batch in batches:
+        ranks = launch.spawn(_model_axis_rank, 4, (steps, batch),
+                             backend="nccl",
+                             devices=[f"cuda:{i}" for i in range(4)],
+                             timeout=600, deadline=1800)
+        r0 = ranks[0]
+        res = out["batches"][str(batch)] = {
+            "mesh_ms_median": statistics.median(r0["mesh_ms"][1:]),
+            "one_card_ms_median": statistics.median(r0["one_card_ms"][1:]),
+            **{k: r0[k] for k in ("max_dr", "flags_equal", "rel_params",
+                                  "one_card_launches")},
+            "ranks": ranks}
+        for r in ranks:
+            print(f"[mesh_ab] model axis B={batch}, rank {r['rank']} of a "
+                  f"2 x 2 mesh: host ms per step "
+                  f"{', '.join(f'{t:.1f}' for t in r['mesh_ms'])}; kernel "
+                  f"launches {r['launches']}; collectives per step "
+                  f"{json.dumps(r['collectives'])} ({out['card']})",
+                  flush=True)
+        print(f"[mesh_ab] model axis B={batch}: median host ms per step "
+              f"(steps 1 on) {res['mesh_ms_median']:.1f} on 4 cards against "
+              f"{res['one_card_ms_median']:.1f} on card 0 alone; forward "
+              f"max |dr| {res['max_dr']}, flags equal {res['flags_equal']}; "
+              f"generator parameters after {steps} steps: max rel "
+              f"{res['rel_params']:.3e} (rtol {RTOL})", flush=True)
+        ok = ok and res["max_dr"] == 0.0 and res["flags_equal"] \
+            and res["rel_params"] <= RTOL
+    print(json.dumps(out), flush=True)
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--steps", type=int, default=6)
     p.add_argument("--batch-sizes", type=int, nargs="+", default=[256, 1024])
+    p.add_argument("--model-axis", action="store_true",
+                   help="the library's round-2 step on a 2 x 2 mesh with "
+                   "a model axis, against card 0 alone")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("mesh_ab: no CUDA device is visible")
+    if args.model_axis:
+        return _model_axis(args.steps, args.batch_sizes)
     from tcgan_torch.entry import dryrun_multichip
 
     n = torch.cuda.device_count()

@@ -152,12 +152,15 @@ def test_bptt_moments_runs_the_bptt_solver(tmp_path):
 
 
 def test_mesh_still_raises(tmp_path):
-    """``--parallel mesh`` runs these fits (``tests/test_torch_parallel.py``);
-    what still raises is a model axis on the BPTT solver, which the
-    unrolled Euler loop cannot split without a collective per step, before
-    any rank is started."""
+    """``--parallel mesh`` runs these fits (``tests/test_torch_parallel.py``),
+    with a model axis too (``tests/test_torch_model_axis.py``); what still
+    raises, before any collective, is a config with mesh axes sampled
+    outside an active mesh, and a model axis that does not split 2N."""
+    import collections
+
     from tcgan_torch import parallel as par
     from tcgan_torch.models import generator as tgen
+    from tcgan_torch.parallel import mesh as tmesh
     from tcgan_torch.run import common
 
     for mod, argv in ((tmm, TINY_MM + ["--solver", "bptt"]),
@@ -168,6 +171,9 @@ def test_mesh_still_raises(tmp_path):
         cfg = par.with_mesh_axes(
             common.generator_config_from_args(args, solver=solver),
             model=True)
-        with pytest.raises(ValueError, match="model axis"):
+        with pytest.raises(ValueError, match="set_mesh"):
             tgen.sample_tuning_curves(cfg, tgen.init_params(cfg), 4,
                                       z=np.zeros((4, 12, 12)))
+    axis = tmesh.ModelAxis(0, 5, None, collections.Counter())
+    with pytest.raises(ValueError, match="does not split over a model axis"):
+        axis.cols(12)

@@ -297,22 +297,6 @@ def test_make_mesh_shapes_and_validation():
         tpar.make_mesh()
 
 
-@pytest.mark.parametrize("change", [
-    dict(solver="bptt"),
-    dict(ssn=dataclasses.replace(TGEN.ssn, backend="cuda")),
-    dict(grad_method="direct"),
-])
-def test_model_axis_refuses_kernel_and_bptt(change):
-    """The model axis runs on the lockstep solve with the iterative (or
-    jfb) adjoint only; the kernel, BPTT and the direct adjoint raise before
-    any collective."""
-    cfg = dataclasses.replace(tpar.with_mesh_axes(TGEN, model=True),
-                              **change)
-    with pytest.raises(ValueError, match="model axis"):
-        tgen.sample_tuning_curves(cfg, tgen.init_params(cfg), 4,
-                                  z=np.zeros((4, 16, 16)))
-
-
 def test_dryrun_multichip_twin(capsys):
     """``tcgan_torch.entry.dryrun_multichip(4, device="cpu")``: 4 gloo
     ranks on the CPU, a 2 x 2 mesh, one anchored, drift-latched WGAN-GP

@@ -218,36 +218,37 @@ def test_adam_matches_optax_over_steps(clip):
             float(sched_j(jnp.asarray(c, jnp.int32)))
 
 
-def _replay_noise(jcfg, n_critic, step, key, anchor_updates=0):
-    """The noise ``jwgan.train_step_impl`` draws from ``key`` at ``step``."""
+def _replay_noise(jcfg, n_critic, step, key, anchor_updates=0,
+                  dtype=jnp.float64):
+    """The noise ``jwgan.train_step_impl`` draws from ``key`` at ``step``
+    (in ``dtype``: the generator's and the real batches' dtype there)."""
     N, B = jcfg.gen.ssn.N, jcfg.batch_size
     key_c, key_g = jax.random.split(jax.random.fold_in(key, step))
     critic_z, gp_eps = [], []
     for k in jax.random.split(key_c, n_critic):
         k_z, k_gp = jax.random.split(k)
         critic_z.append(np.array(jweights.sample_z(k_z, (B,), N,
-                                                     dtype=jnp.float64)))
+                                                     dtype=dtype)))
         gp_eps.append(np.array(jax.random.uniform(
-            k_gp, (jcfg.critic_batch, 1), dtype=jnp.float64)))
-    gen_z = np.array(jweights.sample_z(key_g, (B,), N, dtype=jnp.float64))
+            k_gp, (jcfg.critic_batch, 1), dtype=dtype)))
+    gen_z = np.array(jweights.sample_z(key_g, (B,), N, dtype=dtype))
     anchor_z = None
     if anchor_updates:
         keys = jax.random.split(jax.random.fold_in(key_g, 1), anchor_updates)
-        anchor_z = [np.array(jweights.sample_z(k, (B,), N,
-                                                 dtype=jnp.float64))
+        anchor_z = [np.array(jweights.sample_z(k, (B,), N, dtype=dtype))
                     for k in keys]
     return twgan.StepNoise(critic_z, gp_eps, gen_z, anchor_z)
 
 
-def _port_state(jstate, tcfg, data_moments=None):
+def _port_state(jstate, tcfg, data_moments=None, dtype=F64):
     """The port's state holding the reference state's parameters."""
     gen_init = tgen.params_from_numpy(
-        {k: np.asarray(v) for k, v in jstate.gen_params.items()}, dtype=F64)
+        {k: np.asarray(v) for k, v in jstate.gen_params.items()}, dtype=dtype)
     state = twgan.init_state(tcfg, gen_init=gen_init,
                              data_moments=data_moments)
     cp = tcritic.params_from_numpy(
         {k: np.asarray(v) for k, v in jstate.critic_params.items()},
-        dtype=F64)
+        dtype=dtype)
     return state._replace(critic_params=cp)
 
 
