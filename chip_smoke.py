@@ -23,10 +23,20 @@ no result line):
    Anderson(1), a ragged batch and a batch of hard divergers; then past one
    block's shared memory, on thread-block clusters
    (``ssn_solve_ab.CLUSTER_SHAPES``: 2N=240, 402 at S=8, 16 with Anderson
-   and atol 1e-5, and 24, and 512), J and D scaled to N, each with its
-   time, bound, share, cluster size and circuits at once, a row outside
-   rtol/atol held to its own fp32 trajectory; the plain version's time at
-   512 circuits and at 2N=402;
+   and atol 1e-5, and 24, and 512) and past a cluster of 8, each circuit's
+   rows in chunks (``ssn_solve_ab.SPLIT_SHAPES``: 2N=402 at S=32 with
+   Anderson and 48, 512 at 24, 102 at 256), J and D scaled to N, each with
+   its time, bound, share, plan (cluster size, rows per chunk, chunks;
+   the C entry points' and the wrapper's must agree) and circuits at once,
+   a row outside rtol/atol held to its own fp32 trajectory, and each chunk
+   held bit for bit to its rows launched alone; a battery forced into
+   chunks of 8 rows held bit for bit to the same battery in one chunk
+   (2N=102, S=32, with and without Anderson); split batteries to contrast
+   20 (phase 4c's at 2N=402 with Anderson, 32 contrasts at N=51) with
+   flags and rates against the fp32 plain solve and their iters gaps
+   beside those between the fp32 and float64 plain solves
+   (``_split_witness``); the plain version's time at 512 circuits and at
+   2N=402;
 4. the serving path: ``python -m tcgan_torch.run.forward`` (through its
    ``main``) with the CUDA backend, 8 batches of 512 circuits, checked for
    launches, shapes, convergence and agreement with the plain solver; then
@@ -34,6 +44,10 @@ no result line):
 4b. the paper's circuit, N=201, through ``run.forward``: 4 batches of 64
    circuits (one launch each, batch 0 against the plain solve, circuits/s),
    then 2 batches with the reference's ``--solver-backend pallas``;
+4c. the same circuit with the 32-row battery (contrasts 5, 10, 13, 20) and
+   ``--accel anderson``, past a cluster of 8: 2 batches of 64, one launch
+   each (4 chunks of 8 rows per circuit), batch 0 against the plain solve,
+   circuits/s;
 5. implicit gradients on the card: at N=51, 256 circuits and the GAN
    battery (8 bandwidths x contrasts 5, 10), the gradient of the mean probe
    rate with respect to the log-space (J, D, S), with the kernel forward
@@ -145,6 +159,8 @@ from tcgan_torch.tools.ssn_solve_ab import (ATOL, BANDWIDTHS, CHECK_EVERY,
                                             SLICE_S, SLICE_SSN)
 from tcgan_torch.tools.ssn_solve_ab import card as _card
 from tcgan_torch.tools.ssn_solve_ab import median_ms as _median_ms
+from tcgan_torch.tools.ssn_solve_ab import \
+    off_own_trajectory as _off_own_trajectory
 
 # The forward slice's benchmark circuit (``ssn_solve_ab``: N=51 sites per
 # population, the 8-bandwidth battery at contrast 10), 512 circuits per
@@ -205,26 +221,21 @@ NATIVE_RTOL = 1e-6
 # by 51 / 201, so the circuit keeps the slice's regime).
 WIDE_FWD_N, WIDE_FWD_BATCH, WIDE_FWD_BATCHES = 201, 64, 4
 WIDE_FWD_MIN_CONVERGED = 0.9
+# Phase 4c: the same circuit with a battery past a cluster of 8 (32 rows,
+# Anderson; the reference's run.gan with these contrasts).
+SPLIT_FWD_CONTRASTS = (5.0, 10.0, 13.0, 20.0)
+# Phase 3's split batteries to contrast 20 (``_split_witness``): name ->
+# (N, circuits, contrasts, accel).
+SPLIT_WITNESS = {
+    "2N=402 S=32 B=16 anderson, contrasts 5-20": (
+        WIDE_FWD_N, 16, SPLIT_FWD_CONTRASTS, True),
+    "2N=102 S=256 B=64, contrasts 0.625-20": (
+        SLICE_SSN["N"], 64, tuple(0.625 * k for k in range(1, 33)), False),
+}
 
 
 def _line(*parts):
     print(*parts, flush=True)
-
-
-def _off_own_trajectory(out, cfg, W, I, b, s, check_every, accel):
-    """Max |dr| of row (b, s) of the kernel's rates from the plain fp32
-    solve of that row run to the kernel's own iters for it (atol 0), and
-    whether it lies within RTOL/ATOL: a row whose atol crossing lands a
-    chunk apart from the plain solve's (near criticality, where the order
-    of the sums decides it) must still be the right trajectory."""
-    from tcgan_torch.ops.cuda import ssn_solve
-
-    it = int(out.iters[b, s])
-    rerun = ssn_solve.solve_fixed_point_plain(
-        dataclasses.replace(cfg, atol=0.0, max_iter=it), W[b:b + 1],
-        I[s:s + 1], check_every, accel).r[0, 0]
-    d = (out.r[b, s] - rerun).abs()
-    return float(d.max()), bool((d <= ATOL + RTOL * rerun.abs()).all())
 
 
 def _compare(name, cfg, W, I, check_every, accel=False, witness=False):
@@ -369,6 +380,122 @@ def _wide_witness(card: str) -> None:
                              f"the fp32 trajectory at their own iters")
 
 
+def _chunks_alone(lib, name, cfg, W, I, accel, out, plan) -> None:
+    """Each chunk of a split launch against its rows launched alone as the
+    battery, one chunk of the same rows per chunk (so the same cluster
+    size and layout): rates, flags and iters bit-equal."""
+    import torch
+
+    from tcgan_torch.ops.cuda import ssn_solve
+
+    R = plan.rows
+    for k in range(plan.chunks):
+        rows = I[k * R:(k + 1) * R].contiguous()
+        alone = ssn_solve.launch(lib, cfg, W, rows, CHECK_EVERY, accel,
+                                 rows_per_chunk=R)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x[:, k * R:(k + 1) * R], y)
+                   for x, y in zip(out, alone)):
+            raise AssertionError(f"{name}: chunk {k} differs from its rows "
+                                 f"launched alone")
+    _line(f"[kernel] {name}: each of the {plan.chunks} chunks bit-equal to "
+          f"its rows launched alone")
+
+
+def _split_witness(card: str, lib) -> None:
+    """Split batteries to contrast 20 (``SPLIT_WITNESS``): phase 4c's at
+    2N=402 with Anderson, and 32 contrasts at N=51. There the chunk at
+    which a slow row crosses atol, or passes rate_stop_at, moves with the
+    rounding (of the sums, and of Anderson's extrapolation), so the plain
+    fp32 and float64 solves stop some rows several strides apart. The
+    kernel must give each chunk's bits when its rows are launched alone,
+    the fp32 plain solve's flags, and rates of rows both converged within
+    RTOL/ATOL or on their own fp32 trajectory; its iters gaps against the
+    fp32 solve are printed beside the fp32 solve's against float64, and
+    its time beside its bound."""
+    import torch
+
+    from tcgan_torch.ops import fixed_point
+    from tcgan_torch.ops.cuda import ssn_solve
+
+    for name, (N, batch, contrasts, accel) in SPLIT_WITNESS.items():
+        cfg, W, I = ab.problem(batch, contrasts, {}, N=N, seed=SEED)
+        plan = ssn_solve.plan(W.shape[-1], I.shape[0], accel)
+        out = ssn_solve.solve_fixed_point_cuda(cfg, W, I, CHECK_EVERY, accel)
+        _chunks_alone(lib, name, cfg, W, I, accel, out, plan)
+        p32 = ssn_solve.solve_fixed_point_plain(cfg, W, I, CHECK_EVERY,
+                                                accel)
+        p64 = fixed_point.solve_fixed_point(
+            dataclasses.replace(cfg, accel="anderson" if accel else "none"),
+            W.double(), I.double(), check_every=CHECK_EVERY)
+        torch.cuda.synchronize()
+        n_flag = int((out.converged != p32.converged).sum()
+                     + (out.diverged != p32.diverged).sum())
+        both = out.converged & p32.converged
+        bad = both & ((out.r - p32.r).abs()
+                      > ATOL + RTOL * p32.r.abs()).any(-1)
+        unexplained = sum(
+            not _off_own_trajectory(out, cfg, W, I, b, s_, CHECK_EVERY,
+                                    accel)[1]
+            for b, s_ in bad.nonzero().tolist())
+        ms = _median_ms(lambda: ssn_solve.solve_fixed_point_cuda(
+            cfg, W, I, CHECK_EVERY, accel))
+        bound_ms, bound_by = ab.bound(W, I, out.iters)
+        gap = lambda a, b: (a.iters.long()  # noqa: E731
+                            - b.iters.long()).abs()
+        k32, f64 = gap(out, p32), gap(p32, p64)
+        lim = 2 * CHECK_EVERY
+        _line(f"[kernel] witness {name}: plan {tuple(plan)}; "
+              f"flag_mismatch={n_flag} (fp32 plain vs float64: "
+              f"{int((p32.converged != p64.converged).sum())}); rows both "
+              f"converged outside rtol {RTOL} atol {ATOL}: {int(bad.sum())}, "
+              f"off their own fp32 trajectory: {unexplained}; iters gap "
+              f"kernel vs fp32 max {int(k32.max())}, rows past {lim}: "
+              f"{int((k32 > lim).sum())}; fp32 vs float64 max "
+              f"{int(f64.max())}, rows past {lim}: {int((f64 > lim).sum())}; "
+              f"kernel {ms:.3f} ms (median of 5), bound {bound_ms:.4f} ms "
+              f"({bound_by}), share {bound_ms / ms:.4f}, slowest circuit "
+              f"{1e3 * ms / int(out.iters.max()):.3f} us per substep over "
+              f"{int(out.iters.max())} iters ({card})")
+        for b, s_ in (k32 > lim).nonzero().tolist():
+            _line(f"[kernel]   row (circuit {b}, stimulus {s_}): iters "
+                  f"kernel {int(out.iters[b, s_])} fp32 "
+                  f"{int(p32.iters[b, s_])} float64 {int(p64.iters[b, s_])}"
+                  f"; converged {bool(out.converged[b, s_])}, diverged "
+                  f"{bool(out.diverged[b, s_])}")
+        if n_flag or unexplained:
+            raise AssertionError(f"witness {name}: {n_flag} flags differ, "
+                                 f"{unexplained} rows off their trajectory")
+
+
+def _forced_split(lib) -> None:
+    """The same battery in one chunk and forced into chunks of 8 rows at
+    the same cluster size (2N=102, S=32: one block per chunk either way),
+    with and without Anderson: rates, flags and iters bit-equal, since the
+    rows are independent and each sees the same arithmetic."""
+    import torch
+
+    from tcgan_torch.ops.cuda import ssn_solve
+
+    c, W, I = ab.problem(32, (2.5, 5.0, CONTRAST, 13.0), {}, seed=SEED)
+    for accel in (False, True):
+        whole = ssn_solve.plan(102, 32, accel)
+        split = ssn_solve.plan(102, 32, accel, rows=8)
+        if whole != (1, 32, 1) or split != (1, 8, 4):
+            raise AssertionError(f"forced split: plans {whole}, {split}")
+        a = ssn_solve.launch(lib, c, W, I, CHECK_EVERY, accel)
+        b = ssn_solve.launch(lib, c, W, I, CHECK_EVERY, accel,
+                             rows_per_chunk=8)
+        torch.cuda.synchronize()
+        same = [torch.equal(x, y) for x, y in zip(a, b)]
+        _line(f"[kernel] forced split 2N=102 S=32 B=32"
+              f"{' Anderson' if accel else ''}: 4 chunks of 8 against one "
+              f"of 32, (r, converged, diverged, iters) bit-equal {same}, "
+              f"conv={float(b.converged.float().mean()):.4f}")
+        if not all(same):
+            raise AssertionError("forced split: differs from one chunk")
+
+
 def phase_kernel(card: str) -> dict:
     import torch
 
@@ -382,25 +509,34 @@ def phase_kernel(card: str) -> dict:
     # arithmetic at the fp32 peak beside it), and the slowest circuit's
     # time per substep (launch time / max iters).
     # Then the shapes past one block (thread-block clusters, up to the
-    # paper's N=201 and 2N=512; ab.CLUSTER_SHAPES), with J and D scaled to
-    # N and a near-critical row held to its own fp32 trajectory.
+    # paper's N=201 and 2N=512; ab.CLUSTER_SHAPES) and the batteries past a
+    # cluster of 8 (row chunks; ab.SPLIT_SHAPES), with J and D scaled to N
+    # and a near-critical row held to its own fp32 trajectory.
     shapes = [(name, batch, contrasts, kw, SLICE_SSN["N"], False)
               for name, (batch, contrasts, kw) in ab.SHAPES.items()]
     shapes.append(("wide 2N=224 S=8", ab.WIDE_BATCH, (CONTRAST,), {},
                    ab.WIDE_N, False))
     shapes += [(name, batch, contrasts, kw, N, accel) for name, (
-        N, batch, contrasts, kw, accel) in ab.CLUSTER_SHAPES.items()]
+        N, batch, contrasts, kw, accel) in {**ab.CLUSTER_SHAPES,
+                                            **ab.SPLIT_SHAPES}.items()]
+    lib = ssn_solve._library()
     rows, max_err, fwd, wide = [], 0.0, None, None
     for name, batch, contrasts, kw, N, accel in shapes:
         c, Wk, Ik = ab.problem(batch, contrasts, kw, N=N, seed=SEED)
         n2, S = Wk.shape[-1], Ik.shape[0]
+        plan = ssn_solve.plan(n2, S, accel)
         cluster, at_once = ssn_solve.active_clusters(n2, S, accel)
-        if cluster != ssn_solve.cluster_size(n2, S, accel):
-            raise AssertionError(f"{name}: the kernel takes clusters of "
-                                 f"{cluster}, the wrapper reckons "
-                                 f"{ssn_solve.cluster_size(n2, S, accel)}")
+        kernel_plan = (cluster, lib.ssn_solve_rows_per_chunk(n2, S, accel))
+        if kernel_plan != plan[:2]:
+            raise AssertionError(f"{name}: the kernel plans (clusters, rows "
+                                 f"per chunk) {kernel_plan}, the wrapper "
+                                 f"{plan}")
+        if (name in ab.SPLIT_SHAPES) != (plan.chunks > 1):
+            raise AssertionError(f"{name}: plan {plan}")
         out, err = _compare(name, c, Wk, Ik, CHECK_EVERY, accel,
-                            witness=cluster > 1)
+                            witness=cluster > 1 or plan.chunks > 1)
+        if plan.chunks > 1:
+            _chunks_alone(lib, name, c, Wk, Ik, accel, out, plan)
         fwd = fwd or (c, Wk, Ik, out)
         if name == "2N=402 S=8 B=64":
             wide = (c, Wk, Ik)
@@ -417,9 +553,11 @@ def phase_kernel(card: str) -> dict:
                      "fp32_bound_ms": fp32_ms,
                      "max_iters": max_iters,
                      "us_per_substep_slowest": 1e3 * ms / max_iters,
-                     "cluster": cluster, "circuits_at_once": at_once,
-                     "smem_bytes": ssn_solve.smem_bytes(n2, S, accel,
-                                                        cluster),
+                     "cluster": cluster, "rows_per_chunk": plan.rows,
+                     "chunks": plan.chunks, "chunks_at_once": at_once,
+                     "circuits_at_once": at_once / plan.chunks,
+                     "smem_bytes": ssn_solve.smem_bytes(n2, plan.rows,
+                                                        accel, cluster),
                      "max_abs_err": err})
         _line(f"[time] ssn_solve {name} (2N={n2}, S={S}, atol {c.atol}"
               f"{', Anderson' if accel else ''}): kernel {ms:.3f} ms (median "
@@ -429,10 +567,14 @@ def phase_kernel(card: str) -> dict:
               f"fp32 peak {ab.PEAK_FP32_FLOPS:.3g} FLOP/s {fp32_ms:.4f} ms, "
               f"share {fp32_ms / ms:.4f}; slowest circuit "
               f"{1e3 * ms / max_iters:.3f} us per substep over {max_iters} "
-              f"iters; {cluster} block(s) per circuit, "
+              f"iters; plan: {plan.chunks} chunk(s) of {plan.rows} rows "
+              f"per circuit, {cluster} block(s) per chunk, "
               f"{rows[-1]['smem_bytes']} B of shared memory per block, "
-              f"{at_once} circuits at once ({card})")
+              f"{at_once} chunks ({at_once / plan.chunks:g} circuits) at "
+              f"once ({card})")
     _wide_witness(card)
+    _forced_split(lib)
+    _split_witness(card, lib)
 
     # variants on the forward slice (N=51, S=8); soft bounds under the
     # slice's peak rate, so the saturating branches of asym_tanh and
@@ -490,9 +632,9 @@ def phase_kernel(card: str) -> dict:
 
 
 def _forward_argv(datastore, contrasts, total, N=SLICE_SSN["N"],
-                  batch=BATCH, backend="cuda"):
+                  batch=BATCH, backend="cuda", accel=False):
     """``run.forward`` on the slice's circuit at width N, J and D scaled by
-    51 / N as ``ab.problem`` scales them."""
+    51 / N as ``ab.problem`` scales them; Anderson(1) with ``accel``."""
     flat = lambda v: [str(x) for x in v]  # noqa: E731
     scale = lambda v: [str(SLICE_SSN["N"] / N * x) for x in v]  # noqa: E731
     return [
@@ -506,6 +648,7 @@ def _forward_argv(datastore, contrasts, total, N=SLICE_SSN["N"],
         "--J", *scale(SLICE_J), "--D", *scale(SLICE_D), "--S", *flat(SLICE_S),
         "--bandwidths", *flat(BANDWIDTHS), "--contrasts", *flat(contrasts),
         "--batch-size", str(batch), "--total-samples", str(total),
+        "--accel", "anderson" if accel else "none",
     ]
 
 
@@ -596,59 +739,77 @@ def phase_main_path() -> int:
     return launches
 
 
-def phase_wide_forward(card: str) -> int:
-    """The paper's circuit, N=201 (2N=402: clusters of blocks), through
-    ``run.forward``: WIDE_FWD_BATCHES batches of WIDE_FWD_BATCH circuits on
-    the 8-bandwidth battery at contrast 10, J and D scaled by 51 / 201; one
-    launch per batch, batch 0 against the plain solve; then the same
-    command line with the reference's ``--solver-backend pallas``."""
+def _wide_forward(card, tag, store, n_batches, backend="cuda",
+                  contrasts=(CONTRAST,), accel=False) -> int:
+    """``run.forward --N 201`` (J and D scaled by 51 / 201) for
+    ``n_batches`` batches of WIDE_FWD_BATCH circuits: one launch per batch,
+    the rates' shape, finite values, convergence and, on the CUDA backend,
+    batch 0 against the plain solve. Returns the launches."""
     import numpy as np
 
     from tcgan_torch.ops.cuda import ssn_solve
     from tcgan_torch.run import forward
 
-    launches = 0
+    total = n_batches * WIDE_FWD_BATCH
+    argv = _forward_argv(store, contrasts, total, N=WIDE_FWD_N,
+                         batch=WIDE_FWD_BATCH, backend=backend, accel=accel)
+    plan = ssn_solve.plan(2 * WIDE_FWD_N, len(BANDWIDTHS) * len(contrasts),
+                          accel)
+    ssn_solve.launches = 0
+    t0 = time.perf_counter()
+    rc = forward.main(argv)
+    n = ssn_solve.launches
+    info = json.loads((store / "info.json").read_text())
+    summary = info["summary"]
+    data = np.load(store / "tuning_curves.npz")
+    _line(f"[{tag}] run.forward --N {WIDE_FWD_N} --contrasts "
+          f"{' '.join(f'{c:g}' for c in contrasts)} --accel "
+          f"{'anderson' if accel else 'none'} --solver-backend {backend}: "
+          f"rc {rc} in {time.perf_counter() - t0:.1f} s; kernel launches {n} "
+          f"for {n_batches} batches of {WIDE_FWD_BATCH} (plan: "
+          f"{plan.chunks} chunk(s) of {plan.rows} rows on {plan.cluster} "
+          f"block(s)); recorded backend {info['config']['solver_backend']}; "
+          f"frac_converged {summary['frac_converged']} frac_diverged "
+          f"{summary['frac_diverged']} mean_iters "
+          f"{summary['mean_iters']:.1f} circuits_per_sec "
+          f"{summary['circuits_per_sec']:.1f} ({card})")
+    if rc != 0 or n != n_batches or summary["kernel_launches"] != n:
+        raise AssertionError(f"{tag} forward {backend}: rc {rc}, launches "
+                             f"{n}")
+    if info["config"]["solver_backend"] != "cuda":
+        raise AssertionError(f"{tag} forward: backend not stored as cuda")
+    if data["rates"].shape != (total, len(BANDWIDTHS) * len(contrasts),
+                               2 * WIDE_FWD_N) or not np.isfinite(
+                                   data["rates"]).all():
+        raise AssertionError(f"{tag} forward: rates wrong or non-finite")
+    if summary["frac_converged"] <= WIDE_FWD_MIN_CONVERGED:
+        raise AssertionError(f"{tag} forward: frac_converged "
+                             f"{summary['frac_converged']}")
+    if backend == "cuda":
+        _batch0_against_plain(tag, argv, data)
+    return n
+
+
+def phase_wide_forward(card: str) -> int:
+    """The paper's circuit, N=201 (2N=402: clusters of blocks), through
+    ``run.forward``: WIDE_FWD_BATCHES batches on the 8-bandwidth battery at
+    contrast 10, then the same command line with the reference's
+    ``--solver-backend pallas`` for 2."""
     with tempfile.TemporaryDirectory() as tmp:
-        for backend, n_batches in (("cuda", WIDE_FWD_BATCHES),
-                                   ("pallas", 2)):
-            store = Path(tmp) / backend
-            total = n_batches * WIDE_FWD_BATCH
-            argv = _forward_argv(store, (CONTRAST,), total, N=WIDE_FWD_N,
-                                 batch=WIDE_FWD_BATCH, backend=backend)
-            ssn_solve.launches = 0
-            t0 = time.perf_counter()
-            rc = forward.main(argv)
-            n = ssn_solve.launches
-            info = json.loads((store / "info.json").read_text())
-            summary = info["summary"]
-            data = np.load(store / "tuning_curves.npz")
-            _line(f"[wide] run.forward --N {WIDE_FWD_N} --solver-backend "
-                  f"{backend}: rc {rc} in {time.perf_counter() - t0:.1f} s; "
-                  f"kernel launches {n} for {n_batches} batches of "
-                  f"{WIDE_FWD_BATCH}; recorded backend "
-                  f"{info['config']['solver_backend']}; frac_converged "
-                  f"{summary['frac_converged']} frac_diverged "
-                  f"{summary['frac_diverged']} mean_iters "
-                  f"{summary['mean_iters']:.1f} circuits_per_sec "
-                  f"{summary['circuits_per_sec']:.1f} ({card})")
-            if rc != 0 or n != n_batches or summary["kernel_launches"] != n:
-                raise AssertionError(f"wide forward {backend}: rc {rc}, "
-                                     f"launches {n}")
-            if info["config"]["solver_backend"] != "cuda":
-                raise AssertionError("wide forward: backend not stored as "
-                                     "cuda")
-            if data["rates"].shape != (total, len(BANDWIDTHS),
-                                       2 * WIDE_FWD_N) or not np.isfinite(
-                                           data["rates"]).all():
-                raise AssertionError("wide forward: rates wrong or "
-                                     "non-finite")
-            if summary["frac_converged"] <= WIDE_FWD_MIN_CONVERGED:
-                raise AssertionError(f"wide forward: frac_converged "
-                                     f"{summary['frac_converged']}")
-            if backend == "cuda":
-                _batch0_against_plain("wide", argv, data)
-            launches += n
-    return launches
+        return sum(_wide_forward(card, "wide", Path(tmp) / backend, batches,
+                                 backend)
+                   for backend, batches in (("cuda", WIDE_FWD_BATCHES),
+                                            ("pallas", 2)))
+
+
+def phase_split_forward(card: str) -> int:
+    """N=201 with the 32-row battery (contrasts 5, 10, 13, 20) and
+    Anderson through ``run.forward``: past a cluster of 8, so each
+    circuit's rows are solved in chunks (4 of 8 rows), still one launch
+    per batch; 2 batches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return _wide_forward(card, "split", Path(tmp) / "split", 2,
+                             contrasts=SPLIT_FWD_CONTRASTS, accel=True)
 
 
 def _gan_problem(batch, ssn_kw, contrasts, seed=SEED, **gen_kw):
@@ -2260,6 +2421,8 @@ def main() -> int:
     kernel = _timed(3, phase_kernel, card)
     by_path = {"run.forward": _timed(4, phase_main_path)}
     by_path["run.forward --N 201"] = _timed("4b", phase_wide_forward, card)
+    by_path["run.forward --N 201, 32 rows, Anderson"] = _timed(
+        "4c", phase_split_forward, card)
     _timed(5, phase_ift, card)
     with tempfile.TemporaryDirectory() as work:
         work = Path(work)

@@ -76,10 +76,11 @@
 //   rB   rows * ld
 //   [accel] rst, rip, fpv  rows * ld each: chunk input, previous chunk
 //                          input, previous chunk displacement
-//   flag S ints (0 active, 1 converged, 2 diverged), iters S ints,
+//   flag R ints (0 active, 1 converged, 2 diverged), iters R ints,
 //   err rows ints (max |delta| of the chunk's last substep, as float bits),
 //   live rows / 8 ints (active rows per n8 tile), n_active 1 int
-// with rows = round_up(S, 8) and ld the least stride >= n2 that is 4 mod 8,
+// with R the rows a block solves (S, or a chunk of them: below), rows =
+// round_up(R, 8) and ld the least stride >= n2 that is 4 mod 8,
 // so the fragment loads and the rate stores hit 32 distinct banks
 // (round_up(n2, 4) where that padding would not fit).
 //
@@ -104,6 +105,21 @@
 // work per substep is the same as in one block, spread over c SMs; a
 // substep adds c remote stores per rate and the cluster barrier's latency.
 // c = 1 is the single-block kernel, with the cluster code compiled out.
+//
+// Batteries past a cluster of 8 (both rate planes of every row sit whole in
+// every block, so the largest 2N falls as S grows). A circuit's rows are
+// independent: each has its own residual, peak, flags, iters, frozen update
+// and Anderson sums, and the chunk count that gates Anderson is the same for
+// every row. So the launch plan (plan(), mirrored by
+// tcgan_torch/ops/cuda/ssn_solve.py::plan) splits the S rows into K chunks
+// of R rows, each solved by its own block or cluster against the circuit's
+// whole W, which computes what one launch over all S rows computes. Where a
+// cluster of 1, 2, 4 or 8 fits the whole battery the plan is R = S, K = 1
+// and the launch is the one above. Otherwise it takes the least c at which
+// an 8-row chunk fits, the most rows (a multiple of 8) that fit there, K =
+// ceil(S / that), and R = round_up(ceil(S / K), 8) to balance the chunks.
+// The grid holds B * K clusters of c blocks, circuit-major; each chunk reads
+// W from device memory once more.
 
 #include <cooperative_groups.h>
 #include <algorithm>
@@ -127,7 +143,9 @@ constexpr size_t kMaxSmemBytes = 232448;  // a block's dynamic shared memory on 
 constexpr int kClusterSizes[] = {1, 2, 4, 8};  // 8: the portable maximum
 
 struct Params {
-  int n2, S, ld, rows, ktiles, ntiles;
+  // S_all: the battery's rows; R: rows per chunk (S_all in one chunk);
+  // chunks: chunks per circuit; rows, ntiles: R rounded up to n8 tiles
+  int n2, S_all, R, chunks, ld, rows, ktiles, ntiles;
   int io_type;  // 0 asym_power, 1 asym_tanh, 2 asym_linear
   float k, n, r0, r1, u0, slope;
   float atol, rate_stop_at, ceiling;
@@ -254,7 +272,7 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
                  int* __restrict__ iters_out, Params p) {
   extern __shared__ float4 smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
-  const int n2 = p.n2, S = p.S, ld = p.ld, rows = p.rows;
+  const int n2 = p.n2, ld = p.ld, rows = p.rows;
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -262,7 +280,11 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
   // cluster)
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = kCluster ? (int)cluster.block_rank() : 0;
-  const int b = kCluster ? blockIdx.x / p.cluster : blockIdx.x;
+  // this block's circuit b and chunk of rows row0 .. row0 + S - 1
+  const int q_circ = kCluster ? blockIdx.x / p.cluster : blockIdx.x;
+  const int b = q_circ / p.chunks;
+  const int row0 = (q_circ - b * p.chunks) * p.R;
+  const int S = min(p.R, p.S_all - row0);
   const int base = kCluster ? rank * p.slab : 0;
   const int own = kCluster ? max(0, min(p.slab, n2 - base)) : n2;
   const int lds = kCluster ? p.lds : ld;
@@ -276,8 +298,8 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
   float* rip = rst + splane;
   float* fpv = rip + splane;
   int* flag = reinterpret_cast<int*>(p.accel ? fpv + splane : rst);
-  int* iters = flag + S;
-  int* err = iters + S;
+  int* iters = flag + p.R;
+  int* err = iters + p.R;
   int* live = err + rows;
   int* n_active = live + p.ntiles;
   // cluster path with Anderson: per rank and row, the partial num, den and
@@ -297,9 +319,10 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
     int i = e / n2, j = e - i * n2;
     Ws[i * ld + j] = Wb[e];
   }
+  const float* Ib = I + (size_t)row0 * n2;
   for (int e = tid; e < S * n2; e += nthreads) {
     int s = e / n2, i = e - s * n2;
-    float x = I[e];
+    float x = Ib[e];
     if (!kCluster || (i >= base && i < base + own)) Is[s * lds + i - base] = x;
     cur[s * ld + i] = p.init_ff ? io_fun(x, p) : 0.0f;
   }
@@ -653,7 +676,8 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
       __syncthreads();
   }
 
-  float* rb = r_out + (size_t)b * S * n2;
+  const size_t out0 = (size_t)b * p.S_all + row0;  // this chunk's first output row
+  float* rb = r_out + out0 * n2;
   if constexpr (kCluster) {
     for (int e = tid; e < S * own; e += nthreads) {
       int s = e / own, l = e - s * own;
@@ -669,9 +693,9 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
     }
   }
   for (int s = tid; s < S; s += nthreads) {
-    conv_out[(size_t)b * S + s] = flag[s] == 1;
-    div_out[(size_t)b * S + s] = flag[s] == 2;
-    iters_out[(size_t)b * S + s] = iters[s];
+    conv_out[out0 + s] = flag[s] == 1;
+    div_out[out0 + s] = flag[s] == 2;
+    iters_out[out0 + s] = iters[s];
   }
 }
 
@@ -698,52 +722,80 @@ Kernel kernel_for(int n2, int S, int cluster) {
 // Neurons per block of a cluster of c: one warp per m16 slab of them.
 int slab(int n2, int c) { return round_up((n2 + c - 1) / c, kTileM); }
 
-// The shared-memory layout of the header at cluster size c: W's rows of the
-// block's slab (all n2 at c = 1) and both rate planes at stride ld, Is and
-// the Anderson planes at stride lds (= ld at c = 1), then the ints and, in
-// a cluster with Anderson, the per-rank exchange.
-size_t layout_bytes(int n2, int S, int accel, int c, int ld, int lds) {
-  const size_t rows = round_up(S, kTileN);
+// The shared-memory layout of the header at cluster size c for R rows: W's
+// rows of the block's slab (all n2 at c = 1) and both rate planes at stride
+// ld, Is and the Anderson planes at stride lds (= ld at c = 1), then the
+// ints and, in a cluster with Anderson, the per-rank exchange.
+size_t layout_bytes(int n2, int R, int accel, int c, int ld, int lds) {
+  const size_t rows = round_up(R, kTileN);
   const size_t w = std::min(slab(n2, c), n2);
   const size_t floats = w * ld + 2 * rows * ld + rows * lds * (accel ? 4 : 1);
-  const size_t ints = 2 * (size_t)S + rows + rows / kTileN + 1 +
+  const size_t ints = 2 * (size_t)R + rows + rows / kTileN + 1 +
                       (c > 1 && accel ? 3 * (size_t)c * rows : 0);
   return (floats + ints) * 4;
 }
 
 struct Layout {
-  int cluster;  // 0: no cluster size fits
+  int cluster;  // 0: does not fit
   int ld, lds;
   size_t bytes;
 };
 
-// The least cluster size whose layout fits a block, with its strides: the
-// least stride >= the row length that is 4 mod 8, so that the fragment
-// loads and the rate stores hit 32 distinct banks; round_up(length, 4)
-// where that padding would not fit (a few rows of floats at tiny N with
-// hundreds of rows).
-Layout layout(int n2, int S, int accel) {
+// The layout of R rows at cluster size c, with its strides: the least
+// stride >= the row length that is 4 mod 8, so that the fragment loads and
+// the rate stores hit 32 distinct banks; round_up(length, 4) where that
+// padding would not fit (a few rows of floats at tiny N with hundreds of
+// rows). cluster = 0 where it does not fit a block.
+Layout layout_at(int n2, int R, int accel, int c) {
+  const int w = std::min(slab(n2, c), n2);
+  if (32 * slab(n2, c) / kTileM > kMaxThreads) return Layout{0, 0, 0, 0};
+  Layout L{c, round_up(n2 + 4, 8) - 4, round_up(w + 4, 8) - 4, 0};
+  L.bytes = layout_bytes(n2, R, accel, c, L.ld, L.lds);
+  if (L.bytes > kMaxSmemBytes) {
+    L.ld = round_up(n2, 4);
+    L.lds = round_up(w, 4);
+    L.bytes = layout_bytes(n2, R, accel, c, L.ld, L.lds);
+  }
+  if (L.bytes > kMaxSmemBytes) L.cluster = 0;
+  return L;
+}
+
+// The least cluster size whose layout fits R rows.
+Layout layout(int n2, int R, int accel) {
   for (int c : kClusterSizes) {
-    const int w = std::min(slab(n2, c), n2);
-    if (32 * slab(n2, c) / kTileM > kMaxThreads) continue;
-    Layout L{c, round_up(n2 + 4, 8) - 4, round_up(w + 4, 8) - 4, 0};
-    L.bytes = layout_bytes(n2, S, accel, c, L.ld, L.lds);
-    if (L.bytes > kMaxSmemBytes) {
-      L.ld = round_up(n2, 4);
-      L.lds = round_up(w, 4);
-      L.bytes = layout_bytes(n2, S, accel, c, L.ld, L.lds);
-    }
-    if (L.bytes <= kMaxSmemBytes) return L;
+    const Layout L = layout_at(n2, R, accel, c);
+    if (L.cluster) return L;
   }
   return Layout{0, 0, 0, 0};
 }
 
-// The launch configuration of B circuits at this layout: B * c blocks in
-// clusters of c; `attr` backs the cluster attribute.
-cudaLaunchConfig_t launch_config(int B, int n2, const Layout& L, cudaStream_t stream,
+// The launch plan of an S-row battery (the header's row chunks): K chunks
+// of R rows at the layout L. `rows` > 0 forces R (the least cluster that
+// fits it). L.cluster = 0: not even an 8-row chunk fits a cluster of 8.
+struct Plan {
+  Layout L;
+  int rows, chunks;
+};
+
+Plan plan(int n2, int S, int accel, int rows) {
+  if (rows > 0) return Plan{layout(n2, rows, accel), rows, (S + rows - 1) / rows};
+  const Layout whole = layout(n2, S, accel);
+  if (whole.cluster) return Plan{whole, S, 1};
+  const Layout L8 = layout(n2, kTileN, accel);
+  if (!L8.cluster) return Plan{L8, 0, 0};
+  int R = kTileN;  // the most rows, a multiple of 8, that fit at L8's size
+  while (layout_at(n2, R + kTileN, accel, L8.cluster).cluster) R += kTileN;
+  const int K = (S + R - 1) / R;
+  R = round_up((S + K - 1) / K, kTileN);
+  return Plan{layout_at(n2, R, accel, L8.cluster), R, K};
+}
+
+// The launch configuration of `clusters` clusters of L.cluster blocks;
+// `attr` backs the cluster attribute.
+cudaLaunchConfig_t launch_config(int clusters, int n2, const Layout& L, cudaStream_t stream,
                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * L.cluster);
+  cfg.gridDim = dim3(clusters * L.cluster);
   cfg.blockDim = dim3(32 * slab(n2, L.cluster) / kTileM);
   cfg.dynamicSmemBytes = L.bytes;
   cfg.stream = stream;
@@ -756,39 +808,44 @@ cudaLaunchConfig_t launch_config(int B, int n2, const Layout& L, cudaStream_t st
   return cfg;
 }
 
-// The kernel of this shape with its dynamic shared memory admitted.
-cudaError_t prepare(int n2, int S, int accel, Layout* L, Kernel* kernel) {
-  *L = layout(n2, S, accel);
-  if (L->cluster == 0) return cudaErrorInvalidValue;
-  *kernel = kernel_for(n2, S, L->cluster);
+// The plan of this shape and its kernel, with the dynamic shared memory
+// admitted.
+cudaError_t prepare(int n2, int S, int accel, int rows, Plan* P, Kernel* kernel) {
+  *P = plan(n2, S, accel, rows);
+  if (P->L.cluster == 0) return cudaErrorInvalidValue;
+  *kernel = kernel_for(n2, P->rows, P->L.cluster);
   return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)L->bytes);
+                              (int)P->L.bytes);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the solve of B circuits on `stream`; returns the cudaError_t of
-// the attribute call, of the cluster occupancy check (cluster sizes > 1:
+// Launches the solve of B circuits on `stream` with R = `rows` rows per
+// chunk (0: the plan's); returns the cudaError_t of the attribute call, of
+// the cluster occupancy check (cluster sizes > 1:
 // cudaErrorLaunchOutOfResources when not one cluster fits the device) or
 // of the launch (cudaGetLastError), 0 on success; cudaErrorInvalidValue
 // when no layout fits.
-int ssn_solve_launch(const void* W, const void* I, const void* alpha, void* r,
-                     void* conv, void* div, void* iters, int B, int n2, int S,
-                     int io_type, float k, float n, float r0, float r1,
-                     float u0, float slope, float atol, float rate_stop_at,
-                     float ceiling, int max_iter, int check_every, int init_ff,
-                     int accel, void* stream) {
-  Layout L;
+int ssn_solve_launch_rows(const void* W, const void* I, const void* alpha, void* r,
+                          void* conv, void* div, void* iters, int B, int n2, int S,
+                          int io_type, float k, float n, float r0, float r1,
+                          float u0, float slope, float atol, float rate_stop_at,
+                          float ceiling, int max_iter, int check_every, int init_ff,
+                          int accel, void* stream, int rows) {
+  Plan P;
   Kernel kernel;
-  cudaError_t err = prepare(n2, S, accel, &L, &kernel);
+  cudaError_t err = prepare(n2, S, accel, rows, &P, &kernel);
   if (err != cudaSuccess) return (int)err;
+  const Layout& L = P.L;
   Params p;
   p.n2 = n2;
-  p.S = S;
+  p.S_all = S;
+  p.R = P.rows;
+  p.chunks = P.chunks;
   p.ld = L.ld;
-  p.rows = round_up(S, kTileN);
+  p.rows = round_up(P.rows, kTileN);
   p.ktiles = round_up(n2, kTileK) / kTileK;
   p.ntiles = p.rows / kTileN;
   p.io_type = io_type;
@@ -817,48 +874,66 @@ int ssn_solve_launch(const void* W, const void* I, const void* alpha, void* r,
   uint8_t* df = static_cast<uint8_t*>(div);
   int* itf = static_cast<int*>(iters);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int clusters = B * P.chunks;
   if (L.cluster == 1) {
-    kernel<<<B, 32 * slab(n2, 1) / kTileM, L.bytes, st>>>(Wf, If, af, rf, cf, df, itf, p);
+    kernel<<<clusters, 32 * slab(n2, 1) / kTileM, L.bytes, st>>>(Wf, If, af, rf, cf, df, itf, p);
     return (int)cudaGetLastError();
   }
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(B, n2, L, st, &attr);
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(kernel), &cfg);
+  const cudaLaunchConfig_t cfg = launch_config(clusters, n2, L, st, &attr);
+  int active = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, reinterpret_cast<const void*>(kernel), &cfg);
   if (err != cudaSuccess) return (int)err;
-  if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+  if (active < 1) return (int)cudaErrorLaunchOutOfResources;
   err = cudaLaunchKernelEx(&cfg, kernel, Wf, If, af, rf, cf, df, itf, p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+// ssn_solve_launch_rows at the plan's rows per chunk.
+int ssn_solve_launch(const void* W, const void* I, const void* alpha, void* r,
+                     void* conv, void* div, void* iters, int B, int n2, int S,
+                     int io_type, float k, float n, float r0, float r1,
+                     float u0, float slope, float atol, float rate_stop_at,
+                     float ceiling, int max_iter, int check_every, int init_ff,
+                     int accel, void* stream) {
+  return ssn_solve_launch_rows(W, I, alpha, r, conv, div, iters, B, n2, S, io_type, k, n, r0,
+                               r1, u0, slope, atol, rate_stop_at, ceiling, max_iter,
+                               check_every, init_ff, accel, stream, 0);
+}
+
 // Blocks of the compiled kernel that one SM of the current device holds at
-// this shape (the runtime's occupancy calculation: registers, threads and
-// dynamic shared memory); minus the cudaError_t on failure.
+// this shape's plan (the runtime's occupancy calculation: registers,
+// threads and dynamic shared memory); minus the cudaError_t on failure.
 int ssn_solve_blocks_per_sm(int n2, int S, int accel) {
-  Layout L;
+  Plan P;
   Kernel kernel;
-  cudaError_t err = prepare(n2, S, accel, &L, &kernel);
+  cudaError_t err = prepare(n2, S, accel, 0, &P, &kernel);
   int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, kernel, 32 * slab(n2, L.cluster) / kTileM, L.bytes);
+        &blocks, kernel, 32 * slab(n2, P.L.cluster) / kTileM, P.L.bytes);
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
-// Blocks per circuit at this shape: 1, or the cluster size; 0 when no
+// Blocks per chunk of rows at this shape: 1, or the cluster size; 0 when no
 // layout fits.
-int ssn_solve_cluster_size(int n2, int S, int accel) { return layout(n2, S, accel).cluster; }
+int ssn_solve_cluster_size(int n2, int S, int accel) { return plan(n2, S, accel, 0).L.cluster; }
 
-// Clusters of this shape that the current device runs at once (at cluster
-// size 1: blocks per SM times SMs), so B circuits take ceil(B / that)
-// waves; minus the cudaError_t on failure.
+// Rows per chunk at this shape (S where one chunk holds the battery;
+// ceil(S / that) chunks); 0 when no layout fits.
+int ssn_solve_rows_per_chunk(int n2, int S, int accel) { return plan(n2, S, accel, 0).rows; }
+
+// Clusters of this shape's plan that the current device runs at once (at
+// cluster size 1: blocks per SM times SMs), each solving one chunk of one
+// circuit's rows, so B circuits take ceil(B * chunks / that) waves; minus
+// the cudaError_t on failure.
 int ssn_solve_active_clusters(int n2, int S, int accel) {
-  Layout L;
+  Plan P;
   Kernel kernel;
-  cudaError_t err = prepare(n2, S, accel, &L, &kernel);
+  cudaError_t err = prepare(n2, S, accel, 0, &P, &kernel);
   if (err != cudaSuccess) return -(int)err;
-  if (L.cluster == 1) {
+  if (P.L.cluster == 1) {
     int dev = 0, sms = 0;
     err = cudaGetDevice(&dev);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -867,7 +942,7 @@ int ssn_solve_active_clusters(int n2, int S, int accel) {
     return blocks < 0 ? blocks : blocks * sms;
   }
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(L.cluster, n2, L, nullptr, &attr);
+  const cudaLaunchConfig_t cfg = launch_config(P.L.cluster, n2, P.L, nullptr, &attr);
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(kernel), &cfg);
   return err == cudaSuccess ? clusters : -(int)err;

@@ -13,8 +13,12 @@ kernel is bound by its arithmetic and, at small batches, by the slowest
 circuit's substep latency (see the note at the top of the CUDA source).
 A circuit whose state passes one block's shared memory (2N beyond about
 220, the paper's N=201 among them) is solved by a thread-block cluster of
-2, 4 or 8 blocks (:func:`cluster_size`), each holding a slab of W's rows
-and exchanging rates through distributed shared memory.
+2, 4 or 8 blocks, each holding a slab of W's rows and exchanging rates
+through distributed shared memory. A battery too large for a cluster of 8
+is split into chunks of rows, each solved by its own block or cluster
+against the circuit's whole W (the rows are independent, so this computes
+what one block over all rows computes); :func:`plan` gives the cluster size
+and the chunks.
 
 Precision (``KERNEL_PRECISION``): the mat-vec is 3xTF32, i.e. each fp32
 operand is split into a TF32 high part and a TF32 low part and the products
@@ -38,6 +42,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -92,19 +97,58 @@ def smem_bytes(n2: int, S: int, accel: bool, cluster: int = 1) -> int:
                          _round_up(w, 4))
 
 
-def cluster_size(n2: int, S: int, accel: bool) -> int:
-    """Blocks per circuit the kernel takes at this shape: the least of
-    :data:`CLUSTER_SIZES` whose layout fits a block (1 for every shape one
-    block held before clusters). Raises ``ValueError`` beyond 8."""
+class Plan(NamedTuple):
+    """How the kernel launches an S-row battery: ``chunks`` chunks of
+    ``rows`` rows per circuit (the last may be shorter), each on a cluster
+    of ``cluster`` blocks."""
+
+    cluster: int
+    rows: int
+    chunks: int
+
+
+def _fits(n2: int, R: int, accel: bool, cluster: int) -> bool:
+    return (32 * slab(n2, cluster) // TILE_M <= MAX_THREADS
+            and smem_bytes(n2, R, accel, cluster) <= MAX_SMEM_BYTES)
+
+
+@functools.cache
+def _max_rows(n2: int, accel: bool, cluster: int) -> int:
+    """The most rows, a multiple of 8, whose layout fits at this cluster
+    size (at least 8: called where 8 fit)."""
+    R = TILE_N
+    while _fits(n2, R + TILE_N, accel, cluster):
+        R += TILE_N
+    return R
+
+
+def plan(n2: int, S: int, accel: bool, rows: int | None = None) -> Plan:
+    """The launch plan of ``plan()`` in ``ssn_solve.cu``. Where a cluster
+    of :data:`CLUSTER_SIZES` fits the whole battery: the least such, one
+    chunk of S rows. Otherwise the least cluster size at which an 8-row
+    chunk fits, K = ceil(S / the most rows that fit there) chunks of
+    round_up(ceil(S / K), 8) rows. ``rows`` forces the rows per chunk (at
+    the least cluster size that fits them). Raises ``ValueError`` where not
+    even 8 rows fit a cluster of 8."""
+    if rows is not None:
+        c = next((c for c in CLUSTER_SIZES if _fits(n2, rows, accel, c)), 0)
+        if rows < 1 or not c:
+            raise ValueError(f"2N={n2}: no cluster size fits a chunk of "
+                             f"{rows} rows")
+        return Plan(c, rows, -(-S // rows))
     for c in CLUSTER_SIZES:
-        if (32 * slab(n2, c) // TILE_M <= MAX_THREADS
-                and smem_bytes(n2, S, accel, c) <= MAX_SMEM_BYTES):
-            return c
-    c = CLUSTER_SIZES[-1]
-    raise ValueError(
-        f"2N={n2}, S={S}{' with Anderson' if accel else ''} needs "
-        f"{smem_bytes(n2, S, accel, c)} bytes of shared memory per block at "
-        f"cluster size {c}, the largest tried; the limit is {MAX_SMEM_BYTES}")
+        if _fits(n2, S, accel, c):
+            return Plan(c, S, 1)
+    c = next((c for c in CLUSTER_SIZES if _fits(n2, TILE_N, accel, c)), 0)
+    if not c:
+        big = CLUSTER_SIZES[-1]
+        raise ValueError(
+            f"2N={n2}{' with Anderson' if accel else ''}: an 8-row chunk "
+            f"needs {smem_bytes(n2, TILE_N, accel, big)} bytes of shared "
+            f"memory per block at cluster size {big}, the largest tried; the "
+            f"limit is {MAX_SMEM_BYTES}")
+    chunks = -(-S // _max_rows(n2, accel, c))
+    return Plan(c, _round_up(-(-S // chunks), TILE_N), chunks)
 
 
 def solve_fixed_point_plain(cfg: SSNConfig, W: torch.Tensor,
@@ -129,11 +173,17 @@ def bind(path) -> ctypes.CDLL:
     lib.ssn_solve_error_string.restype = ctypes.c_char_p
     lib.ssn_solve_blocks_per_sm.argtypes = [i, i, i]
     lib.ssn_solve_blocks_per_sm.restype = i
-    for name in ("ssn_solve_cluster_size", "ssn_solve_active_clusters"):
-        fn = getattr(lib, name, None)  # absent from pre-cluster builds
+    # absent from earlier builds: the cluster queries, the row chunks
+    for name in ("ssn_solve_cluster_size", "ssn_solve_active_clusters",
+                 "ssn_solve_rows_per_chunk"):
+        fn = getattr(lib, name, None)
         if fn is not None:
             fn.argtypes = [i, i, i]
             fn.restype = i
+    fn = getattr(lib, "ssn_solve_launch_rows", None)
+    if fn is not None:
+        fn.argtypes = lib.ssn_solve_launch.argtypes + [i]
+        fn.restype = i
     return lib
 
 
@@ -161,9 +211,10 @@ def blocks_per_sm(n2: int, S: int, accel: bool = False,
 
 def active_clusters(n2: int, S: int, accel: bool = False,
                     device: torch.device | str = "cuda") -> tuple[int, int]:
-    """(blocks per circuit, circuits ``device`` solves at once) at this
-    shape, by the CUDA runtime (at one block per circuit: blocks per SM
-    times SMs); a batch of B circuits runs in ceil(B / that) waves."""
+    """(blocks per chunk of rows, chunks ``device`` solves at once) at this
+    shape's plan, by the CUDA runtime (at one block per chunk: blocks per
+    SM times SMs); a batch of B circuits in K chunks each runs in
+    ceil(B K / that) waves."""
     lib = _library()
     with torch.cuda.device(device):
         c = lib.ssn_solve_cluster_size(n2, S, int(accel))
@@ -181,10 +232,10 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
     """Fixed-point solve of W (B, 2N, 2N) under a shared battery I (S, 2N).
 
     Returns fp32 rates (B, S, 2N), bool converged/diverged (B, S) and int32
-    iters (B, S), on the inputs' device. Raises ``ValueError`` when one
-    circuit's state does not fit a cluster of 8 blocks
-    (:func:`cluster_size`; every 2N <= 512 at S <= 16 fits), and
-    ``RuntimeError`` when the launch fails.
+    iters (B, S), on the inputs' device, one launch for any S. Raises
+    ``ValueError`` where not even an 8-row chunk fits a cluster of 8 blocks
+    (:func:`plan`; every S fits at 2N <= 596, and at 2N <= 576 with
+    Anderson), and ``RuntimeError`` when the launch fails.
     """
     global launches
     if (W.ndim != 3 or I_ext.ndim != 2 or W.shape[1] != W.shape[2]
@@ -195,7 +246,7 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
         raise ValueError(f"check_every must be >= 1; got {check_every}")
     B, n2 = W.shape[0], W.shape[2]
     S = I_ext.shape[0]
-    cluster_size(n2, S, accel)  # raises beyond the largest cluster
+    plan(n2, S, accel)  # raises where not even 8 rows fit a cluster
     if W.device.type == "cpu" and I_ext.device.type == "cpu":
         return solve_fixed_point_plain(cfg, W, I_ext, check_every, accel)
     if W.device.type != "cuda" or I_ext.device != W.device:
@@ -219,11 +270,14 @@ def _outputs(B: int, S: int, n2: int, device) -> fixed_point.FixedPointResult:
 
 
 def launch(lib: ctypes.CDLL, cfg: SSNConfig, W: torch.Tensor,
-           I_ext: torch.Tensor, check_every: int, accel: bool
+           I_ext: torch.Tensor, check_every: int, accel: bool,
+           rows_per_chunk: int | None = None
            ) -> fixed_point.FixedPointResult:
     """One launch of the solver in ``lib`` (see :func:`bind`) on CUDA
     tensors that :func:`solve_fixed_point_cuda` has checked; raises if the
-    launch fails. Counts nothing."""
+    launch fails. Counts nothing. ``rows_per_chunk`` forces the plan's rows
+    per chunk (``plan(..., rows=)``), so that a split launch can be held to
+    an unsplit one."""
     B, n2, S = W.shape[0], W.shape[2], I_ext.shape[0]
     device = W.device
     W32 = W.to(torch.float32).contiguous()
@@ -232,14 +286,17 @@ def launch(lib: ctypes.CDLL, cfg: SSNConfig, W: torch.Tensor,
     r, conv, div, iters = out = _outputs(B, S, n2, device)
     u0, slope = io_funs.linear_knee(cfg.k, cfg.n, cfg.rate_soft_bound)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    with torch.cuda.device(device):
-        err = lib.ssn_solve_launch(
-            ptr(W32), ptr(I32), ptr(alpha), ptr(r), ptr(conv), ptr(div),
+    args = [ptr(W32), ptr(I32), ptr(alpha), ptr(r), ptr(conv), ptr(div),
             ptr(iters), B, n2, S, _IO_CODES[cfg.io_type], cfg.k, cfg.n,
             cfg.rate_soft_bound, cfg.rate_hard_bound, u0, slope, cfg.atol,
             cfg.rate_stop_at, 10.0 * cfg.rate_stop_at, cfg.max_iter,
             check_every, int(cfg.init == "feedforward"), int(accel),
-            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)]
+    with torch.cuda.device(device):
+        if rows_per_chunk is None:
+            err = lib.ssn_solve_launch(*args)
+        else:
+            err = lib.ssn_solve_launch_rows(*args, rows_per_chunk)
     if err:
         raise RuntimeError(
             f"ssn_solve launch failed: cudaError {err} "

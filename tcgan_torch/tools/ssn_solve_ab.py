@@ -1,9 +1,11 @@
 """The SSN solver kernel's benchmark circuit, its bound, and the kernel against
 another build of its source, in turns.
 
-:data:`SHAPES`, :func:`problem`, :func:`bound`, :func:`median_ms` and
-:func:`card` are what ``chip_smoke.py`` and the card tests use. Run as a
-script on a machine with one CUDA device, from the repository root:
+:data:`SHAPES`, :data:`CLUSTER_SHAPES`, :data:`SPLIT_SHAPES`,
+:func:`problem`, :func:`bound`, :func:`off_own_trajectory`,
+:func:`median_ms` and :func:`card` are what ``chip_smoke.py`` and the card
+tests use. Run as a script on a machine with one CUDA device, from the
+repository root:
 
     python -m tcgan_torch.tools.ssn_solve_ab --baseline OLD/ssn_solve.cu \\
         [--out runs/ssn_solve_ab.json]
@@ -14,14 +16,16 @@ a git-ignored directory); it is compiled with the flags of
 ``tcgan_torch/ops/cuda/build.py``. At each shape of :data:`SHAPES` both
 kernels solve the same inputs in turns: baseline, this, this, baseline, each
 turn the median of ``--reps`` launches timed with CUDA events (at
-:data:`CLUSTER_SHAPES`, which a baseline without thread-block clusters
-refuses, this kernel alone). Printed per
+:data:`CLUSTER_SHAPES` and :data:`SPLIT_SHAPES`, which a baseline without
+thread-block clusters or row chunks refuses, this kernel alone). Printed per
 shape and kernel: the time, the bound from the run's own ``iters`` and its
 share, and the slowest circuit's time per substep (launch time / max iters),
 with the card's name and power limit; per kernel: registers and spills
 (ptxas), blocks per SM at 2N=102 with S=8 and 16 (the CUDA occupancy API),
-and the count of ``HMMA`` instructions in its SASS (cuobjdump). The two
-kernels' flags, iters and rates are compared with each other and with the
+and the count of ``HMMA`` instructions in its SASS (cuobjdump); per
+function of both builds, whether the two SASS listings are the same
+instructions. The two kernels' flags, iters and rates are compared with
+each other and with the
 fp32 plain solve (rows outside rtol/atol listed) on every shape, and on
 2N=224 with the slice's J and D unscaled, where near-critical rows stop at
 a chunk that depends on the order of the sums.
@@ -30,6 +34,7 @@ a chunk that depends on the order of the sums.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import re
@@ -86,6 +91,23 @@ CLUSTER_SHAPES = {
                                   dict(atol=1e-5, max_iter=10000), True),
     "2N=402 S=24 B=16": (201, 16, (5.0, CONTRAST, 13.0), {}, False),
     "2N=512 S=16 B=16": (256, 16, (5.0, CONTRAST), {}, False),
+}
+# Batteries past a cluster of 8, solved in chunks of rows (the plan beside
+# each: cluster size, rows per chunk, chunks): the paper's N=201 with four
+# and six contrasts, 2N=512 with three, N=51 with 32. Same key layout. With
+# Anderson, and over 16k rows at N=51, contrasts to 10: past it the chunk
+# at which a slow row stops moves with the rounding, the plain fp32 and
+# float64 solves stopping some rows several strides apart
+# (``chip_smoke.py::_split_witness`` runs those batteries to contrast 20).
+SPLIT_SHAPES = {
+    "2N=402 S=32 B=16 anderson": (201, 16, (2.5, 5.0, 7.5, CONTRAST), {},
+                                  True),  # 4, 8, 4
+    "2N=402 S=48 B=16": (201, 16, (2.5, 5.0, 7.5, CONTRAST, 13.0, 20.0), {},
+                         False),  # 4, 8, 6
+    "2N=512 S=24 B=16": (256, 16, (5.0, CONTRAST, 13.0), {},
+                         False),  # 8, 16, 2
+    "2N=102 S=256 B=64": (51, 64, tuple(0.3125 * k for k in range(1, 33)),
+                          {}, False),  # 1, 128, 2
 }
 
 
@@ -147,12 +169,34 @@ def median_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def off_own_trajectory(out, cfg, W, I, b, s, check_every, accel
+                       ) -> tuple[float, bool]:
+    """Max |dr| of row (b, s) of the kernel's rates from the plain fp32
+    solve of that row run to the kernel's own iters for it (atol 0), and
+    whether it lies within RTOL/ATOL: a row whose atol crossing lands a
+    chunk apart from the plain solve's (near criticality, where the order
+    of the sums decides it) must still be the right trajectory."""
+    it = int(out.iters[b, s])
+    rerun = ssn_solve.solve_fixed_point_plain(
+        dataclasses.replace(cfg, atol=0.0, max_iter=it), W[b:b + 1],
+        I[s:s + 1], check_every, accel).r[0, 0]
+    d = (out.r[b, s] - rerun).abs()
+    return float(d.max()), bool((d <= ATOL + RTOL * rerun.abs()).all())
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _kernel_name(fn: str) -> str:
+    """A mangled function name without its anonymous namespace, which
+    carries the source file's name and a hash, so that two builds' names
+    compare."""
+    return re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", fn)
 
 
 def _ptxas_report(log: str) -> dict:
@@ -163,7 +207,7 @@ def _ptxas_report(log: str) -> dict:
         m = re.search(r"(?:Compiling entry function|Function properties for)"
                       r" '?(\w+)'?", line)
         if m:
-            fn = m.group(1)
+            fn = _kernel_name(m.group(1))
             out.setdefault(fn, {})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -175,24 +219,32 @@ def _ptxas_report(log: str) -> dict:
     return {k: v for k, v in out.items() if "registers" in v}
 
 
-def _hmma_count(lib_path: Path) -> dict | None:
-    """HMMA instructions per function in the library's SASS, or None where
-    the toolkit has no cuobjdump."""
+def _sass_report(lib_path: Path) -> dict | None:
+    """Per function of the library's SASS: its instructions, its ``HMMA``
+    instructions and a digest of the listing without addresses and
+    encodings (equal digests: the same instructions); None where the
+    toolkit has no cuobjdump."""
     tool = Path(build.find_nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return None
     sass = subprocess.run([str(tool), "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    counts, fn = {}, None
+    listing, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = m.group(1)
-            counts[fn] = 0
-        elif fn and "HMMA" in line:
-            counts[fn] += 1
-    return counts
+            fn = _kernel_name(m.group(1))
+            listing[fn] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;?\s*/\* 0x", line)
+        if fn and m:
+            listing[fn].append(m.group(1))
+    return {fn: dict(instructions=len(ins),
+                     hmma=sum("HMMA" in i for i in ins),
+                     digest=hashlib.sha256("\n".join(ins).encode()
+                                           ).hexdigest()[:16])
+            for fn, ins in listing.items()}
 
 
 def _build_baseline(src: Path) -> tuple[Path, str]:
@@ -236,12 +288,18 @@ def main(argv=None) -> int:
                                ("this", (this.path, this.log))):
         lib = ssn_solve.bind(path)
         kernels[label] = dict(
-            lib=lib, ptxas=_ptxas_report(log), hmma=_hmma_count(path),
+            lib=lib, ptxas=_ptxas_report(log), sass=_sass_report(path),
             blocks_per_sm={f"2N=102 S={S}": lib.ssn_solve_blocks_per_sm(
                 102, S, 0) for S in (8, 16)})
-        print(f"[ab] {label}: ptxas {kernels[label]['ptxas']}; HMMA "
-              f"{kernels[label]['hmma']}; blocks per SM "
+        print(f"[ab] {label}: ptxas {kernels[label]['ptxas']}; SASS "
+              f"{kernels[label]['sass']}; blocks per SM "
               f"{kernels[label]['blocks_per_sm']}; {name}", flush=True)
+    old, new = kernels["baseline"]["sass"], kernels["this"]["sass"]
+    for fn in sorted(set(old or {}) & set(new or {})):
+        same = old[fn]["digest"] == new[fn]["digest"]
+        print(f"[ab] SASS {fn}: {'the same' if same else 'differs'} "
+              f"({old[fn]['instructions']} -> {new[fn]['instructions']} "
+              f"instructions)", flush=True)
 
     report = {"card": name, "reps": args.reps, "shapes": {}, "kernels": {
         k: {kk: vv for kk, vv in v.items() if kk != "lib"}
@@ -249,7 +307,8 @@ def main(argv=None) -> int:
     cases = {k: (b, c, kw, {}, False) for k, (b, c, kw) in SHAPES.items()}
     cases["wide 2N=224 S=8, J and D unscaled"] = (
         WIDE_BATCH, (CONTRAST,), {}, dict(N=WIDE_N, rescale=False), False)
-    for k, (N, b, c, kw, accel) in CLUSTER_SHAPES.items():
+    for k, (N, b, c, kw, accel) in {**CLUSTER_SHAPES,
+                                    **SPLIT_SHAPES}.items():
         cases[k] = (b, c, kw, dict(N=N), accel)
     for shape, (batch, contrasts, overrides, kw, accel) in cases.items():
         cfg, W, I = problem(batch, contrasts, overrides, **kw)
@@ -287,9 +346,10 @@ def main(argv=None) -> int:
                   f"{max_iters} iters; rows both converged outside rtol "
                   f"{RTOL} atol {ATOL} of the fp32 plain solve: "
                   f"{rows[k]['rows_off_plain']}; {name}", flush=True)
-        c, n = ssn_solve.active_clusters(W.shape[-1], I.shape[0], accel)
-        rows["cluster"], rows["active_clusters"] = c, n
-        print(f"[ab] {shape}: cluster size {c}, {n} circuits at once",
+        _, n = ssn_solve.active_clusters(W.shape[-1], I.shape[0], accel)
+        rows["plan"] = ssn_solve.plan(W.shape[-1], I.shape[0], accel)
+        rows["active_clusters"] = n
+        print(f"[ab] {shape}: plan {rows['plan']}, {n} chunks at once",
               flush=True)
         if "baseline" not in outs:
             report["shapes"][shape] = rows

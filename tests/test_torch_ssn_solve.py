@@ -192,18 +192,27 @@ def test_shared_memory_limit_raises(n2, S, accel, cluster):
     """One circuit's state fits one block up to 2N=224 at S=8; past that a
     cluster of 2, 4 or 8 blocks takes it, each block's layout within the
     limit, up to every 2N <= 512 at S <= 16 and 2N=402 with the 24-row
-    battery and Anderson. Beyond a cluster of 8 the wrapper raises, on CPU
-    tensors too, naming the bytes and the cluster size tried."""
-    assert ssn_solve.cluster_size(n2, S, accel) == cluster
+    battery and Anderson. A battery past a cluster of 8 is solved in
+    chunks of rows (2N=512 at S=24 with Anderson, 2N=402 at S=64); where
+    not even an 8-row chunk fits a cluster of 8 (2N=598, 578 with
+    Anderson) the wrapper raises, on CPU tensors too, naming the chunk,
+    the bytes and the cluster size tried."""
+    assert ssn_solve.plan(n2, S, accel) == (cluster, S, 1)
     assert ssn_solve.smem_bytes(n2, S, accel, cluster) <= \
         ssn_solve.MAX_SMEM_BYTES
     if cluster > 1:  # the least cluster size that fits
         assert ssn_solve.smem_bytes(n2, S, accel, cluster // 2) > \
             ssn_solve.MAX_SMEM_BYTES
-    for n2, S, accel in ((512, 24, True), (600, 8, False), (402, 64, False)):
-        with pytest.raises(ValueError, match="cluster size 8") as e:
-            ssn_solve.cluster_size(n2, S, accel)
-        assert str(ssn_solve.smem_bytes(n2, S, accel, 8)) in str(e.value)
+    for n2, S, accel in ((512, 24, True), (402, 64, False)):
+        p = ssn_solve.plan(n2, S, accel)
+        assert p.chunks > 1 and ssn_solve.smem_bytes(
+            n2, p.rows, accel, p.cluster) <= ssn_solve.MAX_SMEM_BYTES
+    for n2, accel in ((598, False), (578, True)):
+        assert ssn_solve.plan(n2 - 2, 1000, accel).chunks > 1
+        with pytest.raises(ValueError, match="8-row chunk.*cluster size 8"
+                           ) as e:
+            ssn_solve.plan(n2, 8, accel)
+        assert str(ssn_solve.smem_bytes(n2, 8, accel, 8)) in str(e.value)
     with pytest.raises(ValueError, match=str(ssn_solve.MAX_SMEM_BYTES)):
         ssn_solve.solve_fixed_point_cuda(tssn.SSNConfig(N=300),
                                          torch.zeros(1, 600, 600),
@@ -214,18 +223,59 @@ def test_every_width_to_512_fits_a_cluster():
     for n2 in range(2, 513):
         for S in range(1, 17):
             for accel in (False, True):
-                c = ssn_solve.cluster_size(n2, S, accel)
+                c, R, K = ssn_solve.plan(n2, S, accel)
+                assert (R, K) == (S, 1)
                 assert ssn_solve.smem_bytes(n2, S, accel, c) <= \
                     ssn_solve.MAX_SMEM_BYTES
                 assert 32 * ssn_solve.slab(n2, c) // 16 <= 512
     for S in range(17, 25):
-        assert ssn_solve.cluster_size(402, S, True) == 8
+        assert ssn_solve.plan(402, S, True) == (8, S, 1)
 
 
-def test_cpu_path_matches_xla_at_paper_width():
-    """N=201 (2N=402, a cluster of 4 on the card), 2 circuits x 2 rows, J
-    and D scaled by 51 / 201 (``ssn_solve_ab.problem``): the wrapper's CPU
-    path against the reference's lockstep (XLA) solve."""
+@pytest.mark.parametrize("accel", [False, True])
+def test_plan_admits_every_battery(accel):
+    """Every 2N <= 576 at every S <= 256: each chunk's layout fits a block
+    with at most 512 threads, and the chunks cover the S rows exactly
+    (balanced, multiples of 8). Wherever a cluster size fits the whole
+    battery (every shape admitted before row chunks), the plan is the
+    least such and one chunk: those launches are unchanged."""
+    limit = ssn_solve.MAX_SMEM_BYTES
+    n_split = 0
+    for n2 in range(2, 577):
+        R_max = None  # the most rows, a multiple of 8, at the split's c
+        for S in range(1, 257):
+            c, R, K = ssn_solve.plan(n2, S, accel)
+            assert 32 * ssn_solve.slab(n2, c) // 16 <= 512
+            assert ssn_solve.smem_bytes(n2, R, accel, c) <= limit, (n2, S)
+            assert (K - 1) * R < S <= K * R, (n2, S)
+            whole = next((c for c in ssn_solve.CLUSTER_SIZES
+                          if 32 * ssn_solve.slab(n2, c) // 16 <= 512
+                          and ssn_solve.smem_bytes(n2, S, accel, c) <= limit),
+                         None)
+            if whole is not None:
+                assert (c, R, K) == (whole, S, 1), (n2, S)
+                continue
+            n_split += 1
+            assert R % 8 == 0 and K > 1, (n2, S)
+            # the least cluster size at which 8 rows fit, and no fewer
+            # chunks there
+            assert c == next(c for c in ssn_solve.CLUSTER_SIZES
+                             if ssn_solve.smem_bytes(n2, 8, accel, c) <= limit
+                             and 32 * ssn_solve.slab(n2, c) // 16 <= 512)
+            if R_max is None:
+                R_max = 8
+                while ssn_solve.smem_bytes(n2, R_max + 8, accel, c) <= limit:
+                    R_max += 8
+            assert K == -(-S // R_max), (n2, S)
+            assert R == 8 * -(-S // (8 * K)), (n2, S)  # balanced chunks
+    assert n_split > 10000
+
+
+def _paper_width_against_xla(bandwidths, contrasts, accel):
+    """N=201 (2N=402), 2 circuits, J and D scaled by 51 / 201
+    (``ssn_solve_ab.problem``): the wrapper's CPU path against the
+    reference's lockstep (XLA) solve; flags equal, rates within RTOL/ATOL.
+    Returns the CPU path's result."""
     from tcgan_tpu.ops import fixed_point as jfp
     from tcgan_torch.tools import ssn_solve_ab as ab
 
@@ -236,23 +286,74 @@ def test_cpu_path_matches_xla_at_paper_width():
     W = np.asarray(jw.build_weight(m22(ab.SLICE_J, scale),
                                    m22(ab.SLICE_D, scale), m22(ab.SLICE_S),
                                    z, x), dtype=np.float32)
-    I = np.asarray(jstim.stimulus_battery((0.25, 1.0), (ab.CONTRAST,),
+    I = np.asarray(jstim.stimulus_battery(bandwidths, contrasts,
                                           jnp.asarray(x), 0.03125),
                    dtype=np.float32)
-    kw = {**ab.SLICE_SSN, "N": N}
+    kw = {**ab.SLICE_SSN, "N": N, "accel": "anderson" if accel else "none"}
     ref = jfp.solve_fixed_point(jssn.SSNConfig(**kw), jnp.asarray(W),
                                 jnp.asarray(I), check_every=ab.CHECK_EVERY)
-    assert ssn_solve.cluster_size(2 * N, 2, False) == 4
     out = ssn_solve.solve_fixed_point_cuda(
         tssn.SSNConfig(**kw), torch.tensor(W), torch.tensor(I),
-        check_every=ab.CHECK_EVERY)
-    assert out.r.shape == (2, 2, 2 * N) and out.converged.all()
+        check_every=ab.CHECK_EVERY, accel=accel)
+    assert out.r.shape == (2, I.shape[0], 2 * N)
     np.testing.assert_array_equal(out.converged.numpy(),
                                   np.asarray(ref.converged))
     np.testing.assert_array_equal(out.diverged.numpy(),
                                   np.asarray(ref.diverged))
     np.testing.assert_allclose(out.r.numpy(), np.asarray(ref.r), rtol=RTOL,
                                atol=ATOL)
+    return out
+
+
+def test_cpu_path_matches_xla_at_paper_width():
+    """2 circuits x 2 rows: a cluster of 4 on the card."""
+    assert ssn_solve.plan(402, 2, False).cluster == 4
+    out = _paper_width_against_xla((0.25, 1.0), (10.0,), False)
+    assert out.converged.all()
+
+
+def test_cpu_path_matches_xla_at_split_shape():
+    """The 32-row battery (8 bandwidths x contrasts 5, 10, 13, 20) with
+    Anderson: on the card, 4 chunks of 8 rows on clusters of 4. The CPU
+    path solves the whole battery, which is what the chunks compute."""
+    from tcgan_torch.tools import ssn_solve_ab as ab
+
+    assert ssn_solve.plan(402, 32, True) == (4, 8, 4)
+    out = _paper_width_against_xla(ab.BANDWIDTHS, (5.0, 10.0, 13.0, 20.0),
+                                   True)
+    assert float(out.converged.float().mean()) > 0.9
+
+
+@pytest.mark.parametrize("accel", [False, True])
+def test_reference_rows_are_independent(accel):
+    """The reference kernel's rows are independent (each its own residual,
+    peak, flags, iters, frozen update and Anderson sums; the chunk count
+    gating Anderson is the same for every row), so a battery solved in
+    chunks of rows equals the battery solved whole, bit for bit: what the
+    CUDA kernel's row chunks rely on. 3 circuits, 20 rows (5 bandwidths x
+    4 contrasts), whole and as chunks of 7, 7 and 6. The widest rows at
+    contrast 20 stay unresolved at max_iter, so the last chunk runs on
+    after the others have stopped, as the whole battery does."""
+    W, _ = _problem(B=3)
+    x = np.linspace(-0.5, 0.5, BASE["N"])
+    I = np.asarray(jstim.stimulus_battery(
+        (0.0, 0.25, 0.5, 0.75, 1.0), (2.5, 5.0, 10.0, 20.0), jnp.asarray(x),
+        0.03125), dtype=np.float32)
+    cfg = jssn.SSNConfig(**BASE)
+
+    def solve(rows):
+        return solve_fixed_point_pallas(cfg, jnp.asarray(W), jnp.asarray(rows),
+                                        block_b=4, check_every=8,
+                                        interpret=True, two_phase=False,
+                                        accel=accel)
+
+    whole = solve(I)
+    parts = [solve(I[a:a + 7]) for a in range(0, 20, 7)]
+    assert 0.5 < np.asarray(whole.converged).mean() < 1.0
+    for field in ("r", "converged", "diverged", "iters"):
+        np.testing.assert_array_equal(
+            np.concatenate([np.asarray(getattr(p, field)) for p in parts],
+                           axis=1), np.asarray(getattr(whole, field)))
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):

@@ -60,10 +60,13 @@ def _problem(device, B=5, seed=11):
     return W, I
 
 
-def _check(cfg, W, I, check_every, accel, converged_rows_only=False):
+def _check(cfg, W, I, check_every, accel, converged_rows_only=False,
+           witness=False):
     """Kernel against plain: flags equal, rates within tolerance (on the
     rows both converged, where asked: a diverging or unresolved row's rates
-    depend on the summation order), iters within two strides."""
+    depend on the summation order; with ``witness``, a row outside it
+    passes on its own fp32 trajectory, ``ab.off_own_trajectory``), iters
+    within two strides."""
     before = ssn_solve.launches
     out = ssn_solve.solve_fixed_point_cuda(cfg, W, I, check_every, accel)
     ref = ssn_solve.solve_fixed_point_plain(cfg, W, I, check_every, accel)
@@ -74,6 +77,13 @@ def _check(cfg, W, I, check_every, accel, converged_rows_only=False):
     assert torch.equal(out.diverged, ref.diverged)
     rows = (out.converged & ref.converged if converged_rows_only
             else torch.ones_like(out.converged))
+    if witness:
+        off = rows & ((out.r - ref.r).abs()
+                      > ATOL + RTOL * ref.r.abs()).any(-1)
+        for b, s in off.nonzero().tolist():
+            assert ab.off_own_trajectory(out, cfg, W, I, b, s, check_every,
+                                         accel)[1], (b, s)
+            rows[b, s] = False
     torch.testing.assert_close(out.r[rows], ref.r[rows], rtol=RTOL,
                                atol=ATOL)
     d_iters = (out.iters.long() - ref.iters.long()).abs().max()
@@ -177,11 +187,62 @@ def test_cluster_kernel_matches_plain(cuda_device, case):
             cfg.site_pos(device=cuda_device), cfg.smoothness)
     else:
         cfg, W, I = ab.problem(B, contrasts, cfg_kw, N=N)
-    assert ssn_solve.cluster_size(2 * N, I.shape[0], accel) > 1
+    assert ssn_solve.plan(2 * N, I.shape[0], accel).cluster > 1
     out = _check(cfg, W, I, 32, accel, converged_rows_only=True)
     assert torch.isfinite(out.r).all()
     assert out.r.shape == (B, I.shape[0], 2 * N)
     assert float(out.converged.float().mean()) > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ab.SPLIT_SHAPES))
+def test_split_kernel_matches_plain(cuda_device, case):
+    """Batteries past a cluster of 8, each circuit's rows in chunks: flags
+    equal to the plain version's, rates within rtol/atol, and a row
+    outside them on its own fp32 trajectory to the kernel's iters."""
+    N, _, contrasts, cfg_kw, accel = ab.SPLIT_SHAPES[case]
+    cfg, W, I = ab.problem(4, contrasts, cfg_kw, N=N, seed=1)
+    assert ssn_solve.plan(2 * N, I.shape[0], accel).chunks > 1
+    out = _check(cfg, W, I, 32, accel, converged_rows_only=True,
+                 witness=True)
+    assert torch.isfinite(out.r).all()
+    assert float(out.converged.float().mean()) > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accel", [False, True])
+def test_forced_split_is_bit_equal(cuda_device, accel):
+    """2N=102, S=32 in one chunk and forced into 4 chunks of 8 rows, one
+    block per chunk either way: rates, flags and iters bit-equal."""
+    cfg, W, I = ab.problem(16, (2.5, 5.0, 10.0, 13.0), {}, seed=2)
+    assert ssn_solve.plan(102, 32, accel) == (1, 32, 1)
+    assert ssn_solve.plan(102, 32, accel, rows=8) == (1, 8, 4)
+    lib = ssn_solve._library()
+    whole = ssn_solve.launch(lib, cfg, W, I, 32, accel)
+    split = ssn_solve.launch(lib, cfg, W, I, 32, accel, rows_per_chunk=8)
+    torch.cuda.synchronize()
+    for a, b in zip(whole, split):
+        assert torch.equal(a, b)
+    assert float(whole.converged.float().mean()) > 0.5
+
+
+@pytest.mark.cuda
+def test_plan_matches_the_kernel(cuda_device):
+    """The wrapper's plan is the kernel's: cluster size and rows per chunk
+    from the C entry points over a grid of shapes, both refusing where not
+    even 8 rows fit a cluster of 8."""
+    lib = ssn_solve._library()
+    for n2 in (2, 26, 102, 224, 240, 402, 512, 576, 596, 598, 640):
+        for S in (1, 8, 17, 24, 32, 48, 64, 96, 184, 256, 1000):
+            for accel in (False, True):
+                c = lib.ssn_solve_cluster_size(n2, S, int(accel))
+                R = lib.ssn_solve_rows_per_chunk(n2, S, int(accel))
+                try:
+                    p = ssn_solve.plan(n2, S, accel)
+                except ValueError:
+                    assert (c, R) == (0, 0), (n2, S, accel)
+                    continue
+                assert (c, R) == p[:2], (n2, S, accel, p)
 
 
 @pytest.mark.cuda
