@@ -35,8 +35,14 @@ no result line):
    20 (phase 4c's at 2N=402 with Anderson, 32 contrasts at N=51) with
    flags and rates against the fp32 plain solve and their iters gaps
    beside those between the fp32 and float64 plain solves
-   (``_split_witness``); the plain version's time at 512 circuits and at
-   2N=402;
+   (``_split_witness``); past a cluster of 8's shared memory at 8 rows, W
+   read from device memory (``ssn_solve_ab.GLOBAL_SHAPES``: 2N=600 at S=8,
+   B=64, at the GAN battery (S=16, atol 1e-5) and S=24, B=16, and at S=32,
+   B=16 with Anderson, 2N=1024 at S=8, B=16, 2N=2048 at S=8, B=4), each
+   with its time, bound, share, plan and circuits at once;
+   the W-global path forced at 2N=402 (S=8, and S=32 with Anderson in row
+   chunks) held bit for bit to the shared-W launch; the plain version's
+   time at 512 circuits, at 2N=402 and at 2N=600;
 4. the serving path: ``python -m tcgan_torch.run.forward`` (through its
    ``main``) with the CUDA backend, 8 batches of 512 circuits, checked for
    launches, shapes, convergence and agreement with the plain solver; then
@@ -48,6 +54,14 @@ no result line):
    ``--accel anderson``, past a cluster of 8: 2 batches of 64, one launch
    each (4 chunks of 8 rows per circuit), batch 0 against the plain solve,
    circuits/s;
+4d. past a cluster's shared memory, N=300 (2N=600, J and D scaled by
+   51/300; W read from device memory), through ``run.forward``: 2 batches
+   of 64 circuits (one launch each, batch 0 against the plain solve), then
+   2 with ``--solver-backend pallas``; then ``run.gan --N 300`` at 16
+   circuits a batch with the round-2 battery for 2 steps (fake truth of
+   128 circuits), launches checked against the step schedule, and its
+   first solve (the fake truth's first batch, 64 circuits) held to the
+   plain solve;
 5. implicit gradients on the card: at N=51, 256 circuits and the GAN
    battery (8 bandwidths x contrasts 5, 10), the gradient of the mean probe
    rate with respect to the log-space (J, D, S), with the kernel forward
@@ -224,6 +238,11 @@ WIDE_FWD_MIN_CONVERGED = 0.9
 # Phase 4c: the same circuit with a battery past a cluster of 8 (32 rows,
 # Anderson; the reference's run.gan with these contrasts).
 SPLIT_FWD_CONTRASTS = (5.0, 10.0, 13.0, 20.0)
+# Phase 4d: circuits past a cluster's shared memory at 8 rows (W read from
+# device memory), N=300, through run.forward and run.gan (16 circuits a
+# batch, a 128-circuit fake truth; the round-2 battery and flags).
+GLOBAL_FWD_N = 300
+GLOBAL_GAN_BATCH, GLOBAL_GAN_TRUTH = 16, 128
 # Phase 3's split batteries to contrast 20 (``_split_witness``): name ->
 # (N, circuits, contrasts, accel).
 SPLIT_WITNESS = {
@@ -238,18 +257,21 @@ def _line(*parts):
     print(*parts, flush=True)
 
 
-def _compare(name, cfg, W, I, check_every, accel=False, witness=False):
+def _compare(name, cfg, W, I, check_every, accel=False, witness=False,
+             out=None):
     """Kernel against plain on the same inputs: flags equal, rates of rows
     both converged within RTOL/ATOL, iters within two check strides (the
     mat-vec's summation order differs, so the atol crossing can land one
     chunk apart); with ``witness``, a row outside RTOL/ATOL passes when it
-    agrees with its own fp32 trajectory (``_off_own_trajectory``). Returns
-    (the kernel's result, max |dr| on rows both converged)."""
+    agrees with its own fp32 trajectory (``_off_own_trajectory``). ``out``:
+    a kernel result already computed on these inputs (else one launch).
+    Returns (the kernel's result, max |dr| on rows both converged)."""
     import torch
 
     from tcgan_torch.ops.cuda import ssn_solve
 
-    out = ssn_solve.solve_fixed_point_cuda(cfg, W, I, check_every, accel)
+    if out is None:
+        out = ssn_solve.solve_fixed_point_cuda(cfg, W, I, check_every, accel)
     ref = ssn_solve.solve_fixed_point_plain(cfg, W, I, check_every, accel)
     torch.cuda.synchronize()
     if not torch.isfinite(out.r).all():
@@ -481,7 +503,7 @@ def _forced_split(lib) -> None:
     for accel in (False, True):
         whole = ssn_solve.plan(102, 32, accel)
         split = ssn_solve.plan(102, 32, accel, rows=8)
-        if whole != (1, 32, 1) or split != (1, 8, 4):
+        if whole != (1, 32, 1, False) or split != (1, 8, 4, False):
             raise AssertionError(f"forced split: plans {whole}, {split}")
         a = ssn_solve.launch(lib, c, W, I, CHECK_EVERY, accel)
         b = ssn_solve.launch(lib, c, W, I, CHECK_EVERY, accel,
@@ -494,6 +516,42 @@ def _forced_split(lib) -> None:
               f"conv={float(b.converged.float().mean()):.4f}")
         if not all(same):
             raise AssertionError("forced split: differs from one chunk")
+
+
+def _forced_global(card: str, lib) -> None:
+    """The W-global path forced where W's slab fits shared memory, at the
+    same cluster size and rows as the shared-W plan (2N=402: S=8 on
+    clusters of 4; S=32 with Anderson, 4 chunks of 8 rows): the k-loop
+    reads the same values in the same order, so rates, flags and iters are
+    bit-equal; the two launches' times beside each other."""
+    import torch
+
+    from tcgan_torch.ops.cuda import ssn_solve
+
+    for contrasts, accel in (((CONTRAST,), False),
+                             ((2.5, 5.0, 7.5, CONTRAST), True)):
+        c, W, I = ab.problem(16, contrasts, {}, N=WIDE_FWD_N, seed=SEED)
+        S = I.shape[0]
+        shared = ssn_solve.plan(402, S, accel)
+        forced = ssn_solve.plan(402, S, accel, w_global=True)
+        if shared.w_global or forced != shared._replace(w_global=True):
+            raise AssertionError(f"forced W-global: plans {shared}, {forced}")
+        a = ssn_solve.launch(lib, c, W, I, CHECK_EVERY, accel)
+        b = ssn_solve.launch(lib, c, W, I, CHECK_EVERY, accel, w_global=True)
+        torch.cuda.synchronize()
+        same = [torch.equal(x, y) for x, y in zip(a, b)]
+        ms = [_median_ms(lambda wg=wg: ssn_solve.launch(
+            lib, c, W, I, CHECK_EVERY, accel, w_global=wg))
+            for wg in (False, True, True, False)]
+        _line(f"[kernel] forced W-global 2N=402 S={S} B=16"
+              f"{' Anderson' if accel else ''} (plan {tuple(shared)[:3]}): "
+              f"against W in shared memory, (r, converged, diverged, iters) "
+              f"bit-equal {same}, conv={float(b.converged.float().mean()):.4f}"
+              f"; shared W {ms[0]:.3f}, {ms[3]:.3f} ms, W from device memory "
+              f"{ms[1]:.3f}, {ms[2]:.3f} ms (in turns, each the median of 5; "
+              f"{card})")
+        if not all(same):
+            raise AssertionError("forced W-global: differs from shared W")
 
 
 def phase_kernel(card: str) -> dict:
@@ -511,27 +569,32 @@ def phase_kernel(card: str) -> dict:
     # Then the shapes past one block (thread-block clusters, up to the
     # paper's N=201 and 2N=512; ab.CLUSTER_SHAPES) and the batteries past a
     # cluster of 8 (row chunks; ab.SPLIT_SHAPES), with J and D scaled to N
-    # and a near-critical row held to its own fp32 trajectory.
+    # and a near-critical row held to its own fp32 trajectory; then the
+    # circuits past a cluster's shared memory (W read from device memory;
+    # ab.GLOBAL_SHAPES).
     shapes = [(name, batch, contrasts, kw, SLICE_SSN["N"], False)
               for name, (batch, contrasts, kw) in ab.SHAPES.items()]
     shapes.append(("wide 2N=224 S=8", ab.WIDE_BATCH, (CONTRAST,), {},
                    ab.WIDE_N, False))
     shapes += [(name, batch, contrasts, kw, N, accel) for name, (
         N, batch, contrasts, kw, accel) in {**ab.CLUSTER_SHAPES,
-                                            **ab.SPLIT_SHAPES}.items()]
+                                            **ab.SPLIT_SHAPES,
+                                            **ab.GLOBAL_SHAPES}.items()]
     lib = ssn_solve._library()
-    rows, max_err, fwd, wide = [], 0.0, None, None
+    rows, max_err, fwd, wide, wide600 = [], 0.0, None, None, None
     for name, batch, contrasts, kw, N, accel in shapes:
         c, Wk, Ik = ab.problem(batch, contrasts, kw, N=N, seed=SEED)
         n2, S = Wk.shape[-1], Ik.shape[0]
         plan = ssn_solve.plan(n2, S, accel)
         cluster, at_once = ssn_solve.active_clusters(n2, S, accel)
-        kernel_plan = (cluster, lib.ssn_solve_rows_per_chunk(n2, S, accel))
-        if kernel_plan != plan[:2]:
+        kernel_plan = (cluster, lib.ssn_solve_rows_per_chunk(n2, S, accel),
+                       bool(lib.ssn_solve_w_global(n2, S, accel)))
+        if kernel_plan != (plan.cluster, plan.rows, plan.w_global):
             raise AssertionError(f"{name}: the kernel plans (clusters, rows "
-                                 f"per chunk) {kernel_plan}, the wrapper "
-                                 f"{plan}")
-        if (name in ab.SPLIT_SHAPES) != (plan.chunks > 1):
+                                 f"per chunk, W-global) {kernel_plan}, the "
+                                 f"wrapper {plan}")
+        if ((name in ab.SPLIT_SHAPES) != (plan.chunks > 1)
+                or (name in ab.GLOBAL_SHAPES) != plan.w_global):
             raise AssertionError(f"{name}: plan {plan}")
         out, err = _compare(name, c, Wk, Ik, CHECK_EVERY, accel,
                             witness=cluster > 1 or plan.chunks > 1)
@@ -540,6 +603,8 @@ def phase_kernel(card: str) -> dict:
         fwd = fwd or (c, Wk, Ik, out)
         if name == "2N=402 S=8 B=64":
             wide = (c, Wk, Ik)
+        if name == "2N=600 S=8 B=64":
+            wide600 = (c, Wk, Ik)
         max_err = max(max_err, err)
         ms = _median_ms(lambda: ssn_solve.solve_fixed_point_cuda(
             c, Wk, Ik, CHECK_EVERY, accel))
@@ -554,10 +619,11 @@ def phase_kernel(card: str) -> dict:
                      "max_iters": max_iters,
                      "us_per_substep_slowest": 1e3 * ms / max_iters,
                      "cluster": cluster, "rows_per_chunk": plan.rows,
-                     "chunks": plan.chunks, "chunks_at_once": at_once,
+                     "chunks": plan.chunks, "w_global": plan.w_global,
+                     "chunks_at_once": at_once,
                      "circuits_at_once": at_once / plan.chunks,
-                     "smem_bytes": ssn_solve.smem_bytes(n2, plan.rows,
-                                                        accel, cluster),
+                     "smem_bytes": ssn_solve.smem_bytes(
+                         n2, plan.rows, accel, cluster, plan.w_global),
                      "max_abs_err": err})
         _line(f"[time] ssn_solve {name} (2N={n2}, S={S}, atol {c.atol}"
               f"{', Anderson' if accel else ''}): kernel {ms:.3f} ms (median "
@@ -568,12 +634,14 @@ def phase_kernel(card: str) -> dict:
               f"share {fp32_ms / ms:.4f}; slowest circuit "
               f"{1e3 * ms / max_iters:.3f} us per substep over {max_iters} "
               f"iters; plan: {plan.chunks} chunk(s) of {plan.rows} rows "
-              f"per circuit, {cluster} block(s) per chunk, "
+              f"per circuit, {cluster} block(s) per chunk, W in "
+              f"{'device' if plan.w_global else 'shared'} memory, "
               f"{rows[-1]['smem_bytes']} B of shared memory per block, "
               f"{at_once} chunks ({at_once / plan.chunks:g} circuits) at "
               f"once ({card})")
     _wide_witness(card)
     _forced_split(lib)
+    _forced_global(card, lib)
     _split_witness(card, lib)
 
     # variants on the forward slice (N=51, S=8); soft bounds under the
@@ -621,6 +689,12 @@ def phase_kernel(card: str) -> dict:
         *wide, CHECK_EVERY), reps=3)
     _line(f"[time] ssn_solve 2N=402 S=8 B=64: kernel {wide_row['ms']:.3f} "
           f"ms, plain {wide_plain_ms:.3f} ms (median of 3; {card})")
+    row600 = next(r for r in rows if r["shape"] == "2N=600 S=8 B=64")
+    plain600_ms = _median_ms(lambda: ssn_solve.solve_fixed_point_plain(
+        *wide600, CHECK_EVERY), reps=3)
+    _line(f"[time] ssn_solve 2N=600 S=8 B=64 (W from device memory): kernel "
+          f"{row600['ms']:.3f} ms, plain {plain600_ms:.3f} ms (median of 3; "
+          f"{card})")
     return {"name": "ssn_solve", "route": "cuda",
             "source": "tcgan_torch/csrc/ssn_solve.cu",
             "replaces": "tcgan_tpu/ops/pallas/ssn_solve.py:82",
@@ -628,6 +702,7 @@ def phase_kernel(card: str) -> dict:
             "plain_ms": plain_ms, "bound_ms": fwd_row["bound_ms"],
             "bound_by": fwd_row["bound_by"],
             "library_ms": None, "plain_ms_2N402": wide_plain_ms,
+            "plain_ms_2N600": plain600_ms,
             "shapes": rows}
 
 
@@ -740,21 +815,20 @@ def phase_main_path() -> int:
 
 
 def _wide_forward(card, tag, store, n_batches, backend="cuda",
-                  contrasts=(CONTRAST,), accel=False) -> int:
-    """``run.forward --N 201`` (J and D scaled by 51 / 201) for
-    ``n_batches`` batches of WIDE_FWD_BATCH circuits: one launch per batch,
-    the rates' shape, finite values, convergence and, on the CUDA backend,
-    batch 0 against the plain solve. Returns the launches."""
+                  contrasts=(CONTRAST,), accel=False, N=WIDE_FWD_N) -> int:
+    """``run.forward --N 201`` (J and D scaled by 51 / N; another N where
+    given) for ``n_batches`` batches of WIDE_FWD_BATCH circuits: one launch
+    per batch, the rates' shape, finite values, convergence and, on the
+    CUDA backend, batch 0 against the plain solve. Returns the launches."""
     import numpy as np
 
     from tcgan_torch.ops.cuda import ssn_solve
     from tcgan_torch.run import forward
 
     total = n_batches * WIDE_FWD_BATCH
-    argv = _forward_argv(store, contrasts, total, N=WIDE_FWD_N,
+    argv = _forward_argv(store, contrasts, total, N=N,
                          batch=WIDE_FWD_BATCH, backend=backend, accel=accel)
-    plan = ssn_solve.plan(2 * WIDE_FWD_N, len(BANDWIDTHS) * len(contrasts),
-                          accel)
+    plan = ssn_solve.plan(2 * N, len(BANDWIDTHS) * len(contrasts), accel)
     ssn_solve.launches = 0
     t0 = time.perf_counter()
     rc = forward.main(argv)
@@ -762,13 +836,14 @@ def _wide_forward(card, tag, store, n_batches, backend="cuda",
     info = json.loads((store / "info.json").read_text())
     summary = info["summary"]
     data = np.load(store / "tuning_curves.npz")
-    _line(f"[{tag}] run.forward --N {WIDE_FWD_N} --contrasts "
+    _line(f"[{tag}] run.forward --N {N} --contrasts "
           f"{' '.join(f'{c:g}' for c in contrasts)} --accel "
           f"{'anderson' if accel else 'none'} --solver-backend {backend}: "
           f"rc {rc} in {time.perf_counter() - t0:.1f} s; kernel launches {n} "
           f"for {n_batches} batches of {WIDE_FWD_BATCH} (plan: "
           f"{plan.chunks} chunk(s) of {plan.rows} rows on {plan.cluster} "
-          f"block(s)); recorded backend {info['config']['solver_backend']}; "
+          f"block(s), W in {'device' if plan.w_global else 'shared'} "
+          f"memory); recorded backend {info['config']['solver_backend']}; "
           f"frac_converged {summary['frac_converged']} frac_diverged "
           f"{summary['frac_diverged']} mean_iters "
           f"{summary['mean_iters']:.1f} circuits_per_sec "
@@ -779,7 +854,7 @@ def _wide_forward(card, tag, store, n_batches, backend="cuda",
     if info["config"]["solver_backend"] != "cuda":
         raise AssertionError(f"{tag} forward: backend not stored as cuda")
     if data["rates"].shape != (total, len(BANDWIDTHS) * len(contrasts),
-                               2 * WIDE_FWD_N) or not np.isfinite(
+                               2 * N) or not np.isfinite(
                                    data["rates"]).all():
         raise AssertionError(f"{tag} forward: rates wrong or non-finite")
     if summary["frac_converged"] <= WIDE_FWD_MIN_CONVERGED:
@@ -810,6 +885,52 @@ def phase_split_forward(card: str) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         return _wide_forward(card, "split", Path(tmp) / "split", 2,
                              contrasts=SPLIT_FWD_CONTRASTS, accel=True)
+
+
+def phase_global_forward(card: str) -> int:
+    """N=300 (2N=600: W read from device memory) through ``run.forward``,
+    2 batches on the 8-bandwidth battery at contrast 10 and the same
+    command line with ``--solver-backend pallas`` for 2, then ``run.gan
+    --N 300`` for 2 steps at the round-2 battery, its first solve (the fake
+    truth's first batch, 64 circuits) kept and held to the plain solve
+    after the run."""
+    from tcgan_torch.ops.cuda import ssn_solve
+
+    first = []
+    solve = ssn_solve.solve_fixed_point_cuda
+
+    def keep_first(cfg, W, I_ext, check_every=1, accel=False):
+        out = solve(cfg, W, I_ext, check_every, accel)
+        if not first:
+            first.append((cfg, W, I_ext, check_every, accel, out))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        n = sum(_wide_forward(card, "global", Path(tmp) / backend, 2,
+                              backend, N=GLOBAL_FWD_N)
+                for backend in ("cuda", "pallas"))
+        store = Path(tmp) / "gan"
+        ssn_solve.solve_fixed_point_cuda = keep_first
+        try:
+            launches, rows = _run_gan(
+                store, 2, 0, "--truth-samples", str(GLOBAL_GAN_TRUTH),
+                argv_kw=dict(N=GLOBAL_FWD_N, batch=GLOBAL_GAN_BATCH))
+        finally:
+            ssn_solve.solve_fixed_point_cuda = solve
+        _check_learning(rows, 2, f"gan --N {GLOBAL_FWD_N}")
+        cfg, W, I, check_every, accel, out = first[0]
+        plan = ssn_solve.plan(W.shape[-1], I.shape[0], accel)
+        if not plan.w_global:
+            raise AssertionError(f"gan --N {GLOBAL_FWD_N}: plan {plan}")
+        _compare(f"gan --N {GLOBAL_FWD_N} first solve (plan "
+                 f"{tuple(plan)})", cfg, W, I, check_every, accel,
+                 witness=True, out=out)
+        _line(f"[global] run.gan --N {GLOBAL_FWD_N} --batch-size "
+              f"{GLOBAL_GAN_BATCH}: frac_converged "
+              f"{[float(r['frac_converged']) for r in rows]}, train_time "
+              f"{[round(float(r['train_time']), 3) for r in rows]} s "
+              f"({card})")
+    return n + launches
 
 
 def _gan_problem(batch, ssn_kw, contrasts, seed=SEED, **gen_kw):
@@ -912,18 +1033,21 @@ def phase_ift(card: str) -> None:
           f"{cap}, {t_over:.3f} ms at {cap + 1} (median of 3; {card})")
 
 
-def _gan_argv(datastore, n_steps, *extra):
+def _gan_argv(datastore, n_steps, *extra, N=GAN_SSN["N"], batch=GAN_BATCH):
+    """The round-2 ``run.gan`` command line; at another N, J and D (truth
+    and start) scaled by 51 / N as ``ab.problem`` scales them."""
     flat = lambda v: [str(x) for x in v]  # noqa: E731
+    scaled = lambda v: flat(GAN_SSN["N"] / N * x for x in v)  # noqa: E731
     return [
         "--device", DEVICE, "--solver-backend", "cuda",
         "--datastore", str(datastore), "--seed", str(SEED),
-        "--N", str(GAN_SSN["N"]), "--bandwidths", *flat(BANDWIDTHS),
+        "--N", str(N), "--bandwidths", *flat(BANDWIDTHS),
         "--contrasts", *flat(GAN_CONTRASTS),
-        "--batch-size", str(GAN_BATCH), "--normalize-input",
+        "--batch-size", str(batch), "--normalize-input",
         "--clip-grad", "1.0",
-        "--true-J", *flat(TRUE_J), "--true-D", *flat(TRUE_D),
+        "--true-J", *scaled(TRUE_J), "--true-D", *scaled(TRUE_D),
         "--true-S", *flat(TRUE_S),
-        "--J", *flat(START_J), "--D", *flat(START_D), "--S", *flat(TRUE_S),
+        "--J", *scaled(START_J), "--D", *scaled(START_D), "--S", *flat(TRUE_S),
         "--n-steps", str(n_steps), *extra,
     ]
 
@@ -967,10 +1091,11 @@ def _run_entry(entry, argv, store, steps, schedule):
 
 
 def _run_gan(store, n_steps, steps_before, *extra, anchor_updates=0,
-             entry=None):
+             entry=None, argv_kw=None):
     """A WGAN-family entry point (``run.gan`` by default) once: n_critic
     (n_critic0 in the warm-up) + 1 solves per step, + the anchor updates,
-    + 1 per ``tc_mean`` snapshot. Returns (launches, learning rows)."""
+    + 1 per ``tc_mean`` snapshot; ``argv_kw`` goes to ``_gan_argv``.
+    Returns (launches, learning rows)."""
     from tcgan_torch.run import gan
     from tcgan_torch.train.driver import DriverConfig
 
@@ -981,7 +1106,8 @@ def _run_gan(store, n_steps, steps_before, *extra, anchor_updates=0,
                 + sum(1 for s in steps if s % args.tc_mean_every == 0))
 
     launches, rows, _ = _run_entry(
-        entry or gan, _gan_argv(store, n_steps, *extra), store,
+        entry or gan, _gan_argv(store, n_steps, *extra, **(argv_kw or {})),
+        store,
         range(steps_before, steps_before + n_steps), schedule)
     return launches, rows
 
@@ -2423,6 +2549,8 @@ def main() -> int:
     by_path["run.forward --N 201"] = _timed("4b", phase_wide_forward, card)
     by_path["run.forward --N 201, 32 rows, Anderson"] = _timed(
         "4c", phase_split_forward, card)
+    by_path["run.forward + run.gan --N 300, W from device memory"] = _timed(
+        "4d", phase_global_forward, card)
     _timed(5, phase_ift, card)
     with tempfile.TemporaryDirectory() as work:
         work = Path(work)

@@ -69,7 +69,8 @@
 // Shared-memory layout (floats, then ints), mirrored by
 // tcgan_torch/ops/cuda/ssn_solve.py::smem_bytes:
 //   Ws   n2 * ld       weights, row-major (Ws[i * ld + j] = W[i, j]); in a
-//                      cluster, the block's min(m, n2) rows
+//                      cluster, the block's min(m, n2) rows; none on the
+//                      W-global path (below)
 //   Is   rows * ld     stimulus battery (in a cluster, this and the Anderson
 //                      planes hold the block's slab at stride lds)
 //   rA   rows * ld     rates, double buffer
@@ -120,12 +121,28 @@
 // ceil(S / that), and R = round_up(ceil(S / K), 8) to balance the chunks.
 // The grid holds B * K clusters of c blocks, circuit-major; each chunk reads
 // W from device memory once more.
+//
+// Circuits whose W slab leaves no room for 8 rows in a cluster of 8 (2N >=
+// 598, 578 with Anderson: at 2N=600 the slab alone is 193 KB of the 227).
+// The W-global path (kWGlobal, a cluster instantiation) keeps no W in shared
+// memory: each warp reads its 16 rows of the circuit's W from device memory
+// in the k-loop, every substep (through L1 and L2; at 2N=600 and B=64 the
+// resident circuits' W is 92 MB, past the 50 MB L2), in the same order, split
+// into TF32 parts the same way, so a launch is bit-equal to the shared-W
+// launch at the same cluster size and rows. Everything else is the cluster
+// path as above. The plan takes it only where no shared-W plan exists: the
+// least c in 2, 4, 8 whose slab needs at most 16 warps and whose layout
+// without W holds the battery, else the least such c that holds 8 rows and
+// the row chunks above. A block of a cluster of 8 holds at most 512 threads,
+// 16 warps of 16 neurons, so 2N <= 2048; wider circuits are refused.
 
 #include <cooperative_groups.h>
 #include <algorithm>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -263,8 +280,9 @@ __device__ __forceinline__ void io_fun4(const float (&u)[4], float (&f)[4], cons
 // NT: n8 tiles of rows accumulated together (min(rows / 8, kMaxGroupN));
 // more rows are taken in groups of NT. kRegA: the register path, at most
 // kRegK / 2 warps, two blocks to an SM. kCluster: p.cluster blocks solve
-// one circuit (the header's cluster path).
-template <int NT, bool kRegA, bool kCluster>
+// one circuit (the header's cluster path). kWGlobal (with kCluster only):
+// W is read from device memory in the k-loop, not from shared memory.
+template <int NT, bool kRegA, bool kCluster, bool kWGlobal>
 __global__ void __launch_bounds__(kRegA ? 32 * kRegK / 2 : kMaxThreads, kRegA ? 2 : 1)
 ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
                  const float* __restrict__ alpha, float* __restrict__ r_out,
@@ -290,8 +308,9 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
   const int lds = kCluster ? p.lds : ld;
   const size_t plane = (size_t)rows * ld, splane = (size_t)rows * lds;
 
+  static_assert(!kWGlobal || (kCluster && !kRegA), "W-global is a cluster path");
   float* Ws = smem;
-  float* Is = Ws + (size_t)(kCluster ? p.wrows : n2) * ld;
+  float* Is = kWGlobal ? smem : Ws + (size_t)(kCluster ? p.wrows : n2) * ld;
   float* cur = Is + splane;
   float* nxt = cur + plane;
   float* rst = nxt + plane;  // the three Anderson planes exist only if accel
@@ -308,16 +327,18 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
   float* xden = xnum + (size_t)p.cluster * rows;
   float* xpaa = xden + (size_t)p.cluster * rows;
 
-  const size_t n_floats = kCluster
-      ? (size_t)p.wrows * ld + 2 * plane + splane * (p.accel ? 4 : 1)
+  const size_t n_floats = kWGlobal ? 2 * plane + splane * (p.accel ? 4 : 1)
+      : kCluster ? (size_t)p.wrows * ld + 2 * plane + splane * (p.accel ? 4 : 1)
       : (size_t)n2 * ld + plane * (p.accel ? 6 : 3);
   for (size_t e = tid; e < n_floats; e += nthreads) smem[e] = 0.0f;
   __syncthreads();
 
   const float* Wb = W + ((size_t)b * n2 + base) * n2;
-  for (int e = tid; e < own * n2; e += nthreads) {
-    int i = e / n2, j = e - i * n2;
-    Ws[i * ld + j] = Wb[e];
+  if constexpr (!kWGlobal) {
+    for (int e = tid; e < own * n2; e += nthreads) {
+      int i = e / n2, j = e - i * n2;
+      Ws[i * ld + j] = Wb[e];
+    }
   }
   const float* Ib = I + (size_t)row0 * n2;
   for (int e = tid; e < S * n2; e += nthreads) {
@@ -337,14 +358,21 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
   if (tid == 0) *n_active = S;
 
   // This thread's two neurons of the warp's m16 slab (rows g and g + 8 of
-  // the accumulator fragment; rows l0 and l1 of this block's Ws); neurons
-  // past n2 read W as zero and write nothing.
+  // the accumulator fragment; rows l0 and l1 of this block's Ws, or of its
+  // slab of the circuit's W in device memory); neurons past n2 read W as
+  // zero and write nothing.
   const int l0 = warp * kTileM + g, l1 = l0 + 8;
   const int i0 = base + l0, i1 = base + l1;
   const bool in0 = i0 < n2, in1 = i1 < n2;
   const float a0 = in0 ? alpha[i0] : 0.0f, a1 = in1 ? alpha[i1] : 0.0f;
-  float* w0 = Ws + (size_t)(in0 ? l0 : 0) * ld + t;
-  float* w1 = Ws + (size_t)(in1 ? l1 : 0) * ld + t;
+  std::conditional_t<kWGlobal, const float*, float*> w0, w1;
+  if constexpr (kWGlobal) {
+    w0 = Wb + (size_t)(in0 ? l0 : 0) * n2 + t;
+    w1 = Wb + (size_t)(in1 ? l1 : 0) * n2 + t;
+  } else {
+    w0 = Ws + (size_t)(in0 ? l0 : 0) * ld + t;
+    w1 = Ws + (size_t)(in1 ? l1 : 0) * ld + t;
+  }
   // a warp of the cluster path whose slab lies past n2 has nothing to do
   const bool warp_on = !kCluster || base + warp * kTileM < n2;
   __syncthreads();
@@ -415,9 +443,12 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
           for (int kt = 0; kt < p.ktiles; ++kt) {
             const int j = kt * kTileK;
             const bool in4 = j + t + 4 < n2;
+            // W-global: column j + t may pass n2 at 2N = 2 mod 8, where
+            // device memory has no zero padding (shared memory has)
+            const bool inj = !kWGlobal || j + t < n2;
             uint32_t ah[4], al[4];
-            split_tf32(in0 ? w0[j] : 0.0f, ah[0], al[0]);
-            split_tf32(in1 ? w1[j] : 0.0f, ah[1], al[1]);
+            split_tf32(in0 && inj ? w0[j] : 0.0f, ah[0], al[0]);
+            split_tf32(in1 && inj ? w1[j] : 0.0f, ah[1], al[1]);
             split_tf32(in0 && in4 ? w0[j + 4] : 0.0f, ah[2], al[2]);
             split_tf32(in1 && in4 ? w1[j + 4] : 0.0f, ah[3], al[3]);
             mma_kstep<NT>(hh, hl, lh, ah, al, rb + j, kTileN * ld, in4, on);
@@ -702,18 +733,19 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
 using Kernel = void (*)(const float*, const float*, const float*, float*,
                         uint8_t*, uint8_t*, int*, Params);
 
-template <bool kRegA, bool kCluster>
+template <bool kRegA, bool kCluster, bool kWGlobal = false>
 Kernel kernel_for_rows(int ntiles) {
   switch (ntiles < kMaxGroupN ? ntiles : kMaxGroupN) {
-    case 1: return ssn_solve_kernel<1, kRegA, kCluster>;
-    case 2: return ssn_solve_kernel<2, kRegA, kCluster>;
-    case 3: return ssn_solve_kernel<3, kRegA, kCluster>;
-    default: return ssn_solve_kernel<kMaxGroupN, kRegA, kCluster>;
+    case 1: return ssn_solve_kernel<1, kRegA, kCluster, kWGlobal>;
+    case 2: return ssn_solve_kernel<2, kRegA, kCluster, kWGlobal>;
+    case 3: return ssn_solve_kernel<3, kRegA, kCluster, kWGlobal>;
+    default: return ssn_solve_kernel<kMaxGroupN, kRegA, kCluster, kWGlobal>;
   }
 }
 
-Kernel kernel_for(int n2, int S, int cluster) {
+Kernel kernel_for(int n2, int S, int cluster, bool wglobal) {
   const int ntiles = round_up(S, kTileN) / kTileN;
+  if (wglobal) return kernel_for_rows<false, true, true>(ntiles);
   if (cluster > 1) return kernel_for_rows<false, true>(ntiles);
   return n2 <= kRegK * kTileK ? kernel_for_rows<true, false>(ntiles)
                               : kernel_for_rows<false, false>(ntiles);
@@ -723,12 +755,13 @@ Kernel kernel_for(int n2, int S, int cluster) {
 int slab(int n2, int c) { return round_up((n2 + c - 1) / c, kTileM); }
 
 // The shared-memory layout of the header at cluster size c for R rows: W's
-// rows of the block's slab (all n2 at c = 1) and both rate planes at stride
-// ld, Is and the Anderson planes at stride lds (= ld at c = 1), then the
-// ints and, in a cluster with Anderson, the per-rank exchange.
-size_t layout_bytes(int n2, int R, int accel, int c, int ld, int lds) {
+// rows of the block's slab (all n2 at c = 1; none on the W-global path) and
+// both rate planes at stride ld, Is and the Anderson planes at stride lds
+// (= ld at c = 1), then the ints and, in a cluster with Anderson, the
+// per-rank exchange.
+size_t layout_bytes(int n2, int R, int accel, int c, int ld, int lds, bool wglobal) {
   const size_t rows = round_up(R, kTileN);
-  const size_t w = std::min(slab(n2, c), n2);
+  const size_t w = wglobal ? 0 : std::min(slab(n2, c), n2);
   const size_t floats = w * ld + 2 * rows * ld + rows * lds * (accel ? 4 : 1);
   const size_t ints = 2 * (size_t)R + rows + rows / kTileN + 1 +
                       (c > 1 && accel ? 3 * (size_t)c * rows : 0);
@@ -739,55 +772,80 @@ struct Layout {
   int cluster;  // 0: does not fit
   int ld, lds;
   size_t bytes;
+  bool wglobal;  // W read from device memory (the W-global path)
 };
 
 // The layout of R rows at cluster size c, with its strides: the least
 // stride >= the row length that is 4 mod 8, so that the fragment loads and
 // the rate stores hit 32 distinct banks; round_up(length, 4) where that
 // padding would not fit (a few rows of floats at tiny N with hundreds of
-// rows). cluster = 0 where it does not fit a block.
-Layout layout_at(int n2, int R, int accel, int c) {
+// rows). cluster = 0 where it does not fit a block (its threads or its
+// shared memory), or where W-global is asked at c = 1.
+Layout layout_at(int n2, int R, int accel, int c, bool wglobal) {
   const int w = std::min(slab(n2, c), n2);
-  if (32 * slab(n2, c) / kTileM > kMaxThreads) return Layout{0, 0, 0, 0};
-  Layout L{c, round_up(n2 + 4, 8) - 4, round_up(w + 4, 8) - 4, 0};
-  L.bytes = layout_bytes(n2, R, accel, c, L.ld, L.lds);
+  if (32 * slab(n2, c) / kTileM > kMaxThreads || (wglobal && c == 1))
+    return Layout{0, 0, 0, 0, wglobal};
+  Layout L{c, round_up(n2 + 4, 8) - 4, round_up(w + 4, 8) - 4, 0, wglobal};
+  L.bytes = layout_bytes(n2, R, accel, c, L.ld, L.lds, wglobal);
   if (L.bytes > kMaxSmemBytes) {
     L.ld = round_up(n2, 4);
     L.lds = round_up(w, 4);
-    L.bytes = layout_bytes(n2, R, accel, c, L.ld, L.lds);
+    L.bytes = layout_bytes(n2, R, accel, c, L.ld, L.lds, wglobal);
   }
   if (L.bytes > kMaxSmemBytes) L.cluster = 0;
   return L;
 }
 
-// The least cluster size whose layout fits R rows.
-Layout layout(int n2, int R, int accel) {
+// The least cluster size whose layout fits R rows (from 2 on the W-global
+// path).
+Layout layout(int n2, int R, int accel, bool wglobal) {
   for (int c : kClusterSizes) {
-    const Layout L = layout_at(n2, R, accel, c);
+    const Layout L = layout_at(n2, R, accel, c, wglobal);
     if (L.cluster) return L;
   }
-  return Layout{0, 0, 0, 0};
+  return Layout{0, 0, 0, 0, wglobal};
 }
 
 // The launch plan of an S-row battery (the header's row chunks): K chunks
-// of R rows at the layout L. `rows` > 0 forces R (the least cluster that
-// fits it). L.cluster = 0: not even an 8-row chunk fits a cluster of 8.
+// of R rows at the layout L. L.cluster = 0: not even an 8-row chunk fits a
+// cluster of 8.
 struct Plan {
   Layout L;
   int rows, chunks;
 };
 
-Plan plan(int n2, int S, int accel, int rows) {
-  if (rows > 0) return Plan{layout(n2, rows, accel), rows, (S + rows - 1) / rows};
-  const Layout whole = layout(n2, S, accel);
+// The plan at one kind of layout, W in shared memory or not: the least
+// cluster that holds the whole battery, else the least that holds 8 rows
+// and the most rows there, balanced over the chunks.
+Plan plan_at(int n2, int S, int accel, bool wglobal) {
+  const Layout whole = layout(n2, S, accel, wglobal);
   if (whole.cluster) return Plan{whole, S, 1};
-  const Layout L8 = layout(n2, kTileN, accel);
+  const Layout L8 = layout(n2, kTileN, accel, wglobal);
   if (!L8.cluster) return Plan{L8, 0, 0};
   int R = kTileN;  // the most rows, a multiple of 8, that fit at L8's size
-  while (layout_at(n2, R + kTileN, accel, L8.cluster).cluster) R += kTileN;
+  while (layout_at(n2, R + kTileN, accel, L8.cluster, wglobal).cluster) R += kTileN;
   const int K = (S + R - 1) / R;
   R = round_up((S + K - 1) / K, kTileN);
-  return Plan{layout_at(n2, R, accel, L8.cluster), R, K};
+  return Plan{layout_at(n2, R, accel, L8.cluster, wglobal), R, K};
+}
+
+// The plan of the header: W in shared memory wherever a cluster of 1, 2, 4
+// or 8 holds 8 rows with it, else W from device memory. `rows` > 0 forces
+// R (the least cluster that fits it with W in shared memory; none where
+// none does); `wglobal` forces W from device memory at the plan's cluster
+// size (c > 1), so that the two paths can be held to each other bit for
+// bit.
+Plan plan(int n2, int S, int accel, int rows, int wglobal) {
+  Plan P;
+  if (rows > 0) {
+    P = Plan{layout(n2, rows, accel, false), rows, (S + rows - 1) / rows};
+  } else {
+    P = plan_at(n2, S, accel, false);
+    if (!P.L.cluster) P = plan_at(n2, S, accel, true);
+  }
+  if (wglobal && P.L.cluster && !P.L.wglobal)
+    P.L = layout_at(n2, P.rows, accel, P.L.cluster, true);
+  return P;
 }
 
 // The launch configuration of `clusters` clusters of L.cluster blocks;
@@ -810,10 +868,11 @@ cudaLaunchConfig_t launch_config(int clusters, int n2, const Layout& L, cudaStre
 
 // The plan of this shape and its kernel, with the dynamic shared memory
 // admitted.
-cudaError_t prepare(int n2, int S, int accel, int rows, Plan* P, Kernel* kernel) {
-  *P = plan(n2, S, accel, rows);
+cudaError_t prepare(int n2, int S, int accel, int rows, int wglobal, Plan* P,
+                    Kernel* kernel) {
+  *P = plan(n2, S, accel, rows, wglobal);
   if (P->L.cluster == 0) return cudaErrorInvalidValue;
-  *kernel = kernel_for(n2, P->rows, P->L.cluster);
+  *kernel = kernel_for(n2, P->rows, P->L.cluster, P->L.wglobal);
   return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)P->L.bytes);
 }
@@ -823,20 +882,21 @@ cudaError_t prepare(int n2, int S, int accel, int rows, Plan* P, Kernel* kernel)
 extern "C" {
 
 // Launches the solve of B circuits on `stream` with R = `rows` rows per
-// chunk (0: the plan's); returns the cudaError_t of the attribute call, of
+// chunk (0: the plan's) and, with `wglobal`, W read from device memory at
+// the plan's cluster size; returns the cudaError_t of the attribute call, of
 // the cluster occupancy check (cluster sizes > 1:
 // cudaErrorLaunchOutOfResources when not one cluster fits the device) or
 // of the launch (cudaGetLastError), 0 on success; cudaErrorInvalidValue
 // when no layout fits.
-int ssn_solve_launch_rows(const void* W, const void* I, const void* alpha, void* r,
+int ssn_solve_launch_plan(const void* W, const void* I, const void* alpha, void* r,
                           void* conv, void* div, void* iters, int B, int n2, int S,
                           int io_type, float k, float n, float r0, float r1,
                           float u0, float slope, float atol, float rate_stop_at,
                           float ceiling, int max_iter, int check_every, int init_ff,
-                          int accel, void* stream, int rows) {
+                          int accel, void* stream, int rows, int wglobal) {
   Plan P;
   Kernel kernel;
-  cudaError_t err = prepare(n2, S, accel, rows, &P, &kernel);
+  cudaError_t err = prepare(n2, S, accel, rows, wglobal, &P, &kernel);
   if (err != cudaSuccess) return (int)err;
   const Layout& L = P.L;
   Params p;
@@ -865,7 +925,7 @@ int ssn_solve_launch_rows(const void* W, const void* I, const void* alpha, void*
   p.cluster = L.cluster;
   p.slab = slab(n2, L.cluster);
   p.lds = L.lds;
-  p.wrows = std::min(p.slab, n2);
+  p.wrows = L.wglobal ? 0 : std::min(p.slab, n2);
   const float* Wf = static_cast<const float*>(W);
   const float* If = static_cast<const float*>(I);
   const float* af = static_cast<const float*>(alpha);
@@ -890,16 +950,16 @@ int ssn_solve_launch_rows(const void* W, const void* I, const void* alpha, void*
   return (int)cudaGetLastError();
 }
 
-// ssn_solve_launch_rows at the plan's rows per chunk.
+// ssn_solve_launch_plan at the plan's rows per chunk and W.
 int ssn_solve_launch(const void* W, const void* I, const void* alpha, void* r,
                      void* conv, void* div, void* iters, int B, int n2, int S,
                      int io_type, float k, float n, float r0, float r1,
                      float u0, float slope, float atol, float rate_stop_at,
                      float ceiling, int max_iter, int check_every, int init_ff,
                      int accel, void* stream) {
-  return ssn_solve_launch_rows(W, I, alpha, r, conv, div, iters, B, n2, S, io_type, k, n, r0,
+  return ssn_solve_launch_plan(W, I, alpha, r, conv, div, iters, B, n2, S, io_type, k, n, r0,
                                r1, u0, slope, atol, rate_stop_at, ceiling, max_iter,
-                               check_every, init_ff, accel, stream, 0);
+                               check_every, init_ff, accel, stream, 0, 0);
 }
 
 // Blocks of the compiled kernel that one SM of the current device holds at
@@ -908,7 +968,7 @@ int ssn_solve_launch(const void* W, const void* I, const void* alpha, void* r,
 int ssn_solve_blocks_per_sm(int n2, int S, int accel) {
   Plan P;
   Kernel kernel;
-  cudaError_t err = prepare(n2, S, accel, 0, &P, &kernel);
+  cudaError_t err = prepare(n2, S, accel, 0, 0, &P, &kernel);
   int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -918,11 +978,20 @@ int ssn_solve_blocks_per_sm(int n2, int S, int accel) {
 
 // Blocks per chunk of rows at this shape: 1, or the cluster size; 0 when no
 // layout fits.
-int ssn_solve_cluster_size(int n2, int S, int accel) { return plan(n2, S, accel, 0).L.cluster; }
+int ssn_solve_cluster_size(int n2, int S, int accel) {
+  return plan(n2, S, accel, 0, 0).L.cluster;
+}
 
 // Rows per chunk at this shape (S where one chunk holds the battery;
 // ceil(S / that) chunks); 0 when no layout fits.
-int ssn_solve_rows_per_chunk(int n2, int S, int accel) { return plan(n2, S, accel, 0).rows; }
+int ssn_solve_rows_per_chunk(int n2, int S, int accel) { return plan(n2, S, accel, 0, 0).rows; }
+
+// 1 where this shape's plan reads W from device memory (the W-global path),
+// else 0.
+int ssn_solve_w_global(int n2, int S, int accel) {
+  const Plan P = plan(n2, S, accel, 0, 0);
+  return P.L.cluster && P.L.wglobal;
+}
 
 // Clusters of this shape's plan that the current device runs at once (at
 // cluster size 1: blocks per SM times SMs), each solving one chunk of one
@@ -931,7 +1000,7 @@ int ssn_solve_rows_per_chunk(int n2, int S, int accel) { return plan(n2, S, acce
 int ssn_solve_active_clusters(int n2, int S, int accel) {
   Plan P;
   Kernel kernel;
-  cudaError_t err = prepare(n2, S, accel, 0, &P, &kernel);
+  cudaError_t err = prepare(n2, S, accel, 0, 0, &P, &kernel);
   if (err != cudaSuccess) return -(int)err;
   if (P.L.cluster == 1) {
     int dev = 0, sms = 0;

@@ -4,21 +4,26 @@ Replaces the Pallas TPU kernel
 ``tcgan_tpu/ops/pallas/ssn_solve.py::_solver_kernel`` (launched by
 ``solve_fixed_point_pallas`` through ``pl.pallas_call``). One thread block
 per circuit iterates until all of its stimulus rows resolve, with the
-circuit's W resident in shared memory for the whole solve; the io function,
-the stepper gain, the feedforward init, the ceiling clamp, the per-row
-residual and peak reductions, the flag and ``iters`` bookkeeping and
-Anderson(1) are fused into it. Each substep's mat-vec runs on the tensor
-cores (warp-level ``mma.sync`` m16n8k8, one warp per 16 neurons); the
-kernel is bound by its arithmetic and, at small batches, by the slowest
-circuit's substep latency (see the note at the top of the CUDA source).
-A circuit whose state passes one block's shared memory (2N beyond about
-220, the paper's N=201 among them) is solved by a thread-block cluster of
-2, 4 or 8 blocks, each holding a slab of W's rows and exchanging rates
-through distributed shared memory. A battery too large for a cluster of 8
-is split into chunks of rows, each solved by its own block or cluster
-against the circuit's whole W (the rows are independent, so this computes
-what one block over all rows computes); :func:`plan` gives the cluster size
-and the chunks.
+circuit's W resident in shared memory for the whole solve where it fits;
+the io function, the stepper gain, the feedforward init, the ceiling clamp,
+the per-row residual and peak reductions, the flag and ``iters``
+bookkeeping and Anderson(1) are fused into it. Each substep's mat-vec runs
+on the tensor cores (warp-level ``mma.sync`` m16n8k8, one warp per 16
+neurons); the kernel is bound by its arithmetic and, at small batches, by
+the slowest circuit's substep latency (see the note at the top of the CUDA
+source). A circuit whose state passes one block's shared memory (2N beyond
+about 220, the paper's N=201 among them) is solved by a thread-block
+cluster of 2, 4 or 8 blocks, each holding a slab of W's rows and
+exchanging rates through distributed shared memory. A battery too large
+for a cluster of 8 is split into chunks of rows, each solved by its own
+block or cluster against the circuit's whole W (the rows are independent,
+so this computes what one block over all rows computes). Where W's slab
+leaves no room for 8 rows even in a cluster of 8 (2N >= 598, 578 with
+Anderson), W stays in device memory and each warp reads its rows of it
+every substep (the W-global path, bit-equal to the shared-W launch at the
+same cluster size and rows); a block of a cluster of 8 then holds up to
+512 threads, so every 2N <= 2048 is solved. :func:`plan` gives the cluster
+size, the chunks and where W is read from.
 
 Precision (``KERNEL_PRECISION``): the mat-vec is 3xTF32, i.e. each fp32
 operand is split into a TF32 high part and a TF32 low part and the products
@@ -72,83 +77,113 @@ def slab(n2: int, cluster: int) -> int:
 
 
 def _layout_bytes(n2: int, S: int, accel: bool, cluster: int, ld: int,
-                  lds: int) -> int:
+                  lds: int, w_global: bool) -> int:
     rows = _round_up(S, TILE_N)
-    w = min(slab(n2, cluster), n2)
+    w = 0 if w_global else min(slab(n2, cluster), n2)
     floats = w * ld + 2 * rows * ld + rows * lds * (4 if accel else 1)
     ints = 2 * S + rows + rows // TILE_N + 1 + (
         3 * cluster * rows if cluster > 1 and accel else 0)
     return 4 * (floats + ints)
 
 
-def smem_bytes(n2: int, S: int, accel: bool, cluster: int = 1) -> int:
+def smem_bytes(n2: int, S: int, accel: bool, cluster: int = 1,
+               w_global: bool = False) -> int:
     """Dynamic shared memory of one block of a cluster of ``cluster``
     blocks per circuit: the layout in ``ssn_solve.cu``. W's rows of the
-    block's slab (all 2N at one block) and both rate planes at stride ld,
-    the battery and Anderson's planes over the slab at stride lds, each
-    the least stride >= its row that is 4 mod 8, or the row rounded up to
-    4 where that padding would not fit."""
+    block's slab (all 2N at one block; none with ``w_global``) and both
+    rate planes at stride ld, the battery and Anderson's planes over the
+    slab at stride lds, each the least stride >= its row that is 4 mod 8,
+    or the row rounded up to 4 where that padding would not fit."""
     w = min(slab(n2, cluster), n2)
     padded = _layout_bytes(n2, S, accel, cluster, _round_up(n2 + 4, 8) - 4,
-                           _round_up(w + 4, 8) - 4)
+                           _round_up(w + 4, 8) - 4, w_global)
     if padded <= MAX_SMEM_BYTES:
         return padded
     return _layout_bytes(n2, S, accel, cluster, _round_up(n2, 4),
-                         _round_up(w, 4))
+                         _round_up(w, 4), w_global)
 
 
 class Plan(NamedTuple):
     """How the kernel launches an S-row battery: ``chunks`` chunks of
     ``rows`` rows per circuit (the last may be shorter), each on a cluster
-    of ``cluster`` blocks."""
+    of ``cluster`` blocks, W read from device memory where ``w_global``."""
 
     cluster: int
     rows: int
     chunks: int
+    w_global: bool
 
 
-def _fits(n2: int, R: int, accel: bool, cluster: int) -> bool:
-    return (32 * slab(n2, cluster) // TILE_M <= MAX_THREADS
-            and smem_bytes(n2, R, accel, cluster) <= MAX_SMEM_BYTES)
+def _fits(n2: int, R: int, accel: bool, cluster: int,
+          w_global: bool) -> bool:
+    return ((cluster > 1 or not w_global)
+            and 32 * slab(n2, cluster) // TILE_M <= MAX_THREADS
+            and smem_bytes(n2, R, accel, cluster, w_global) <= MAX_SMEM_BYTES)
 
 
 @functools.cache
-def _max_rows(n2: int, accel: bool, cluster: int) -> int:
+def _max_rows(n2: int, accel: bool, cluster: int, w_global: bool) -> int:
     """The most rows, a multiple of 8, whose layout fits at this cluster
     size (at least 8: called where 8 fit)."""
     R = TILE_N
-    while _fits(n2, R + TILE_N, accel, cluster):
+    while _fits(n2, R + TILE_N, accel, cluster, w_global):
         R += TILE_N
     return R
 
 
-def plan(n2: int, S: int, accel: bool, rows: int | None = None) -> Plan:
-    """The launch plan of ``plan()`` in ``ssn_solve.cu``. Where a cluster
-    of :data:`CLUSTER_SIZES` fits the whole battery: the least such, one
-    chunk of S rows. Otherwise the least cluster size at which an 8-row
-    chunk fits, K = ceil(S / the most rows that fit there) chunks of
-    round_up(ceil(S / K), 8) rows. ``rows`` forces the rows per chunk (at
-    the least cluster size that fits them). Raises ``ValueError`` where not
-    even 8 rows fit a cluster of 8."""
+def _plan_at(n2: int, S: int, accel: bool, w_global: bool) -> Plan | None:
+    """The plan at one kind of layout, W in shared memory or not: the least
+    cluster size that fits the whole battery, one chunk; else the least at
+    which an 8-row chunk fits, K = ceil(S / the most rows that fit there)
+    chunks of round_up(ceil(S / K), 8) rows. None where 8 rows fit no
+    cluster."""
+    for c in CLUSTER_SIZES:
+        if _fits(n2, S, accel, c, w_global):
+            return Plan(c, S, 1, w_global)
+    c = next((c for c in CLUSTER_SIZES if _fits(n2, TILE_N, accel, c,
+                                                w_global)), 0)
+    if not c:
+        return None
+    chunks = -(-S // _max_rows(n2, accel, c, w_global))
+    return Plan(c, _round_up(-(-S // chunks), TILE_N), chunks, w_global)
+
+
+def plan(n2: int, S: int, accel: bool, rows: int | None = None,
+         w_global: bool = False) -> Plan:
+    """The launch plan of ``plan()`` in ``ssn_solve.cu``. W in shared
+    memory wherever a cluster of :data:`CLUSTER_SIZES` holds 8 rows with
+    it: the least cluster size that fits the whole battery, one chunk;
+    otherwise the least at which an 8-row chunk fits, K = ceil(S / the most
+    rows that fit there) chunks of round_up(ceil(S / K), 8) rows. Past
+    that, the same rule with W read from device memory, at cluster sizes 2,
+    4 and 8. ``rows`` forces the rows per chunk (at the least cluster size
+    that fits them with W in shared memory); ``w_global`` forces W from
+    device memory at the plan's cluster size, which must be 2 or more.
+    Raises ``ValueError`` past 2N = 2048, where a block of a cluster of 8
+    would need more than 512 threads."""
     if rows is not None:
-        c = next((c for c in CLUSTER_SIZES if _fits(n2, rows, accel, c)), 0)
+        c = next((c for c in CLUSTER_SIZES
+                  if _fits(n2, rows, accel, c, False)), 0)
         if rows < 1 or not c:
             raise ValueError(f"2N={n2}: no cluster size fits a chunk of "
-                             f"{rows} rows")
-        return Plan(c, rows, -(-S // rows))
-    for c in CLUSTER_SIZES:
-        if _fits(n2, S, accel, c):
-            return Plan(c, S, 1)
-    c = next((c for c in CLUSTER_SIZES if _fits(n2, TILE_N, accel, c)), 0)
-    if not c:
-        big = CLUSTER_SIZES[-1]
-        raise ValueError(
-            f"2N={n2}{' with Anderson' if accel else ''}: an 8-row chunk "
-            f"needs {smem_bytes(n2, TILE_N, accel, big)} bytes of shared "
-            f"memory per block at cluster size {big}, the largest tried; the "
-            f"limit is {MAX_SMEM_BYTES}")
-    chunks = -(-S // _max_rows(n2, accel, c))
-    return Plan(c, _round_up(-(-S // chunks), TILE_N), chunks)
+                             f"{rows} rows with W in shared memory")
+        p = Plan(c, rows, -(-S // rows), False)
+    else:
+        p = _plan_at(n2, S, accel, False) or _plan_at(n2, S, accel, True)
+        if p is None:
+            big = CLUSTER_SIZES[-1]
+            raise ValueError(
+                f"2N={n2}{' with Anderson' if accel else ''}: a block of a "
+                f"cluster of {big} would hold {slab(n2, big)} neurons, "
+                f"{32 * slab(n2, big) // TILE_M} threads, past the "
+                f"{MAX_THREADS}-thread limit of a block (every 2N <= "
+                f"{big * MAX_THREADS // 32 * TILE_M} is solved)")
+    if w_global and not p.w_global:
+        if p.cluster == 1:
+            raise ValueError(f"2N={n2}, S={S}: W from device memory needs a "
+                             f"cluster of 2 or more blocks; the plan has 1")
+        p = p._replace(w_global=True)
+    return p
 
 
 def solve_fixed_point_plain(cfg: SSNConfig, W: torch.Tensor,
@@ -180,9 +215,14 @@ def bind(path) -> ctypes.CDLL:
         if fn is not None:
             fn.argtypes = [i, i, i]
             fn.restype = i
-    fn = getattr(lib, "ssn_solve_launch_rows", None)
+    # absent from earlier builds: forced rows per chunk and W-global path
+    fn = getattr(lib, "ssn_solve_launch_plan", None)
     if fn is not None:
-        fn.argtypes = lib.ssn_solve_launch.argtypes + [i]
+        fn.argtypes = lib.ssn_solve_launch.argtypes + [i, i]
+        fn.restype = i
+    fn = getattr(lib, "ssn_solve_w_global", None)
+    if fn is not None:
+        fn.argtypes = [i, i, i]
         fn.restype = i
     return lib
 
@@ -233,9 +273,8 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
 
     Returns fp32 rates (B, S, 2N), bool converged/diverged (B, S) and int32
     iters (B, S), on the inputs' device, one launch for any S. Raises
-    ``ValueError`` where not even an 8-row chunk fits a cluster of 8 blocks
-    (:func:`plan`; every S fits at 2N <= 596, and at 2N <= 576 with
-    Anderson), and ``RuntimeError`` when the launch fails.
+    ``ValueError`` past 2N = 2048 (:func:`plan`; every S is solved below),
+    and ``RuntimeError`` when the launch fails.
     """
     global launches
     if (W.ndim != 3 or I_ext.ndim != 2 or W.shape[1] != W.shape[2]
@@ -246,7 +285,7 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
         raise ValueError(f"check_every must be >= 1; got {check_every}")
     B, n2 = W.shape[0], W.shape[2]
     S = I_ext.shape[0]
-    plan(n2, S, accel)  # raises where not even 8 rows fit a cluster
+    plan(n2, S, accel)  # raises past 2N = 2048
     if W.device.type == "cpu" and I_ext.device.type == "cpu":
         return solve_fixed_point_plain(cfg, W, I_ext, check_every, accel)
     if W.device.type != "cuda" or I_ext.device != W.device:
@@ -271,13 +310,15 @@ def _outputs(B: int, S: int, n2: int, device) -> fixed_point.FixedPointResult:
 
 def launch(lib: ctypes.CDLL, cfg: SSNConfig, W: torch.Tensor,
            I_ext: torch.Tensor, check_every: int, accel: bool,
-           rows_per_chunk: int | None = None
+           rows_per_chunk: int | None = None, w_global: bool = False
            ) -> fixed_point.FixedPointResult:
     """One launch of the solver in ``lib`` (see :func:`bind`) on CUDA
     tensors that :func:`solve_fixed_point_cuda` has checked; raises if the
     launch fails. Counts nothing. ``rows_per_chunk`` forces the plan's rows
     per chunk (``plan(..., rows=)``), so that a split launch can be held to
-    an unsplit one."""
+    an unsplit one; ``w_global`` forces W from device memory at the plan's
+    cluster size (``plan(..., w_global=)``), so that the W-global path can
+    be held to the shared-W one."""
     B, n2, S = W.shape[0], W.shape[2], I_ext.shape[0]
     device = W.device
     W32 = W.to(torch.float32).contiguous()
@@ -293,10 +334,11 @@ def launch(lib: ctypes.CDLL, cfg: SSNConfig, W: torch.Tensor,
             check_every, int(cfg.init == "feedforward"), int(accel),
             ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)]
     with torch.cuda.device(device):
-        if rows_per_chunk is None:
+        if rows_per_chunk is None and not w_global:
             err = lib.ssn_solve_launch(*args)
         else:
-            err = lib.ssn_solve_launch_rows(*args, rows_per_chunk)
+            err = lib.ssn_solve_launch_plan(*args, rows_per_chunk or 0,
+                                            int(w_global))
     if err:
         raise RuntimeError(
             f"ssn_solve launch failed: cudaError {err} "

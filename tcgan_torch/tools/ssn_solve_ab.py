@@ -2,10 +2,10 @@
 another build of its source, in turns.
 
 :data:`SHAPES`, :data:`CLUSTER_SHAPES`, :data:`SPLIT_SHAPES`,
-:func:`problem`, :func:`bound`, :func:`off_own_trajectory`,
-:func:`median_ms` and :func:`card` are what ``chip_smoke.py`` and the card
-tests use. Run as a script on a machine with one CUDA device, from the
-repository root:
+:data:`GLOBAL_SHAPES`, :func:`problem`, :func:`bound`,
+:func:`off_own_trajectory`, :func:`median_ms` and :func:`card` are what
+``chip_smoke.py`` and the card tests use. Run as a script on a machine
+with one CUDA device, from the repository root:
 
     python -m tcgan_torch.tools.ssn_solve_ab --baseline OLD/ssn_solve.cu \\
         [--out runs/ssn_solve_ab.json]
@@ -16,16 +16,17 @@ a git-ignored directory); it is compiled with the flags of
 ``tcgan_torch/ops/cuda/build.py``. At each shape of :data:`SHAPES` both
 kernels solve the same inputs in turns: baseline, this, this, baseline, each
 turn the median of ``--reps`` launches timed with CUDA events (at
-:data:`CLUSTER_SHAPES` and :data:`SPLIT_SHAPES`, which a baseline without
-thread-block clusters or row chunks refuses, this kernel alone). Printed per
-shape and kernel: the time, the bound from the run's own ``iters`` and its
-share, and the slowest circuit's time per substep (launch time / max iters),
-with the card's name and power limit; per kernel: registers and spills
-(ptxas), blocks per SM at 2N=102 with S=8 and 16 (the CUDA occupancy API),
-and the count of ``HMMA`` instructions in its SASS (cuobjdump); per
-function of both builds, whether the two SASS listings are the same
-instructions. The two kernels' flags, iters and rates are compared with
-each other and with the
+:data:`CLUSTER_SHAPES`, :data:`SPLIT_SHAPES` and :data:`GLOBAL_SHAPES`,
+which a baseline without thread-block clusters, row chunks or W read from
+device memory refuses, this kernel alone). Printed per shape and kernel:
+the time, the bound from the run's own ``iters`` and its share, the
+slowest circuit's time per substep (launch time / max iters) and the plan
+of its C entry points (cluster size, rows per chunk), with the card's name
+and power limit; per kernel: registers and spills (ptxas), blocks per SM
+at 2N=102 with S=8 and 16 (the CUDA occupancy API), and the count of
+``HMMA`` instructions in its SASS (cuobjdump); per function of both builds,
+whether the two SASS listings are the same instructions. The two kernels'
+flags, iters and rates are compared with each other and with the
 fp32 plain solve (rows outside rtol/atol listed) on every shape, and on
 2N=224 with the slice's J and D unscaled, where near-critical rows stop at
 a chunk that depends on the order of the sums.
@@ -108,6 +109,23 @@ SPLIT_SHAPES = {
                          False),  # 8, 16, 2
     "2N=102 S=256 B=64": (51, 64, tuple(0.3125 * k for k in range(1, 33)),
                           {}, False),  # 1, 128, 2
+}
+# Circuits whose W slab leaves no room for 8 rows in a cluster of 8, W read
+# from device memory (the plan beside each: cluster size, rows per chunk,
+# chunks): 2N=600 with the forward battery, the round-2 GAN's battery at its
+# atol (``run.gan --N 300``), 24 rows, and four contrasts with Anderson,
+# 2N=1024, and the widest admitted, 2N=2048: 1 to 4 row tiles. Same key
+# layout; contrasts to 10.
+GLOBAL_SHAPES = {
+    "2N=600 S=8 B=64": (300, 64, (CONTRAST,), {}, False),  # 4, 8, 1
+    "2N=600 S=16 B=16 gan": (300, 16, (5.0, CONTRAST),
+                             dict(atol=1e-5, max_iter=10000),
+                             False),  # 4, 16, 1
+    "2N=600 S=24 B=16": (300, 16, (2.5, 5.0, CONTRAST), {}, False),  # 4, 24, 1
+    "2N=600 S=32 B=16 anderson": (300, 16, (2.5, 5.0, 7.5, CONTRAST), {},
+                                  True),  # 8, 32, 1
+    "2N=1024 S=8 B=16": (512, 16, (CONTRAST,), {}, False),  # 4, 8, 1
+    "2N=2048 S=8 B=4": (1024, 4, (CONTRAST,), {}, False),  # 8, 8, 1
 }
 
 
@@ -195,8 +213,11 @@ def card() -> str:
 def _kernel_name(fn: str) -> str:
     """A mangled function name without its anonymous namespace, which
     carries the source file's name and a hash, so that two builds' names
-    compare."""
-    return re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", fn)
+    compare; an instantiation with W in shared memory (``kWGlobal`` false,
+    a fourth template argument that earlier sources lack) under the name of
+    the same instantiation in those sources."""
+    fn = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", fn)
+    return re.sub(r"(ssn_solve_kernelILi\d+ELb[01]ELb[01]E)Lb0E", r"\1", fn)
 
 
 def _ptxas_report(log: str) -> dict:
@@ -307,8 +328,8 @@ def main(argv=None) -> int:
     cases = {k: (b, c, kw, {}, False) for k, (b, c, kw) in SHAPES.items()}
     cases["wide 2N=224 S=8, J and D unscaled"] = (
         WIDE_BATCH, (CONTRAST,), {}, dict(N=WIDE_N, rescale=False), False)
-    for k, (N, b, c, kw, accel) in {**CLUSTER_SHAPES,
-                                    **SPLIT_SHAPES}.items():
+    for k, (N, b, c, kw, accel) in {**CLUSTER_SHAPES, **SPLIT_SHAPES,
+                                    **GLOBAL_SHAPES}.items():
         cases[k] = (b, c, kw, dict(N=N), accel)
     for shape, (batch, contrasts, overrides, kw, accel) in cases.items():
         cfg, W, I = problem(batch, contrasts, overrides, **kw)
@@ -346,11 +367,19 @@ def main(argv=None) -> int:
                   f"{max_iters} iters; rows both converged outside rtol "
                   f"{RTOL} atol {ATOL} of the fp32 plain solve: "
                   f"{rows[k]['rows_off_plain']}; {name}", flush=True)
-        _, n = ssn_solve.active_clusters(W.shape[-1], I.shape[0], accel)
-        rows["plan"] = ssn_solve.plan(W.shape[-1], I.shape[0], accel)
+        n2, S = W.shape[-1], I.shape[0]
+        _, n = ssn_solve.active_clusters(n2, S, accel)
+        rows["plan"] = ssn_solve.plan(n2, S, accel)
         rows["active_clusters"] = n
-        print(f"[ab] {shape}: plan {rows['plan']}, {n} chunks at once",
-              flush=True)
+        # each build's own plan (cluster size, rows per chunk), where its C
+        # interface has the queries
+        rows["kernel_plans"] = {
+            k: tuple(getattr(v["lib"], q)(n2, S, int(accel))
+                     for q in ("ssn_solve_cluster_size",
+                               "ssn_solve_rows_per_chunk")
+                     if hasattr(v["lib"], q)) for k, v in kernels.items()}
+        print(f"[ab] {shape}: plan {rows['plan']}, {n} chunks at once; "
+              f"the builds' C plans {rows['kernel_plans']}", flush=True)
         if "baseline" not in outs:
             report["shapes"][shape] = rows
             continue
@@ -360,12 +389,16 @@ def main(argv=None) -> int:
                                     + (a.diverged != b.diverged).sum())
         rows["rows_iters_differ"] = int((a.iters != b.iters).sum())
         rows["max_abs_dr"] = float((a.r - b.r).abs()[both].max())
+        rows["bit_equal"] = all(torch.equal(x, y) for x, y in zip(a, b))
+        plans = rows["kernel_plans"]
+        rows["same_plan"] = plans["baseline"] == plans["this"]
         rows["speedup"] = rows["baseline"]["ms"] / rows["this"]["ms"]
         print(f"[ab] {shape}: baseline / this = {rows['speedup']:.3f}; "
               f"between the two: flags differing {rows['flag_mismatch']}, "
               f"rows whose iters differ {rows['rows_iters_differ']}, max "
-              f"|dr| on rows both converged {rows['max_abs_dr']:.3e}",
-              flush=True)
+              f"|dr| on rows both converged {rows['max_abs_dr']:.3e}, "
+              f"(r, flags, iters) bit-equal {rows['bit_equal']}, the same "
+              f"plan {rows['same_plan']}", flush=True)
         report["shapes"][shape] = rows
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

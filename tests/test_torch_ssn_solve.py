@@ -193,11 +193,12 @@ def test_shared_memory_limit_raises(n2, S, accel, cluster):
     cluster of 2, 4 or 8 blocks takes it, each block's layout within the
     limit, up to every 2N <= 512 at S <= 16 and 2N=402 with the 24-row
     battery and Anderson. A battery past a cluster of 8 is solved in
-    chunks of rows (2N=512 at S=24 with Anderson, 2N=402 at S=64); where
-    not even an 8-row chunk fits a cluster of 8 (2N=598, 578 with
-    Anderson) the wrapper raises, on CPU tensors too, naming the chunk,
-    the bytes and the cluster size tried."""
-    assert ssn_solve.plan(n2, S, accel) == (cluster, S, 1)
+    chunks of rows (2N=512 at S=24 with Anderson, 2N=402 at S=64). Where
+    not even an 8-row chunk fits a cluster of 8 with W's slab in shared
+    memory (2N=598, 578 with Anderson), W is read from device memory; past
+    2N=2048, where a block of a cluster of 8 would need more than 512
+    threads, the wrapper raises, on CPU tensors too, naming the limit."""
+    assert ssn_solve.plan(n2, S, accel) == (cluster, S, 1, False)
     assert ssn_solve.smem_bytes(n2, S, accel, cluster) <= \
         ssn_solve.MAX_SMEM_BYTES
     if cluster > 1:  # the least cluster size that fits
@@ -205,31 +206,41 @@ def test_shared_memory_limit_raises(n2, S, accel, cluster):
             ssn_solve.MAX_SMEM_BYTES
     for n2, S, accel in ((512, 24, True), (402, 64, False)):
         p = ssn_solve.plan(n2, S, accel)
-        assert p.chunks > 1 and ssn_solve.smem_bytes(
+        assert p.chunks > 1 and not p.w_global and ssn_solve.smem_bytes(
             n2, p.rows, accel, p.cluster) <= ssn_solve.MAX_SMEM_BYTES
     for n2, accel in ((598, False), (578, True)):
         assert ssn_solve.plan(n2 - 2, 1000, accel).chunks > 1
-        with pytest.raises(ValueError, match="8-row chunk.*cluster size 8"
-                           ) as e:
-            ssn_solve.plan(n2, 8, accel)
-        assert str(ssn_solve.smem_bytes(n2, 8, accel, 8)) in str(e.value)
-    with pytest.raises(ValueError, match=str(ssn_solve.MAX_SMEM_BYTES)):
-        ssn_solve.solve_fixed_point_cuda(tssn.SSNConfig(N=300),
-                                         torch.zeros(1, 600, 600),
-                                         torch.zeros(8, 600))
+        assert not ssn_solve.plan(n2 - 2, 8, accel).w_global
+        assert ssn_solve.smem_bytes(n2, 8, accel, 8) > \
+            ssn_solve.MAX_SMEM_BYTES
+        p = ssn_solve.plan(n2, 8, accel)
+        assert p.w_global and p.chunks == 1 and ssn_solve.smem_bytes(
+            n2, 8, accel, p.cluster, True) <= ssn_solve.MAX_SMEM_BYTES
+        with pytest.raises(ValueError, match="W in shared memory"):
+            ssn_solve.plan(n2, 8, accel, rows=8)  # forced rows keep W there
+    assert ssn_solve.plan(2048, 8, True) == (8, 8, 1, True)
+    for accel in (False, True):
+        with pytest.raises(ValueError, match="cluster of 8.*544 threads.*"
+                           "512-thread limit") as e:
+            ssn_solve.plan(2050, 8, accel)
+        assert "2048" in str(e.value)
+    with pytest.raises(ValueError, match="512-thread limit"):
+        ssn_solve.solve_fixed_point_cuda(tssn.SSNConfig(N=1025),
+                                         torch.zeros(1, 2050, 2050),
+                                         torch.zeros(8, 2050))
 
 
 def test_every_width_to_512_fits_a_cluster():
     for n2 in range(2, 513):
         for S in range(1, 17):
             for accel in (False, True):
-                c, R, K = ssn_solve.plan(n2, S, accel)
-                assert (R, K) == (S, 1)
+                c, R, K, w_global = ssn_solve.plan(n2, S, accel)
+                assert (R, K, w_global) == (S, 1, False)
                 assert ssn_solve.smem_bytes(n2, S, accel, c) <= \
                     ssn_solve.MAX_SMEM_BYTES
                 assert 32 * ssn_solve.slab(n2, c) // 16 <= 512
     for S in range(17, 25):
-        assert ssn_solve.plan(402, S, True) == (8, S, 1)
+        assert ssn_solve.plan(402, S, True) == (8, S, 1, False)
 
 
 @pytest.mark.parametrize("accel", [False, True])
@@ -244,7 +255,8 @@ def test_plan_admits_every_battery(accel):
     for n2 in range(2, 577):
         R_max = None  # the most rows, a multiple of 8, at the split's c
         for S in range(1, 257):
-            c, R, K = ssn_solve.plan(n2, S, accel)
+            c, R, K, w_global = ssn_solve.plan(n2, S, accel)
+            assert not w_global, (n2, S)
             assert 32 * ssn_solve.slab(n2, c) // 16 <= 512
             assert ssn_solve.smem_bytes(n2, R, accel, c) <= limit, (n2, S)
             assert (K - 1) * R < S <= K * R, (n2, S)
@@ -271,16 +283,62 @@ def test_plan_admits_every_battery(accel):
     assert n_split > 10000
 
 
-def _paper_width_against_xla(bandwidths, contrasts, accel):
-    """N=201 (2N=402), 2 circuits, J and D scaled by 51 / 201
-    (``ssn_solve_ab.problem``): the wrapper's CPU path against the
-    reference's lockstep (XLA) solve; flags equal, rates within RTOL/ATOL.
-    Returns the CPU path's result."""
-    from tcgan_tpu.ops import fixed_point as jfp
+def _rule(n2, S, accel, w_global):
+    """The plan rule, from the layout bytes alone, at one kind of layout:
+    the least cluster size that holds the whole battery, one chunk; else
+    the least that holds 8 rows, the fewest chunks there, balanced rows;
+    None where 8 rows fit no cluster. Cluster sizes from 2 with W in
+    device memory."""
+    limit = ssn_solve.MAX_SMEM_BYTES
+    sizes = (2, 4, 8) if w_global else (1, 2, 4, 8)
+
+    def fits(R, c):
+        return (32 * ssn_solve.slab(n2, c) // 16 <= 512
+                and ssn_solve.smem_bytes(n2, R, accel, c, w_global) <= limit)
+
+    whole = next((c for c in sizes if fits(S, c)), None)
+    if whole is not None:
+        return whole, S, 1
+    c = next((c for c in sizes if fits(8, c)), None)
+    if c is None:
+        return None
+    R_max = 8
+    while fits(R_max + 8, c):
+        R_max += 8
+    K = -(-S // R_max)
+    return c, 8 * -(-S // (8 * K)), K
+
+
+@pytest.mark.parametrize("accel", [False, True])
+def test_plan_admits_every_width_to_2048(accel):
+    """Every 2N in 577..2048 at S from 1 to 256: each chunk's layout fits a
+    block, the slab needs at most 16 warps, the chunks cover the S rows
+    exactly; W is read from device memory exactly where no cluster of 8
+    holds 8 rows with W's slab in shared memory, and the plan is the
+    shared-W plan (unchanged) wherever one does."""
+    limit = ssn_solve.MAX_SMEM_BYTES
+    n_global = 0
+    for n2 in range(577, 2049):
+        shared8 = ssn_solve.smem_bytes(n2, 8, accel, 8) <= limit
+        for S in (1, 8, 9, 16, 24, 32, 48, 64, 256):
+            c, R, K, w_global = ssn_solve.plan(n2, S, accel)
+            assert 32 * ssn_solve.slab(n2, c) // 16 <= 512, (n2, S)
+            assert ssn_solve.smem_bytes(n2, R, accel, c, w_global) <= limit
+            assert (K - 1) * R < S <= K * R, (n2, S)
+            assert w_global == (not shared8), (n2, S)
+            assert (c, R, K) == _rule(n2, S, accel, w_global), (n2, S)
+            n_global += w_global
+    assert n_global > 13000
+
+
+def _circuit(N, bandwidths, contrasts, B=2, seed=5):
+    """f32 NumPy W (B, 2N, 2N) and battery I of the slice's circuit at width
+    N, J and D scaled by 51 / N (``ssn_solve_ab.problem``), and the
+    slice's SSNConfig keywords."""
     from tcgan_torch.tools import ssn_solve_ab as ab
 
-    N, scale = 201, 51 / 201
-    z = np.random.default_rng(5).standard_normal((2, 2 * N, 2 * N))
+    scale = 51 / N
+    z = np.random.default_rng(seed).standard_normal((B, 2 * N, 2 * N))
     x = np.linspace(-0.5, 0.5, N)
     m22 = lambda v, c=1.0: c * np.array(v).reshape(2, 2)  # noqa: E731
     W = np.asarray(jw.build_weight(m22(ab.SLICE_J, scale),
@@ -289,19 +347,35 @@ def _paper_width_against_xla(bandwidths, contrasts, accel):
     I = np.asarray(jstim.stimulus_battery(bandwidths, contrasts,
                                           jnp.asarray(x), 0.03125),
                    dtype=np.float32)
-    kw = {**ab.SLICE_SSN, "N": N, "accel": "anderson" if accel else "none"}
-    ref = jfp.solve_fixed_point(jssn.SSNConfig(**kw), jnp.asarray(W),
-                                jnp.asarray(I), check_every=ab.CHECK_EVERY)
-    out = ssn_solve.solve_fixed_point_cuda(
-        tssn.SSNConfig(**kw), torch.tensor(W), torch.tensor(I),
-        check_every=ab.CHECK_EVERY, accel=accel)
-    assert out.r.shape == (2, I.shape[0], 2 * N)
+    return W, I, {**ab.SLICE_SSN, "N": N}
+
+
+def _check_against(ref, out, n2, I):
+    assert out.r.shape == (2, I.shape[0], n2)
     np.testing.assert_array_equal(out.converged.numpy(),
                                   np.asarray(ref.converged))
     np.testing.assert_array_equal(out.diverged.numpy(),
                                   np.asarray(ref.diverged))
     np.testing.assert_allclose(out.r.numpy(), np.asarray(ref.r), rtol=RTOL,
                                atol=ATOL)
+
+
+def _paper_width_against_xla(bandwidths, contrasts, accel, N=201):
+    """N=201 (2N=402) by default, 2 circuits, J and D scaled by 51 / N
+    (``ssn_solve_ab.problem``): the wrapper's CPU path against the
+    reference's lockstep (XLA) solve; flags equal, rates within RTOL/ATOL.
+    Returns the CPU path's result."""
+    from tcgan_tpu.ops import fixed_point as jfp
+    from tcgan_torch.tools import ssn_solve_ab as ab
+
+    W, I, kw = _circuit(N, bandwidths, contrasts)
+    kw["accel"] = "anderson" if accel else "none"
+    ref = jfp.solve_fixed_point(jssn.SSNConfig(**kw), jnp.asarray(W),
+                                jnp.asarray(I), check_every=ab.CHECK_EVERY)
+    out = ssn_solve.solve_fixed_point_cuda(
+        tssn.SSNConfig(**kw), torch.tensor(W), torch.tensor(I),
+        check_every=ab.CHECK_EVERY, accel=accel)
+    _check_against(ref, out, 2 * N, I)
     return out
 
 
@@ -318,10 +392,43 @@ def test_cpu_path_matches_xla_at_split_shape():
     path solves the whole battery, which is what the chunks compute."""
     from tcgan_torch.tools import ssn_solve_ab as ab
 
-    assert ssn_solve.plan(402, 32, True) == (4, 8, 4)
+    assert ssn_solve.plan(402, 32, True) == (4, 8, 4, False)
     out = _paper_width_against_xla(ab.BANDWIDTHS, (5.0, 10.0, 13.0, 20.0),
                                    True)
     assert float(out.converged.float().mean()) > 0.9
+
+
+@pytest.mark.parametrize("N,accel", [(300, False), (512, True)])
+def test_cpu_path_matches_xla_at_global_w_width(N, accel):
+    """Past a cluster of 8's shared memory at 8 rows: 2N=600, and 2N=1024
+    with Anderson, the 8-bandwidth battery at contrast 10; on the card, W
+    read from device memory on clusters of 4. Against the reference's
+    lockstep solve."""
+    from tcgan_torch.tools import ssn_solve_ab as ab
+
+    assert ssn_solve.plan(2 * N, 8, accel) == (4, 8, 1, True)
+    out = _paper_width_against_xla(ab.BANDWIDTHS, (10.0,), accel, N=N)
+    assert float(out.converged.float().mean()) > 0.9
+
+
+def test_cpu_path_matches_pallas_interpret_at_global_w_width():
+    """2N=600 against the reference's Pallas kernel in interpret mode (the
+    wrapper clamps it to one circuit a tile there) at atol 1e-5: at atol
+    1e-4 the reference's own kernel and lockstep solve sit up to 9.83e-05
+    apart at these widths, past rtol 1e-4 / atol 1e-5."""
+    from tcgan_torch.tools import ssn_solve_ab as ab
+
+    W, I, kw = _circuit(300, ab.BANDWIDTHS, (10.0,))
+    kw.update(atol=1e-5, max_iter=10000)
+    ref = solve_fixed_point_pallas(jssn.SSNConfig(**kw), jnp.asarray(W),
+                                   jnp.asarray(I),
+                                   check_every=ab.CHECK_EVERY,
+                                   interpret=True, two_phase=False)
+    out = ssn_solve.solve_fixed_point_cuda(
+        tssn.SSNConfig(**kw), torch.tensor(W), torch.tensor(I),
+        check_every=ab.CHECK_EVERY)
+    _check_against(ref, out, 600, I)
+    assert out.converged.all()
 
 
 @pytest.mark.parametrize("accel", [False, True])

@@ -215,8 +215,8 @@ def test_forced_split_is_bit_equal(cuda_device, accel):
     """2N=102, S=32 in one chunk and forced into 4 chunks of 8 rows, one
     block per chunk either way: rates, flags and iters bit-equal."""
     cfg, W, I = ab.problem(16, (2.5, 5.0, 10.0, 13.0), {}, seed=2)
-    assert ssn_solve.plan(102, 32, accel) == (1, 32, 1)
-    assert ssn_solve.plan(102, 32, accel, rows=8) == (1, 8, 4)
+    assert ssn_solve.plan(102, 32, accel) == (1, 32, 1, False)
+    assert ssn_solve.plan(102, 32, accel, rows=8) == (1, 8, 4, False)
     lib = ssn_solve._library()
     whole = ssn_solve.launch(lib, cfg, W, I, 32, accel)
     split = ssn_solve.launch(lib, cfg, W, I, 32, accel, rows_per_chunk=8)
@@ -226,23 +226,80 @@ def test_forced_split_is_bit_equal(cuda_device, accel):
     assert float(whole.converged.float().mean()) > 0.5
 
 
+# name: (N, circuits, contrasts, accel, the shared-W plan): W read from
+# device memory, forced at the shared-W plan's cluster size and rows
+GLOBAL_FORCED = {
+    "2N240_S8": (120, 16, (10.0,), False, (2, 8, 1)),
+    "2N402_S8": (201, 16, (10.0,), False, (4, 8, 1)),
+    "2N402_S32_anderson_chunks": (201, 8, (2.5, 5.0, 7.5, 10.0), True,
+                                  (4, 8, 4)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GLOBAL_FORCED))
+def test_forced_global_w_is_bit_equal(cuda_device, case):
+    """The W-global path forced where W's slab fits shared memory, at the
+    same cluster size and rows: the k-loop reads the same values in the
+    same order, so rates, flags and iters are bit-equal."""
+    N, B, contrasts, accel, shared = GLOBAL_FORCED[case]
+    cfg, W, I = ab.problem(B, contrasts, {}, N=N, seed=2)
+    S = I.shape[0]
+    assert ssn_solve.plan(2 * N, S, accel) == (*shared, False)
+    assert ssn_solve.plan(2 * N, S, accel, w_global=True) == (*shared, True)
+    lib = ssn_solve._library()
+    a = ssn_solve.launch(lib, cfg, W, I, 32, accel)
+    b = ssn_solve.launch(lib, cfg, W, I, 32, accel, w_global=True)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert float(a.converged.float().mean()) > 0.5
+
+
+# name: (N, circuits, contrasts, accel): past a cluster of 8's shared memory
+# at 8 rows, W read from device memory; contrasts to 10 (past it the
+# stopping chunk of slow rows is not stable under rounding, PERF.md)
+GLOBAL_CASES = {
+    "2N600_S8": (300, 8, (10.0,), False),
+    "2N600_S24": (300, 4, (2.5, 5.0, 10.0), False),
+    "2N1024_anderson_S16": (512, 4, (5.0, 10.0), True),
+    "2N2048_S8_B2": (1024, 2, (10.0,), False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GLOBAL_CASES))
+def test_global_w_kernel_matches_plain(cuda_device, case):
+    N, B, contrasts, accel = GLOBAL_CASES[case]
+    cfg, W, I = ab.problem(B, contrasts, {}, N=N, seed=1)
+    assert ssn_solve.plan(2 * N, I.shape[0], accel).w_global
+    out = _check(cfg, W, I, 32, accel, converged_rows_only=True,
+                 witness=True)
+    assert torch.isfinite(out.r).all()
+    assert out.r.shape == (B, I.shape[0], 2 * N)
+    assert float(out.converged.float().mean()) > 0.5
+
+
 @pytest.mark.cuda
 def test_plan_matches_the_kernel(cuda_device):
-    """The wrapper's plan is the kernel's: cluster size and rows per chunk
-    from the C entry points over a grid of shapes, both refusing where not
-    even 8 rows fit a cluster of 8."""
+    """The wrapper's plan is the kernel's: cluster size, rows per chunk and
+    where W is read from, from the C entry points over a grid of shapes,
+    both refusing past 2N=2048."""
     lib = ssn_solve._library()
-    for n2 in (2, 26, 102, 224, 240, 402, 512, 576, 596, 598, 640):
+    for n2 in (2, 26, 102, 224, 240, 402, 512, 576, 578, 596, 598, 600, 640,
+               1024, 1500, 2048, 2050):
         for S in (1, 8, 17, 24, 32, 48, 64, 96, 184, 256, 1000):
             for accel in (False, True):
                 c = lib.ssn_solve_cluster_size(n2, S, int(accel))
                 R = lib.ssn_solve_rows_per_chunk(n2, S, int(accel))
+                wg = lib.ssn_solve_w_global(n2, S, int(accel))
                 try:
                     p = ssn_solve.plan(n2, S, accel)
                 except ValueError:
-                    assert (c, R) == (0, 0), (n2, S, accel)
+                    assert (c, R, wg) == (0, 0, 0), (n2, S, accel)
                     continue
-                assert (c, R) == p[:2], (n2, S, accel, p)
+                assert (c, R, bool(wg)) == (p.cluster, p.rows, p.w_global), (
+                    n2, S, accel, p)
 
 
 @pytest.mark.cuda
@@ -271,6 +328,17 @@ def test_kernel_flags_runaway_divergence(cuda_device):
     out = _check(cfg, W, I, 32, False)
     assert out.diverged.all() and torch.isfinite(out.r).all()
     assert float(out.r.max()) <= 10.0 * cfg.rate_stop_at
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_past_2048_raises(cuda_device):
+    """Past 2N=2048 a CUDA tensor is refused, never solved elsewhere."""
+    before = ssn_solve.launches
+    with pytest.raises(ValueError, match="512-thread limit"):
+        ssn_solve.solve_fixed_point_cuda(
+            SSNConfig(N=1025), torch.zeros(1, 2050, 2050, device=cuda_device),
+            torch.zeros(8, 2050, device=cuda_device))
+    assert ssn_solve.launches == before
 
 
 @pytest.mark.cuda

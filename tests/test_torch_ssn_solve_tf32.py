@@ -263,7 +263,8 @@ def test_shared_memory_layout_admits_every_earlier_shape(accel):
                 assert ssn_solve.smem_bytes(n2, S, accel) <= limit, (n2, S)
             one = _one_block_layout_bytes(n2, S, accel)
             if one <= limit:
-                assert ssn_solve.plan(n2, S, accel) == (1, S, 1), (n2, S)
+                assert ssn_solve.plan(n2, S, accel) == (1, S, 1, False), (
+                    n2, S)
                 assert ssn_solve.smem_bytes(n2, S, accel, 1) == one, (n2, S)
     assert ssn_solve.smem_bytes(102, 16, accel) < _fp32_core_layout_bytes(
         102, 16, accel)
