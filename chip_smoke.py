@@ -42,18 +42,33 @@ no result line):
    with its time, bound, share, plan and circuits at once;
    the W-global path forced at 2N=402 (S=8, and S=32 with Anderson in row
    chunks) held bit for bit to the shared-W launch; the plain version's
-   time at 512 circuits, at 2N=402 and at 2N=600;
+   time at 512 circuits, at 2N=402 and at 2N=600. All of these run one
+   phase (``--pallas-two-phase off``), as before the two-phase schedule,
+   so their times and digests compare with earlier runs. Then the
+   two-phase schedule, the CLI's default (``ab.TWO_PHASE_SHAPES``: N=51 at
+   B=512 S=8, B=256 S=16 atol 1e-5, B=32 S=8, and B=256 at S=24 and 32
+   (3 and 4 row tiles) on the register path,
+   2N=224, 2N=402 on clusters of 4, 2N=402 S=32 with Anderson in row
+   chunks, 2N=600 with W from device memory), each held to the plain
+   version with phase 1 in emulated TF32 and timed in one phase and in
+   two, in turns, beside its bound and phase 1's share of the substeps;
+   hard divergers and the slice's circuit with J x4 at reopen margins 0
+   and 2.0 (the same flags; no more iters on a diverged row at 2.0);
 4. the serving path: ``python -m tcgan_torch.run.forward`` (through its
    ``main``) with the CUDA backend, 8 batches of 512 circuits, checked for
-   launches, shapes, convergence and agreement with the plain solver; then
-   one batch on the 24-stimulus battery;
+   launches (all in two phases), shapes, convergence and agreement with
+   the plain version; 2 batches with ``--pallas-two-phase off`` (one
+   phase), their circuits/s beside; then one batch on the 24-stimulus
+   battery;
 4b. the paper's circuit, N=201, through ``run.forward``: 4 batches of 64
    circuits (one launch each, batch 0 against the plain solve, circuits/s),
    then 2 batches with the reference's ``--solver-backend pallas``;
 4c. the same circuit with the 32-row battery (contrasts 5, 10, 13, 20) and
    ``--accel anderson``, past a cluster of 8: 2 batches of 64, one launch
-   each (4 chunks of 8 rows per circuit), batch 0 against the plain solve,
-   circuits/s;
+   each (4 chunks of 8 rows per circuit), batch 0 against the plain solve
+   (a row outside rtol/atol that stopped at another substep passes where
+   the plain version run to the kernel's iters for it agrees, ``_witness``;
+   at most 8), circuits/s;
 4d. past a cluster's shared memory, N=300 (2N=600, J and D scaled by
    51/300; W read from device memory), through ``run.forward``: 2 batches
    of 64 circuits (one launch each, batch 0 against the plain solve), then
@@ -66,7 +81,9 @@ no result line):
    battery (8 bandwidths x contrasts 5, 10), the gradient of the mean probe
    rate with respect to the log-space (J, D, S), with the kernel forward
    and with the plain forward under the same adjoint, held to a relative
-   tolerance; the adjoint's iterations and host syncs; the times of the
+   tolerance (the plain forward: the kernel's plain version, phase 1 in
+   emulated TF32); the adjoint's iterations and host syncs; the times of
+   the
    forward kernel and of the adjoint; the kernel's blocks per SM at that
    battery and the waves a 256-circuit batch takes;
 6. the training path: ``python -m tcgan_torch.run.gan`` (through its
@@ -78,7 +95,8 @@ no result line):
    parameters, checkpoints, the parameter export and convergence; then
    ``wgan_step_ms`` at the bench configuration of the JAX package
    (``bench.py::_wgan_step_ms``) and the step's device-time split from
-   ``torch.profiler``;
+   ``torch.profiler``; the round-2 step the same way at reopen margin 0
+   (the default), at 2.0 and with ``--pallas-two-phase off``;
 7. BPTT (config C3): at N=51 and the GAN battery, the gradient of the mean
    probe rate with respect to the log-space (J, D, S) through 4000 Euler
    steps for 8 circuits on the card, held to the same computation in
@@ -150,13 +168,22 @@ no result line):
 
 Every phase prints its seconds.
 
-The line before the last is a JSON object describing the kernel (route,
-source, the TPU kernel it replaces, launches on the main paths, error and
-times); the last line is ``{"ok": true, "device": {...}}``.
+Every path runs the CLI's default schedule, two phases, but phase 4's run
+with ``--pallas-two-phase off``; a ``_plain`` comparison runs the plain
+version in the schedule of the config it is given. Each path reads the
+wrapper's counts where it ran (``_count_launches``; a rank worker returns
+both) and checks that every launch of it ran in the path's schedule; the
+kernels line sums them by schedule.
+
+The line before the last is a JSON object describing the kernel's
+instantiations, one entry each for one phase and two (route, source, the
+TPU kernel code it replaces, launches on the main paths, error and times);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
 import json
@@ -238,6 +265,10 @@ WIDE_FWD_MIN_CONVERGED = 0.9
 # Phase 4c: the same circuit with a battery past a cluster of 8 (32 rows,
 # Anderson; the reference's run.gan with these contrasts).
 SPLIT_FWD_CONTRASTS = (5.0, 10.0, 13.0, 20.0)
+# The most rows of one comparison that a witness (``_compare``,
+# ``_batch0_against_plain``) may pass outside rtol/atol: 1-3 of 2048 in 4c
+# and of 16384 in phase 3's split battery.
+WITNESS_MAX_ROWS = 8
 # Phase 4d: circuits past a cluster's shared memory at 8 rows (W read from
 # device memory), N=300, through run.forward and run.gan (16 circuits a
 # batch, a 128-circuit fake truth; the round-2 battery and flags).
@@ -257,14 +288,47 @@ def _line(*parts):
     print(*parts, flush=True)
 
 
+def _plain(cfg, W, I, check_every, accel=False, stats=None):
+    """The kernel's plain version on the card: in two phases with phase 1
+    in one emulated TF32 pass (``ssn_solve.drive_1xtf32``), so that it
+    computes what the kernel's phase 1 computes."""
+    from tcgan_torch.ops.cuda import ssn_solve
+
+    fast = ssn_solve.drive_1xtf32 if cfg.pallas_two_phase else None
+    return ssn_solve.solve_fixed_point_plain(cfg, W, I, check_every, accel,
+                                             fast_drive=fast, stats=stats)
+
+
+@contextlib.contextmanager
+def _plain_kernel():
+    """The kernel's wrapper replaced by its plain version (``_plain``) while
+    the block runs: a path run under it computes in plain torch what the
+    kernel computes, and launches nothing. Yields the list of the solves'
+    inputs, (cfg, W, I, check_every, accel) per call."""
+    from tcgan_torch.ops.cuda import ssn_solve
+
+    real, calls = ssn_solve.solve_fixed_point_cuda, []
+
+    def plain(cfg, W, I, check_every=1, accel=False):
+        calls.append((cfg, W, I, check_every, accel))
+        return _plain(cfg, W, I, check_every, accel)
+
+    ssn_solve.solve_fixed_point_cuda = plain
+    try:
+        yield calls
+    finally:
+        ssn_solve.solve_fixed_point_cuda = real
+
+
 def _compare(name, cfg, W, I, check_every, accel=False, witness=False,
-             out=None):
-    """Kernel against plain on the same inputs: flags equal, rates of rows
-    both converged within RTOL/ATOL, iters within two check strides (the
-    mat-vec's summation order differs, so the atol crossing can land one
-    chunk apart); with ``witness``, a row outside RTOL/ATOL passes when it
-    agrees with its own fp32 trajectory (``_off_own_trajectory``). ``out``:
-    a kernel result already computed on these inputs (else one launch).
+             out=None, stats=None):
+    """Kernel against plain (``_plain``) on the same inputs: flags equal,
+    rates of rows both converged within RTOL/ATOL, iters within two check
+    strides (the mat-vec's summation order differs, so the atol crossing
+    can land one chunk apart); with ``witness``, a row outside RTOL/ATOL
+    passes on the evidence of ``_witness``, at most WITNESS_MAX_ROWS such
+    rows. ``out``: a kernel result already computed
+    on these inputs (else one launch); ``stats`` goes to the plain version.
     Returns (the kernel's result, max |dr| on rows both converged)."""
     import torch
 
@@ -272,7 +336,7 @@ def _compare(name, cfg, W, I, check_every, accel=False, witness=False,
 
     if out is None:
         out = ssn_solve.solve_fixed_point_cuda(cfg, W, I, check_every, accel)
-    ref = ssn_solve.solve_fixed_point_plain(cfg, W, I, check_every, accel)
+    ref = _plain(cfg, W, I, check_every, accel, stats)
     torch.cuda.synchronize()
     if not torch.isfinite(out.r).all():
         raise AssertionError(f"{name}: non-finite kernel rates")
@@ -283,16 +347,16 @@ def _compare(name, cfg, W, I, check_every, accel=False, witness=False,
     bound = ATOL + RTOL * ref.r.abs()
     bad_rows = ((diff > bound) & both).any(-1)
     n_bad = int(((diff > bound) & both).sum())
+    if witness and int(bad_rows.sum()) > WITNESS_MAX_ROWS:
+        raise AssertionError(f"{name}: {int(bad_rows.sum())} rows outside "
+                             f"rtol/atol, past the witness's "
+                             f"{WITNESS_MAX_ROWS}")
     if witness:
         for b, s_ in bad_rows.nonzero().tolist():
-            d_own, ok = _off_own_trajectory(out, cfg, W, I, b, s_,
-                                            check_every, accel)
-            _line(f"[kernel]   {name} row (circuit {b}, stimulus {s_}) "
-                  f"outside rtol/atol: iters kernel {int(out.iters[b, s_])} "
-                  f"plain {int(ref.iters[b, s_])}; kernel vs fp32 run to "
-                  f"its own iters {d_own:.3e} "
-                  f"({'within' if ok else 'OUTSIDE'} rtol {RTOL} atol "
-                  f"{ATOL})")
+            ok = _witness(f"[kernel]   {name}", cfg, W, I, b, s_,
+                          check_every, accel, out.r[b, s_],
+                          int(out.iters[b, s_]), ref.r[b, s_],
+                          int(ref.iters[b, s_]))
             if ok:
                 n_bad -= int(((diff[b, s_] > bound[b, s_])).sum())
     max_err = float(diff.max()) if diff.numel() else 0.0
@@ -554,6 +618,138 @@ def _forced_global(card: str, lib) -> None:
             raise AssertionError("forced W-global: differs from shared W")
 
 
+def _two_phase_kernel(card: str) -> dict:
+    """The two-phase schedule (the CLI's default) at
+    ``ab.TWO_PHASE_SHAPES``, every path of the kernel: against the plain
+    version with phase 1 in emulated TF32 (``_compare``: flags equal, rates
+    within RTOL/ATOL, or for a row that stopped at another substep on the
+    evidence of ``_witness``; iters within two strides), then the kernel in one
+    phase and in two, in turns (one, two, two, one; each the median of 5),
+    each beside its bound (two phases: phase 1 in one TF32 pass, phase 2 in
+    three, from the plain version's substeps per phase) and the share of
+    the substeps run in phase 1. Returns the kernels line's entry for the
+    two-phase instantiations (the forward shape's times)."""
+    from tcgan_torch.ops.cuda import ssn_solve
+
+    rows, max_err, first = [], 0.0, None
+    for name, (N, batch, contrasts, kw, accel) in ab.TWO_PHASE_SHAPES.items():
+        c, W, I = ab.problem(batch, contrasts, kw, N=N, seed=SEED,
+                             two_phase=True)
+        first = first or (c, W, I)
+        plan = ssn_solve.plan(W.shape[-1], I.shape[0], accel)
+        stats = {}
+        out, err = _compare(f"two-phase {name}", c, W, I, CHECK_EVERY, accel,
+                            witness=True, stats=stats)
+        max_err = max(max_err, err)
+        one = dataclasses.replace(c, pallas_two_phase=False)
+        one_out = _solve(one, W, I, accel)
+        turns = [_median_ms(lambda cc=cc: _solve(cc, W, I, accel))
+                 for cc in (one, c, c, one)]
+        one_ms, two_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        steps = (stats["phase1_substeps"], stats["phase2_substeps"])
+        bound_ms, bound_by = ab.bound(W, I, out.iters, steps)
+        one_bound, _ = ab.bound(W, I, one_out.iters)
+        p1 = float(steps[0].sum() / (steps[0].sum() + steps[1].sum()))
+        rows.append({"shape": name, "B": batch, "S": I.shape[0],
+                     "2N": W.shape[-1], "accel": accel, "plan": tuple(plan),
+                     "ms": two_ms, "one_phase_ms": one_ms, "turns_ms": turns,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "one_phase_bound_ms": one_bound,
+                     "phase1_share_of_substeps": p1,
+                     "mean_iters": float(out.iters.float().mean()),
+                     "one_phase_mean_iters": float(
+                         one_out.iters.float().mean()),
+                     "max_iters": int(out.iters.max()),
+                     "one_phase_max_iters": int(one_out.iters.max()),
+                     "max_abs_err": err})
+        _line(f"[two-phase] ssn_solve {name} (2N={W.shape[-1]}, S="
+              f"{I.shape[0]}, atol {c.atol}{', Anderson' if accel else ''}; "
+              f"plan {tuple(plan)}): two phases {two_ms:.3f} ms, one phase "
+              f"{one_ms:.3f} ms (turns one, two, two, one: "
+              f"{', '.join(f'{t:.3f}' for t in turns)}; each the median of "
+              f"5), one / two {one_ms / two_ms:.3f}; bound {bound_ms:.4f} ms "
+              f"({bound_by}; phase 1's share of the substeps {p1:.4f}), "
+              f"share {bound_ms / two_ms:.4f}; one phase's bound "
+              f"{one_bound:.4f} ms; max iters {int(out.iters.max())} (one "
+              f"phase {int(one_out.iters.max())}), mean iters "
+              f"{float(out.iters.float().mean()):.1f} (one phase "
+              f"{float(one_out.iters.float().mean()):.1f}) ({card})")
+    fwd = rows[0]
+    plain_ms = _median_ms(lambda: _plain(*first, CHECK_EVERY), reps=3)
+    _line(f"[two-phase] ssn_solve {fwd['shape']}: kernel {fwd['ms']:.3f} ms, "
+          f"plain (phase 1 in emulated TF32) {plain_ms:.3f} ms (median of 3; "
+          f"{card})")
+    return {"name": "ssn_solve two-phase", "route": "cuda",
+            "source": "tcgan_torch/csrc/ssn_solve.cu",
+            "replaces": "tcgan_tpu/ops/pallas/ssn_solve.py:291",
+            "schedule": "two phases (the default; _solver_kernel :291-343)",
+            "max_abs_err": max_err, "ms": fwd["ms"], "plain_ms": plain_ms,
+            "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+            "library_ms": None, "shapes": rows}
+
+
+def _reopen_margins(card: str, dcfg, W_bad, I_bad) -> None:
+    """The reopen margin in two phases, at margins 0 and 2.0 against the
+    plain version (``_compare``): hard divergers (``dcfg``'s 8 x 8, every
+    row diverges), and the slice's battery (2N=102, S=8, 64 circuits) with
+    half its circuits hard divergers (W = 0.5 |N(0, 1)|: every row passes
+    rate_stop_at within two chunks). At margin 2.0 a row pinned above 2
+    rate_stop_at keeps its phase-1 flag and iters: the same flags, iters no
+    larger on the diverged rows. Then the slice's circuit with J four times
+    the slice's, near criticality (about a tenth of the rows diverge, some
+    never resolve): printed, not gated, how many flags the kernel and the
+    plain version disagree on there, in one phase and in two."""
+    import torch
+
+    c, W, I = ab.problem(64, (CONTRAST,), {}, seed=SEED, two_phase=True)
+    W[32:] = 0.5 * torch.randn(W[32:].shape, device=W.device,
+                               generator=torch.Generator(
+                                   W.device).manual_seed(SEED)).abs()
+    cases = {"hard divergers 2N=8 S=1 B=32": (
+        dataclasses.replace(dcfg, pallas_two_phase=True), W_bad, I_bad),
+        "half hard divergers 2N=102 S=8 B=64": (c, W, I)}
+    for name, (c, W, I) in cases.items():
+        outs = []
+        for margin in (0.0, 2.0):
+            cm = dataclasses.replace(c, pallas_reopen_margin=margin)
+            out, _ = _compare(f"two-phase {name}, margin {margin}", cm, W, I,
+                              CHECK_EVERY)
+            ms = _median_ms(lambda: _solve(cm, W, I))
+            outs.append(out)
+            div = out.diverged
+            div_iters = out.iters[div].float().mean() if div.any() else 0.0
+            _line(f"[two-phase] {name} margin {margin}: kernel {ms:.3f} ms "
+                  f"(median of 5), diverged {float(div.float().mean()):.4f}, "
+                  f"mean iters of the diverged rows {float(div_iters):.1f}, "
+                  f"max iters {int(out.iters.max())} ({card})")
+        a, b = outs
+        if not (torch.equal(a.diverged, b.diverged)
+                and torch.equal(a.converged, b.converged)):
+            raise AssertionError(f"{name}: the margin changed flags")
+        if (b.iters[b.diverged] > a.iters[a.diverged]).any():
+            raise AssertionError(f"{name}: margin 2.0 raised a diverged "
+                                 "row's iters")
+    c, W, I = ab.problem(64, (CONTRAST,), {}, seed=SEED, two_phase=True,
+                         j_factor=4.0)
+    flips = {}
+    for label, cfg in (("one phase", dataclasses.replace(
+            c, pallas_two_phase=False)), ("two phases", c)):
+        out, ref = _solve(cfg, W, I), _plain(cfg, W, I, CHECK_EVERY)
+        flips[label] = (int((out.converged != ref.converged).sum()
+                            + (out.diverged != ref.diverged).sum()),
+                        float(ref.diverged.float().mean()),
+                        int((out.iters - ref.iters).abs().max()))
+    _line(f"[two-phase] near criticality, J x4 2N=102 S=8 B=64 (not gated): "
+          f"(flags differing kernel vs plain, diverged share, max iters gap) "
+          f"{flips} ({card})")
+
+
+def _solve(cfg, W, I, accel=False):
+    from tcgan_torch.ops.cuda import ssn_solve
+
+    return ssn_solve.solve_fixed_point_cuda(cfg, W, I, CHECK_EVERY, accel)
+
+
 def phase_kernel(card: str) -> dict:
     import torch
 
@@ -669,7 +865,7 @@ def phase_kernel(card: str) -> dict:
     # Hard divergers, shaped like tests/test_pallas_solver.py's runaway
     # case: all must diverge and stay finite under the ceiling.
     dcfg = SSNConfig(N=4, k=0.05, n=2.2, dt=0.002, max_iter=512,
-                     rate_stop_at=200.0, atol=1e-6)
+                     rate_stop_at=200.0, atol=1e-6, pallas_two_phase=False)
     gen = torch.Generator("cuda").manual_seed(SEED)
     W_bad = 8.0 * torch.randn((32, 8, 8), generator=gen,
                               device="cuda").abs()
@@ -677,6 +873,8 @@ def phase_kernel(card: str) -> dict:
     out, _ = _compare("diverge", dcfg, W_bad, I_bad, CHECK_EVERY)
     if not bool(out.diverged.all()) or float(out.r.max()) > 10 * 200.0:
         raise AssertionError("diverge: not all diverged under the ceiling")
+    two_phase = _two_phase_kernel(card)
+    _reopen_margins(card, dcfg, W_bad, I_bad)
 
     fwd_row = rows[0]
     plain_ms = _median_ms(lambda: ssn_solve.solve_fixed_point_plain(
@@ -695,15 +893,16 @@ def phase_kernel(card: str) -> dict:
     _line(f"[time] ssn_solve 2N=600 S=8 B=64 (W from device memory): kernel "
           f"{row600['ms']:.3f} ms, plain {plain600_ms:.3f} ms (median of 3; "
           f"{card})")
-    return {"name": "ssn_solve", "route": "cuda",
-            "source": "tcgan_torch/csrc/ssn_solve.cu",
-            "replaces": "tcgan_tpu/ops/pallas/ssn_solve.py:82",
-            "max_abs_err": max_err, "ms": fwd_row["ms"],
-            "plain_ms": plain_ms, "bound_ms": fwd_row["bound_ms"],
-            "bound_by": fwd_row["bound_by"],
-            "library_ms": None, "plain_ms_2N402": wide_plain_ms,
-            "plain_ms_2N600": plain600_ms,
-            "shapes": rows}
+    return [{"name": "ssn_solve", "route": "cuda",
+             "source": "tcgan_torch/csrc/ssn_solve.cu",
+             "replaces": "tcgan_tpu/ops/pallas/ssn_solve.py:82",
+             "schedule": "one phase (--pallas-two-phase off)",
+             "max_abs_err": max_err, "ms": fwd_row["ms"],
+             "plain_ms": plain_ms, "bound_ms": fwd_row["bound_ms"],
+             "bound_by": fwd_row["bound_by"],
+             "library_ms": None, "plain_ms_2N402": wide_plain_ms,
+             "plain_ms_2N600": plain600_ms,
+             "shapes": rows}, two_phase]
 
 
 def _forward_argv(datastore, contrasts, total, N=SLICE_SSN["N"],
@@ -727,10 +926,35 @@ def _forward_argv(datastore, contrasts, total, N=SLICE_SSN["N"],
     ]
 
 
-def _batch0_against_plain(tag, argv, data):
-    """The first batch of a ``run.forward`` run again, through the plain
-    solver from the same seed: the same flags, and the tuning curves of the
-    rows both converged within RTOL/ATOL."""
+def _witness(head, cfg, W, I, b, s, check_every, accel, r, it, r_ref,
+             it_ref) -> bool:
+    """Whether row (b, s), whose kernel rates ``r`` (stopped at substep
+    ``it``) lie outside RTOL/ATOL of the plain version's ``r_ref`` (at
+    ``it_ref``), is still the right trajectory: it stopped at another
+    substep, and the plain version run to the kernel's own iters for the
+    row (``ab.own_trajectory``; in two phases the circuit's whole battery,
+    its tile-mates deciding when phase 1 ends) agrees with it within
+    RTOL/ATOL. Prints its evidence."""
+    own = ab.own_trajectory(cfg, W, I, b, s, it, check_every, accel)
+    d_own = (r - own).abs()
+    ok = it != it_ref and bool((d_own <= ATOL + RTOL * own.abs()).all())
+    _line(f"{head} row (circuit {b}, stimulus {s}): iters kernel {it} "
+          f"plain {it_ref}, max |dr| {float((r - r_ref).abs().max()):.3e}; "
+          f"against the plain version run to the kernel's iters "
+          f"{float(d_own.max()):.3e} ({'within' if ok else 'OUTSIDE'} rtol "
+          f"{RTOL} atol {ATOL})")
+    return ok
+
+
+def _batch0_against_plain(tag, argv, data, witness=False):
+    """The first batch of a ``run.forward`` run again, through the kernel's
+    plain version (``_plain_kernel``, in the run's schedule) from the same
+    seed: the same flags, and the tuning curves of the rows both converged
+    within RTOL/ATOL. With ``witness`` (4c: Anderson and contrasts past
+    10, where the substep at which a slow row crosses atol is not stable
+    under rounding; PERF.md §6), a row outside them passes on
+    the evidence of ``_witness`` (its rates from the run's npz), at most
+    WITNESS_MAX_ROWS such rows."""
     import numpy as np
     import torch
 
@@ -739,13 +963,11 @@ def _batch0_against_plain(tag, argv, data):
 
     args = forward.make_parser().parse_args(argv)
     cfg = common.generator_config_from_args(args, solver="ift")
-    cfg = dataclasses.replace(
-        cfg, ssn=dataclasses.replace(cfg.ssn, backend="torch"))
     params = gen_lib.init_params(cfg, common.as22(args.J),
                                  common.as22(args.D), common.as22(args.S),
                                  device="cuda")
     gen = torch.Generator("cuda").manual_seed(SEED)
-    with torch.no_grad():
+    with torch.no_grad(), _plain_kernel() as calls:
         ref = gen_lib.sample_tuning_curves(cfg, params, args.batch_size,
                                            generator=gen)
     n = args.batch_size
@@ -753,34 +975,77 @@ def _batch0_against_plain(tag, argv, data):
     if not np.array_equal(data["converged"][:n], ref_conv):
         raise AssertionError(f"{tag}: flags differ from the plain solve")
     ok = data["converged"][:n] & ref_conv
-    err = np.abs(data["tuning_curves"][:n] - ref_tc)[ok]
-    bound = ATOL + RTOL * np.abs(ref_tc)[ok]
-    if (err > bound).any():
-        raise AssertionError(f"{tag}: tuning curves differ from the plain "
-                             f"solve by up to {err.max():.3e}")
+    diff = np.abs(data["tuning_curves"][:n] - ref_tc) * ok
+    off = diff > ATOL + RTOL * np.abs(ref_tc)
     _line(f"[{tag}] batch 0 against plain solve: flags equal, max |dtc| "
-          f"{err.max() if err.size else 0.0:.3e} on {int(ok.sum())} "
-          f"converged rows")
+          f"{diff.max() if diff.size else 0.0:.3e} on {int(ok.sum())} "
+          f"converged rows; outside rtol {RTOL} atol {ATOL}: "
+          f"{int(off.sum())}")
+    if not off.any():
+        return
+    if not witness or int(off.sum()) > WITNESS_MAX_ROWS:
+        raise AssertionError(f"{tag}: {int(off.sum())} tuning curves differ "
+                             f"from the plain solve, by up to "
+                             f"{diff[off].max():.3e}")
+    # the default readout, one tuning-curve column per stimulus row: row
+    # (b, s)'s curve is its rates at the probe
+    if diff.shape != data["iters"][:n].shape or len(calls) != 1:
+        raise AssertionError(f"{tag}: one solve and a tuning curve per "
+                             f"stimulus row expected; got {len(calls)} and "
+                             f"{diff.shape}")
+    c, W, I, check_every, accel = calls[0]
+    for b, s in zip(*off.nonzero()):
+        b, s = int(b), int(s)
+        r = torch.as_tensor(data["rates"][b, s], device=W.device)
+        if not _witness(f"[{tag}]   |dtc| {diff[b, s]:.3e},", c, W, I, b, s,
+                        check_every, accel, r, int(data["iters"][b, s]),
+                        ref.rates[b, s], int(ref.iters[b, s])):
+            raise AssertionError(f"{tag}: row ({b}, {s}) differs from the "
+                                 "plain solve")
 
 
-def phase_main_path() -> int:
+def _count_launches():
+    """Set the wrapper's counts to 0; the returned function reads them:
+    (launches, of which in two phases)."""
+    from tcgan_torch.ops.cuda import ssn_solve
+
+    ssn_solve.launches = ssn_solve.launches_two_phase = 0
+    return lambda: (ssn_solve.launches, ssn_solve.launches_two_phase)
+
+
+def _two_phase_launches(where, counts) -> int:
+    """The launches that a ``_count_launches()`` reader (or its (launches,
+    of which in two phases) pair) counts on a path run in the CLI's default
+    schedule; raises where one of them ran in one phase."""
+    launches, two = counts() if callable(counts) else counts
+    if two != launches:
+        raise AssertionError(f"{where}: {launches - two} of {launches} "
+                             "launches in one phase")
+    return launches
+
+
+def phase_main_path() -> tuple[int, int]:
+    """``run.forward`` at the slice's shape in the CLI's default schedule
+    (two phases), 8 batches; then 2 batches with ``--pallas-two-phase off``
+    (one phase), their circuits/s beside each other. Returns the launches
+    of each."""
     import numpy as np
 
-    from tcgan_torch.ops.cuda import ssn_solve
     from tcgan_torch.run import forward
 
     total = 8 * BATCH
     with tempfile.TemporaryDirectory() as tmp:
         store = Path(tmp) / "fwd"
         argv = _forward_argv(store, (CONTRAST,), total)
-        ssn_solve.launches = 0
+        counts = _count_launches()
         rc = forward.main(argv)
-        launches = ssn_solve.launches
+        launches, two = counts()
         if rc != 0:
             raise AssertionError(f"forward.main returned {rc}")
-        if launches != total // BATCH:
+        if launches != total // BATCH or two != launches:
             raise AssertionError(f"kernel launched {launches} times on the "
-                                 f"main path; expected {total // BATCH}")
+                                 f"main path ({two} in two phases); "
+                                 f"expected {total // BATCH}, all two")
         info = json.loads((store / "info.json").read_text())
         summary = info["summary"]
         data = np.load(store / "tuning_curves.npz")
@@ -802,6 +1067,25 @@ def phase_main_path() -> int:
 
         _batch0_against_plain("main", argv, data)
 
+        off = Path(tmp) / "one_phase"
+        argv = _forward_argv(off, (CONTRAST,), 2 * BATCH) + [
+            "--pallas-two-phase", "off"]
+        counts = _count_launches()
+        rc = forward.main(argv)
+        off_launches, two = counts()
+        s1 = json.loads((off / "info.json").read_text())["summary"]
+        _line(f"[main] --pallas-two-phase off, 2 batches: launches "
+              f"{off_launches} ({two} in two phases), frac_converged "
+              f"{s1['frac_converged']} mean_iters {s1['mean_iters']:.1f} "
+              f"circuits_per_sec {s1['circuits_per_sec']:.1f}; two phases "
+              f"(8 batches): mean_iters {summary['mean_iters']:.1f} "
+              f"circuits_per_sec {summary['circuits_per_sec']:.1f}")
+        if rc != 0 or off_launches != 2 or two:
+            raise AssertionError(f"one-phase forward: rc {rc}, launches "
+                                 f"{off_launches}, {two} in two phases")
+        _batch0_against_plain("main one phase", argv,
+                              np.load(off / "tuning_curves.npz"))
+
         store24 = Path(tmp) / "fwd24"
         rc = forward.main(_forward_argv(store24, (5.0, 10.0, 13.0), 0))
         if rc != 0:
@@ -811,15 +1095,17 @@ def phase_main_path() -> int:
               f"{s24['frac_converged']} frac_diverged "
               f"{s24['frac_diverged']} circuits_per_sec "
               f"{s24['circuits_per_sec']:.1f}")
-    return launches
+    return launches, off_launches
 
 
 def _wide_forward(card, tag, store, n_batches, backend="cuda",
-                  contrasts=(CONTRAST,), accel=False, N=WIDE_FWD_N) -> int:
+                  contrasts=(CONTRAST,), accel=False, N=WIDE_FWD_N,
+                  witness=False) -> int:
     """``run.forward --N 201`` (J and D scaled by 51 / N; another N where
     given) for ``n_batches`` batches of WIDE_FWD_BATCH circuits: one launch
     per batch, the rates' shape, finite values, convergence and, on the
-    CUDA backend, batch 0 against the plain solve. Returns the launches."""
+    CUDA backend, batch 0 against the plain solve (``witness``: see
+    ``_batch0_against_plain``). Returns the launches."""
     import numpy as np
 
     from tcgan_torch.ops.cuda import ssn_solve
@@ -829,10 +1115,10 @@ def _wide_forward(card, tag, store, n_batches, backend="cuda",
     argv = _forward_argv(store, contrasts, total, N=N,
                          batch=WIDE_FWD_BATCH, backend=backend, accel=accel)
     plan = ssn_solve.plan(2 * N, len(BANDWIDTHS) * len(contrasts), accel)
-    ssn_solve.launches = 0
+    counts = _count_launches()
     t0 = time.perf_counter()
     rc = forward.main(argv)
-    n = ssn_solve.launches
+    n, two = counts()
     info = json.loads((store / "info.json").read_text())
     summary = info["summary"]
     data = np.load(store / "tuning_curves.npz")
@@ -848,9 +1134,10 @@ def _wide_forward(card, tag, store, n_batches, backend="cuda",
           f"{summary['frac_diverged']} mean_iters "
           f"{summary['mean_iters']:.1f} circuits_per_sec "
           f"{summary['circuits_per_sec']:.1f} ({card})")
-    if rc != 0 or n != n_batches or summary["kernel_launches"] != n:
+    if (rc != 0 or n != n_batches or summary["kernel_launches"] != n
+            or two != n):
         raise AssertionError(f"{tag} forward {backend}: rc {rc}, launches "
-                             f"{n}")
+                             f"{n}, {two} in two phases")
     if info["config"]["solver_backend"] != "cuda":
         raise AssertionError(f"{tag} forward: backend not stored as cuda")
     if data["rates"].shape != (total, len(BANDWIDTHS) * len(contrasts),
@@ -861,7 +1148,7 @@ def _wide_forward(card, tag, store, n_batches, backend="cuda",
         raise AssertionError(f"{tag} forward: frac_converged "
                              f"{summary['frac_converged']}")
     if backend == "cuda":
-        _batch0_against_plain(tag, argv, data)
+        _batch0_against_plain(tag, argv, data, witness)
     return n
 
 
@@ -884,7 +1171,8 @@ def phase_split_forward(card: str) -> int:
     per batch; 2 batches."""
     with tempfile.TemporaryDirectory() as tmp:
         return _wide_forward(card, "split", Path(tmp) / "split", 2,
-                             contrasts=SPLIT_FWD_CONTRASTS, accel=True)
+                             contrasts=SPLIT_FWD_CONTRASTS, accel=True,
+                             witness=True)
 
 
 def phase_global_forward(card: str) -> int:
@@ -975,7 +1263,8 @@ def phase_ift(card: str) -> None:
                 (ift.adjoint_iterations, ift.host_syncs))
 
     out_k, g_k, (iters_k, syncs_k) = grads("cuda")
-    out_p, g_p, (iters_p, syncs_p) = grads("torch")
+    with _plain_kernel():
+        out_p, g_p, (iters_p, syncs_p) = grads("cuda")
     if not torch.isfinite(g_k).all():
         raise AssertionError("ift: non-finite gradient through the kernel")
     if not torch.equal(out_k.converged, out_p.converged):
@@ -1062,13 +1351,11 @@ def _run_entry(entry, argv, store, steps, schedule):
     before and read just after: the launches after the fake truth must be
     ``schedule(args, steps)`` on the ift solver and none on bptt. Returns
     (launches, learning rows, info.json)."""
-    from tcgan_torch.ops.cuda import ssn_solve
-
     args = entry.make_parser().parse_args(argv)
-    ssn_solve.launches = 0
+    counts = _count_launches()
     t0 = time.perf_counter()
     rc = entry.main(argv)
-    launches = ssn_solve.launches
+    launches = _two_phase_launches(entry.__name__, counts)
     if rc != 0:
         raise AssertionError(f"{entry.__name__}.main returned {rc}")
     info = json.loads((store / "info.json").read_text())
@@ -1250,9 +1537,16 @@ def phase_wgan_step(card: str):
     # 1e-4, max_iter 8000, 32 circuits, n_critic 5, critic (128, 128)
     step_ms = _time_steps("wgan_step_ms", card, *_step_setup(
         32, dict(SLICE_SSN, check_every=CHECK_EVERY), (CONTRAST,)))
-    # the round-2 fit's shapes: 16 conditions, 256 circuits, atol 1e-5
-    _time_steps("round-2 GAN step", card, *_step_setup(
-        GAN_BATCH, GAN_SSN, GAN_CONTRASTS, clip_grad=1.0))
+    # the round-2 fit's shapes: 16 conditions, 256 circuits, atol 1e-5; in
+    # the default schedule (two phases, reopen margin 0), at the reference's
+    # validated margin 2.0, and in one phase
+    for name, kw in (("round-2 GAN step", {}),
+                     ("round-2 GAN step, --pallas-reopen-margin 2.0",
+                      dict(pallas_reopen_margin=2.0)),
+                     ("round-2 GAN step, --pallas-two-phase off",
+                      dict(pallas_two_phase=False))):
+        _time_steps(name, card, *_step_setup(
+            GAN_BATCH, dict(GAN_SSN, **kw), GAN_CONTRASTS, clip_grad=1.0))
     return step_ms
 
 
@@ -1609,14 +1903,13 @@ def _run_ensemble(argv, store, steps, per_step):
     ``per_step(args, step)`` summed over ``steps``, whatever the member
     count.
     Returns (launches, ensemble.csv rows, args)."""
-    from tcgan_torch.ops.cuda import ssn_solve
     from tcgan_torch.run import ensemble
 
     args = ensemble.make_parser().parse_args(argv)
-    ssn_solve.launches = 0
+    counts = _count_launches()
     t0 = time.perf_counter()
     rc = ensemble.main(argv)
-    launches = ssn_solve.launches
+    launches = _two_phase_launches(f"run.ensemble {store.name}", counts)
     info = json.loads((store / "info.json").read_text())
     truth = info["kernel_launches_fake_truth"]
     expected = sum(per_step(args, s) for s in steps)
@@ -1678,7 +1971,6 @@ def _ensemble_vs_solo(card: str) -> None:
     from tcgan_torch.models import generator as gen_lib
     from tcgan_torch.models import wgan
     from tcgan_torch.ops import ift
-    from tcgan_torch.ops.cuda import ssn_solve
 
     dev = torch.device(DEVICE)
     cfg, _, _ = _gan_problem(ENS_BATCH, dict(GAN_SSN, backend="cuda"),
@@ -1705,11 +1997,11 @@ def _ensemble_vs_solo(card: str) -> None:
         gp_eps=[torch.rand((ENS_K, wcfg.critic_batch, 1), generator=gen,
                            device=dev) for _ in range(n_c)],
         gen_z=zs())
-    ssn_solve.launches = 0
+    counts = _count_launches()
     new, m = ens_lib.ensemble_train_step(wcfg, n_c, states, real,
                                          noise=noise)
     torch.cuda.synchronize()
-    ens_launches = ssn_solve.launches
+    ens_launches = _two_phase_launches("ensemble step", counts)
     worst = dict.fromkeys(MEMBER_TOL, 0.0)
     solos = []
     for k in range(ENS_K):
@@ -1855,7 +2147,6 @@ def phase_ensemble(card: str, work: Path) -> int:
 def phase_eval(card: str, gan_store: Path) -> int:
     """``run.eval`` on phase 6's ``run.gan`` datastore: one forward solve
     of 256 circuits after the fake truth; then ``--params-source npz``."""
-    from tcgan_torch.ops.cuda import ssn_solve
     from tcgan_torch.run import eval as run_eval
 
     launches = 0
@@ -1865,10 +2156,10 @@ def phase_eval(card: str, gan_store: Path) -> int:
             argv = ["--run", str(gan_store), "--datastore", str(out),
                     "--eval-samples", "256", "--params-source", source,
                     "--device", DEVICE, "--solver-backend", "cuda"]
-            ssn_solve.launches = 0
+            counts = _count_launches()
             t0 = time.perf_counter()
             rc = run_eval.main(argv)
-            n = ssn_solve.launches
+            n = _two_phase_launches(f"eval {source}", counts)
             info = json.loads((out / "info.json").read_text())
             res, truth = info["result"], info["kernel_launches_fake_truth"]
             _line(f"[eval] --params-source {source}: rc {rc} in "
@@ -1896,7 +2187,6 @@ def phase_analyses(card: str, gan_store: Path) -> int:
     import numpy as np
 
     from tcgan_torch.analysis import identifiability, uncertainty
-    from tcgan_torch.ops.cuda import ssn_solve
 
     flat = lambda v: [str(x) for x in v]  # noqa: E731
     launches = 0
@@ -1913,11 +2203,11 @@ def phase_analyses(card: str, gan_store: Path) -> int:
                     "--data-samples", "4096", "--contrast-sets",
                     "5,10;5,10,13", "--output", str(out),
                     "--save-jacobian", str(jac) + ".npz"]
-            ssn_solve.launches = 0
+            counts = _count_launches()
             t0 = time.perf_counter()
             rc = identifiability.main(argv)
             seconds = time.perf_counter() - t0
-            n = ssn_solve.launches
+            n = _two_phase_launches(f"identifiability {backend}", counts)
             rep = json.loads(out.read_text())
             reports[backend] = rep
             jacs[backend] = np.load(str(jac) + ".npz")["jacobian"]
@@ -1952,11 +2242,11 @@ def phase_analyses(card: str, gan_store: Path) -> int:
                                  f"{rel}")
 
         out = Path(tmp) / "uncertainty.json"
-        ssn_solve.launches = 0
+        counts = _count_launches()
         t0 = time.perf_counter()
         rc = uncertainty.main(["--run", str(gan_store), "--device", DEVICE,
                                "--solver-backend", "cuda", "-o", str(out)])
-        n = ssn_solve.launches
+        n = _two_phase_launches("uncertainty", counts)
         rep = json.loads(out.read_text())
         cal = rep.get("calibration", {})
         _line(f"[uncertainty] rc {rc} in {time.perf_counter() - t0:.2f} s; "
@@ -2138,7 +2428,6 @@ def _mesh_cli(card: str, work: Path) -> dict:
     import numpy as np
     import torch
 
-    from tcgan_torch.ops.cuda import ssn_solve
     from tcgan_torch.run import forward, moments
 
     world = torch.cuda.device_count()
@@ -2183,11 +2472,12 @@ def _mesh_cli(card: str, work: Path) -> dict:
     data, launches, summary = {}, {}, {}
     for name, more in (("plain", ()), ("mesh", mesh)):
         store = work / f"fwd_{name}"
-        ssn_solve.launches = 0
+        counts = _count_launches()
         if forward.main(_forward_argv(store, (CONTRAST,), 2 * BATCH)
                         + list(more)) != 0:
             raise AssertionError(f"mesh: run.forward ({name}) failed")
-        launches[name] = ssn_solve.launches
+        launches[name] = _two_phase_launches(f"mesh: run.forward ({name})",
+                                             counts)
         data[name] = np.load(store / "tuning_curves.npz")
         summary[name] = json.loads((store / "info.json").read_text())[
             "summary"]
@@ -2233,14 +2523,14 @@ def _mesh_rank(card: str) -> dict:
     ssn_solve.solve_fixed_point_cuda = counted
 
     def run(fn):
-        """fn() once with the counts at 0: (result, launches, circuits per
-        launch, collectives)."""
-        ssn_solve.launches = 0
+        """fn() once with the counts at 0: (result, (launches, of which in
+        two phases), circuits per launch, collectives)."""
+        counts = _count_launches()
         circuits.clear()
         mesh.counts.clear()
         out = fn()
         torch.cuda.synchronize()
-        return out, ssn_solve.launches, list(circuits), dict(mesh.counts)
+        return out, counts(), list(circuits), dict(mesh.counts)
 
     wcfg, state, real, gen = _step_setup(GAN_BATCH, GAN_SSN, GAN_CONTRASTS,
                                          clip_grad=1.0)
@@ -2248,10 +2538,10 @@ def _mesh_rank(card: str) -> dict:
     noise = wgan.draw_step_noise(wcfg, n_c, real, gen)
     scfg = dataclasses.replace(wcfg, gen=par.with_mesh_axes(wcfg.gen))
     step = par.make_sharded_gan_step(wgan.train_step_impl, mesh)
-    (new, m), launches, per, counts = run(
+    (new, m), (launches, two), per, counts = run(
         lambda: step(scfg, n_c, state, real, noise=noise))
-    out = {"rank": rank, "gan": dict(launches=launches, circuits=per,
-                                     collectives=counts)}
+    out = {"rank": rank, "gan": dict(launches=launches, two_phase=two,
+                                     circuits=per, collectives=counts)}
     if rank == 0:
         ref, rm = wgan.train_step_impl(wcfg, n_c, state, real, noise=noise)
         out["gan"]["rel"] = {
@@ -2285,9 +2575,9 @@ def _mesh_rank(card: str) -> dict:
     noise = wgan.draw_step_noise(ecfg, n_c, real.transpose(0, 1), gen)
     estep = par.make_sharded_ensemble_step(ens_lib.ensemble_train_step,
                                            mesh)
-    (new, m), launches, per, counts = run(lambda: mesh.gather_members(
+    (new, m), (launches, two), per, counts = run(lambda: mesh.gather_members(
         estep(ecfg, n_c, mesh.member_shard(states), real, noise=noise)))
-    out["ensemble"] = dict(launches=launches, circuits=per,
+    out["ensemble"] = dict(launches=launches, two_phase=two, circuits=per,
                            collectives=counts)
     if rank == 0:
         ref, rm = ens_lib.ensemble_train_step(ecfg, n_c, states, real,
@@ -2333,7 +2623,7 @@ def _model_rank(card: str) -> dict:
     def run(fn):
         """fn() on the mesh once, with the counts at 0: (result, this
         rank's launches, circuits per launch, collectives and host ms)."""
-        ssn_solve.launches = 0
+        counts = _count_launches()
         circuits.clear()
         mesh.counts.clear()
         torch.cuda.synchronize()
@@ -2341,7 +2631,8 @@ def _model_rank(card: str) -> dict:
         with par.set_mesh(mesh):
             out = fn()
         torch.cuda.synchronize()
-        return out, dict(launches=ssn_solve.launches,
+        launches, two = counts()
+        return out, dict(launches=launches, two_phase=two,
                          circuits=list(circuits),
                          collectives=dict(mesh.counts),
                          host_ms=(time.perf_counter() - t0) * 1e3)
@@ -2450,7 +2741,9 @@ def _model_axis(card: str) -> int:
                 raise AssertionError(f"model axis: {kind} rank {r['rank']} "
                                      f"launched on {got['circuits']}, not "
                                      f"{circuits}")
-            launches += got["launches"]
+            launches += _two_phase_launches(
+                f"model axis: {kind} rank {r['rank']}",
+                (got["launches"], got["two_phase"]))
             if "max_dr" in got:
                 _line(f"[model] {kind}, rank {r['rank']}: the generator's "
                       f"outputs against one unsharded launch: max |dr| "
@@ -2521,7 +2814,9 @@ def phase_mesh(card: str) -> dict:
     _line(f"[mesh] the two ranks took {seconds:.1f} s, process start "
           "included")
     by_path["make_sharded_gan_step + ensemble, 2 ranks sharing the card"] = \
-        sum(r[k]["launches"] for r in ranks for k in ("gan", "ensemble"))
+        sum(_two_phase_launches(f"mesh: {k} rank {r['rank']}",
+                                (r[k]["launches"], r[k]["two_phase"]))
+            for r in ranks for k in ("gan", "ensemble"))
 
     t0 = time.perf_counter()
     out = dryrun_multichip(4, device="cpu")
@@ -2544,8 +2839,12 @@ def main() -> int:
     t_start = time.perf_counter()
     card = _timed(1, phase_environment)
     _timed(2, phase_build)
-    kernel = _timed(3, phase_kernel, card)
-    by_path = {"run.forward": _timed(4, phase_main_path)}
+    kernels = _timed(3, phase_kernel, card)
+    # launches by path and schedule, each count read where the path ran,
+    # every launch of it checked there to be in the path's schedule
+    two, one = _timed(4, phase_main_path)
+    by_path = {"run.forward": two}
+    one_by_path = {"run.forward --pallas-two-phase off": one}
     by_path["run.forward --N 201"] = _timed("4b", phase_wide_forward, card)
     by_path["run.forward --N 201, 32 rows, Anderson"] = _timed(
         "4c", phase_split_forward, card)
@@ -2566,12 +2865,14 @@ def main() -> int:
         _timed(14, phase_reports, card, work / "gan", work / "ens")
     _timed(13, phase_native, card)
     by_path.update(_timed(15, phase_mesh, card))
-    kernel["launches"] = sum(by_path.values())
-    kernel["launches_by_path"] = by_path
+    kernels[0]["launches"] = sum(one_by_path.values())
+    kernels[0]["launches_by_path"] = one_by_path
+    kernels[1]["launches"] = sum(by_path.values())
+    kernels[1]["launches_by_path"] = by_path
     _line(f"[smoke] all phases took {time.perf_counter() - t_start:.1f} s")
     import torch
 
-    _line(json.dumps({"kernels": [kernel]}))
+    _line(json.dumps({"kernels": kernels}))
     _line(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

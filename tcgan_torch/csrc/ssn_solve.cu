@@ -135,6 +135,29 @@
 // without W holds the battery, else the least such c that holds 8 rows and
 // the row chunks above. A block of a cluster of 8 holds at most 512 threads,
 // 16 warps of 16 neurons, so 2N <= 2048; wider circuits are refused.
+//
+// The two-phase schedule (kTwoPhase, every path; the TPU kernel's default,
+// _solver_kernel :291-343). Phase 1 runs each k-step as one TF32 product
+// (W and r rounded to TF32, one mma.sync into hh: the tensor cores' single
+// pass, in the role of the TPU's fast default-precision pass) down to a
+// coarse residual max(100 atol, 1e-2), within max_iter / 2 substeps; a row
+// resolved there is frozen, as in one phase. It ends at the first chunk
+// boundary where every row of the block's chunk has resolved or the budget
+// is spent. (One TF32 pass over a whole solve breaks flags, above; phase 2
+// decides every flag again in 3xTF32, which holds them:
+// tests/test_torch_ssn_solve_tf32.py replays both on the CPU.) At the
+// boundary every row's converged flag is cleared, and so is every
+// diverged flag but those of rows whose peak rate lies above reopen_at
+// (margin * rate_stop_at, when the margin is above 0: hard divergers keep
+// their flag and phase-1 iters); reopened rows get iters = max_iter back,
+// Anderson's history restarts, and phase 2, the 3xTF32 loop above, runs on
+// from the same substep count to atol and max_iter. The TPU kernel puts the
+// boundary on a tile of block_b circuits; here it is the unit of launch, one
+// circuit's chunk of rows (a block or a cluster), which is the TPU kernel at
+// block_b = 1 wherever the battery is one chunk. In a cluster every block
+// takes the switch from its own flags and its own copy of the rate planes,
+// which are bit-identical across the cluster, so all take it at the same
+// chunk.
 
 #include <cooperative_groups.h>
 #include <algorithm>
@@ -170,6 +193,11 @@ struct Params {
   // cluster path: blocks per circuit, neurons per block (slab), the slab
   // planes' stride, and W's rows per block (min(slab, n2))
   int cluster, slab, lds, wrows;
+  // two-phase schedule: phase 1's residual and substep budget; phase-1
+  // diverged rows whose peak passes reopen_at keep their flag (reopen_at
+  // <= 0: every row reopens)
+  float coarse, reopen_at;
+  int max_iter1;
 };
 
 // Stores v at the same shared-memory offset as p in every block of the
@@ -259,6 +287,20 @@ __device__ __forceinline__ void mma_kstep(float (&hh)[NT][4], float (&hl)[NT][4]
   }
 }
 
+// The same k-step in one TF32 pass (phase 1 of the two-phase schedule): the
+// high parts alone, into hh.
+template <int NT>
+__device__ __forceinline__ void mma_kstep_1x(float (&hh)[NT][4], const uint32_t (&ah)[4],
+                                             const float* rb, int tile_stride, bool in4,
+                                             const bool (&on)[NT]) {
+#pragma unroll
+  for (int q = 0; q < NT; ++q) {
+    if (!on[q]) continue;
+    mma_tf32(hh[q], ah, rna_tf32(rb[q * tile_stride]),
+             rna_tf32(in4 ? rb[q * tile_stride + 4] : 0.0f));
+  }
+}
+
 // io_fun on four independent inputs in one straight line, so that their
 // exp/log chains overlap.
 __device__ __forceinline__ void io_fun4(const float (&u)[4], float (&f)[4], const Params& p) {
@@ -277,12 +319,52 @@ __device__ __forceinline__ void io_fun4(const float (&u)[4], float (&f)[4], cons
   }
 }
 
+// The two-phase schedule's boundary, on a block's S rows: clear every flag
+// but those of diverged rows whose frozen peak passes reopen_at (both rate
+// planes hold a frozen row's rates), give the reopened rows iters = max_iter,
+// zero Anderson's history (rip and fpv, adjacent) and count the active rows
+// again. Inlined: as a call (__noinline__) it kept the register path at 2
+// row tiles from spilling, but slowed every two-phase launch (PERF.md).
+__device__ __forceinline__ void phase_boundary(const Params& p, const float* cur, float* rip,
+                                            int* flag, int* iters, int* live, int* n_active,
+                                            int S, size_t splane) {
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
+  for (int s = warp; s < S; s += nwarps) {
+    bool keep = false;
+    if (p.reopen_at > 0.0f && flag[s] == 2) {
+      float peak = -INFINITY;
+      for (int i = lane; i < p.n2; i += 32) peak = fmaxf(peak, cur[s * p.ld + i]);
+      keep = warp_max(peak) > p.reopen_at;
+    }
+    __syncwarp();
+    if (lane == 0 && !keep) {
+      flag[s] = 0;
+      iters[s] = p.max_iter;
+    }
+  }
+  if (p.accel)
+    for (size_t e = tid; e < 2 * splane; e += nthreads) rip[e] = 0.0f;
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0;
+    for (int s = 0; s < S; ++s) n += flag[s] == 0;
+    *n_active = n;
+  }
+  for (int q = tid; q < p.ntiles; q += nthreads) {
+    int n = 0;
+    for (int s = q * kTileN; s < min(S, (q + 1) * kTileN); ++s) n += flag[s] == 0;
+    live[q] = n;
+  }
+}
+
 // NT: n8 tiles of rows accumulated together (min(rows / 8, kMaxGroupN));
 // more rows are taken in groups of NT. kRegA: the register path, at most
 // kRegK / 2 warps, two blocks to an SM. kCluster: p.cluster blocks solve
 // one circuit (the header's cluster path). kWGlobal (with kCluster only):
 // W is read from device memory in the k-loop, not from shared memory.
-template <int NT, bool kRegA, bool kCluster, bool kWGlobal>
+// kTwoPhase: the header's two-phase schedule.
+template <int NT, bool kRegA, bool kCluster, bool kWGlobal, bool kTwoPhase>
 __global__ void __launch_bounds__(kRegA ? 32 * kRegK / 2 : kMaxThreads, kRegA ? 2 : 1)
 ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
                  const float* __restrict__ alpha, float* __restrict__ r_out,
@@ -406,6 +488,8 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
 
   int it = 0;
   int nhist = 0;
+  // two-phase: in phase 1 (an empty phase 1 when max_iter / 2 is 0)
+  bool phase1 = kTwoPhase && p.max_iter1 > 0;
   while (it < p.max_iter && *n_active > 0) {
     for (int sub = 0; sub < p.check_every; ++sub) {
       const bool last = sub == p.check_every - 1;
@@ -425,7 +509,32 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
           for (int c = 0; c < 4; ++c) hh[q][c] = hl[q][c] = lh[q][c] = 0.0f;
 
         const float* rb = cur + (size_t)(nb * kTileN + g) * ld + t;
-        if constexpr (kRegA) {
+        bool fast = false;  // phase 1: one TF32 pass
+        if constexpr (kTwoPhase) fast = phase1;
+        if (fast) {
+          if constexpr (kTwoPhase && kRegA) {
+            // the high parts in registers are W's TF32 rounding; the low
+            // parts in shared memory are not read
+#pragma unroll
+            for (int kt = 0; kt < kRegK; ++kt) {
+              if (kt >= p.ktiles) break;
+              const int j = kt * kTileK;
+              mma_kstep_1x<NT>(hh, ahr[kt], rb + j, kTileN * ld, j + t + 4 < n2, on);
+            }
+          } else if constexpr (kTwoPhase) {
+#pragma unroll 2
+            for (int kt = 0; kt < p.ktiles; ++kt) {
+              const int j = kt * kTileK;
+              const bool in4 = j + t + 4 < n2;
+              const bool inj = !kWGlobal || j + t < n2;
+              const uint32_t ah[4] = {rna_tf32(in0 && inj ? w0[j] : 0.0f),
+                                      rna_tf32(in1 && inj ? w1[j] : 0.0f),
+                                      rna_tf32(in0 && in4 ? w0[j + 4] : 0.0f),
+                                      rna_tf32(in1 && in4 ? w1[j + 4] : 0.0f)};
+              mma_kstep_1x<NT>(hh, ah, rb + j, kTileN * ld, in4, on);
+            }
+          }
+        } else if constexpr (kRegA) {
 #pragma unroll
           for (int kt = 0; kt < kRegK; ++kt) {
             if (kt >= p.ktiles) break;
@@ -524,6 +633,9 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
 
     // Chunk epilogue: one warp per row.
     const int it_next = it + p.check_every;
+    // two-phase: phase 1's residual and budget (the TPU kernel's :298-299)
+    const float atol = kTwoPhase && phase1 ? p.coarse : p.atol;
+    const int max_it = kTwoPhase && phase1 ? p.max_iter1 : p.max_iter;
     if constexpr (!kCluster) {
       for (int s = warp; s < S; s += nwarps) {
         if (flag[s] != 0) continue;
@@ -533,7 +645,7 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
         for (int i = lane; i < n2; i += 32) peak = fmaxf(peak, rc[i]);
         peak = warp_max(peak);
         const bool newly_div = peak > p.rate_stop_at;
-        const bool newly_conv = !newly_div && e < p.atol;
+        const bool newly_conv = !newly_div && e < atol;
         const bool resolved = newly_div || newly_conv;
         if (p.accel) {
           float* r_in = rst + s * ld;
@@ -577,7 +689,7 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
             flag[s] = newly_div ? 2 : 1;
             // the last chunk may overshoot max_iter by up to check_every - 1
             // substeps; iters == max_iter keeps meaning "unresolved"
-            iters[s] = min(it_next, p.max_iter);
+            iters[s] = min(it_next, max_it);
           }
         }
       }
@@ -597,7 +709,7 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
         for (int i = lane; i < n2; i += 32) peak = fmaxf(peak, rc[i]);
         peak = warp_max(peak);
         const bool newly_div = peak > p.rate_stop_at;
-        const bool newly_conv = !newly_div && e < p.atol;
+        const bool newly_conv = !newly_div && e < atol;
         if (p.accel) {
           const float* r_in = rst + s * lds;
           const float* f_prev = fpv + s * lds;
@@ -681,7 +793,7 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
           err[s] = 0;
           if (resolved) {
             flag[s] = code;
-            iters[s] = min(it_next, p.max_iter);
+            iters[s] = min(it_next, max_it);
           }
         }
       }
@@ -705,6 +817,22 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
       cluster.sync();
     else
       __syncthreads();
+
+    // The phase boundary (the TPU kernel's :314-338): once every row has
+    // resolved in phase 1 or its budget is spent (phase_boundary). Every
+    // block of a cluster reads the same flags and rates and takes the same
+    // branch.
+    if constexpr (kTwoPhase) {
+      if (phase1 && !(it < p.max_iter1 && *n_active > 0)) {
+        phase1 = false;
+        nhist = 0;
+        phase_boundary(p, cur, rip, flag, iters, live, n_active, S, splane);
+        if constexpr (kCluster)
+          cluster.sync();
+        else
+          __syncthreads();
+      }
+    }
   }
 
   const size_t out0 = (size_t)b * p.S_all + row0;  // this chunk's first output row
@@ -733,22 +861,28 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
 using Kernel = void (*)(const float*, const float*, const float*, float*,
                         uint8_t*, uint8_t*, int*, Params);
 
-template <bool kRegA, bool kCluster, bool kWGlobal = false>
+template <bool kRegA, bool kCluster, bool kWGlobal, bool kTwoPhase>
 Kernel kernel_for_rows(int ntiles) {
   switch (ntiles < kMaxGroupN ? ntiles : kMaxGroupN) {
-    case 1: return ssn_solve_kernel<1, kRegA, kCluster, kWGlobal>;
-    case 2: return ssn_solve_kernel<2, kRegA, kCluster, kWGlobal>;
-    case 3: return ssn_solve_kernel<3, kRegA, kCluster, kWGlobal>;
-    default: return ssn_solve_kernel<kMaxGroupN, kRegA, kCluster, kWGlobal>;
+    case 1: return ssn_solve_kernel<1, kRegA, kCluster, kWGlobal, kTwoPhase>;
+    case 2: return ssn_solve_kernel<2, kRegA, kCluster, kWGlobal, kTwoPhase>;
+    case 3: return ssn_solve_kernel<3, kRegA, kCluster, kWGlobal, kTwoPhase>;
+    default: return ssn_solve_kernel<kMaxGroupN, kRegA, kCluster, kWGlobal, kTwoPhase>;
   }
 }
 
-Kernel kernel_for(int n2, int S, int cluster, bool wglobal) {
+template <bool kTwoPhase>
+Kernel kernel_for_path(int n2, int ntiles, int cluster, bool wglobal) {
+  if (wglobal) return kernel_for_rows<false, true, true, kTwoPhase>(ntiles);
+  if (cluster > 1) return kernel_for_rows<false, true, false, kTwoPhase>(ntiles);
+  return n2 <= kRegK * kTileK ? kernel_for_rows<true, false, false, kTwoPhase>(ntiles)
+                              : kernel_for_rows<false, false, false, kTwoPhase>(ntiles);
+}
+
+Kernel kernel_for(int n2, int S, int cluster, bool wglobal, bool two_phase) {
   const int ntiles = round_up(S, kTileN) / kTileN;
-  if (wglobal) return kernel_for_rows<false, true, true>(ntiles);
-  if (cluster > 1) return kernel_for_rows<false, true>(ntiles);
-  return n2 <= kRegK * kTileK ? kernel_for_rows<true, false>(ntiles)
-                              : kernel_for_rows<false, false>(ntiles);
+  return two_phase ? kernel_for_path<true>(n2, ntiles, cluster, wglobal)
+                   : kernel_for_path<false>(n2, ntiles, cluster, wglobal);
 }
 
 // Neurons per block of a cluster of c: one warp per m16 slab of them.
@@ -866,13 +1000,13 @@ cudaLaunchConfig_t launch_config(int clusters, int n2, const Layout& L, cudaStre
   return cfg;
 }
 
-// The plan of this shape and its kernel, with the dynamic shared memory
-// admitted.
-cudaError_t prepare(int n2, int S, int accel, int rows, int wglobal, Plan* P,
+// The plan of this shape and its kernel (one phase or two), with the
+// dynamic shared memory admitted.
+cudaError_t prepare(int n2, int S, int accel, int rows, int wglobal, int two_phase, Plan* P,
                     Kernel* kernel) {
   *P = plan(n2, S, accel, rows, wglobal);
   if (P->L.cluster == 0) return cudaErrorInvalidValue;
-  *kernel = kernel_for(n2, P->rows, P->L.cluster, P->L.wglobal);
+  *kernel = kernel_for(n2, P->rows, P->L.cluster, P->L.wglobal, two_phase != 0);
   return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)P->L.bytes);
 }
@@ -883,20 +1017,23 @@ extern "C" {
 
 // Launches the solve of B circuits on `stream` with R = `rows` rows per
 // chunk (0: the plan's) and, with `wglobal`, W read from device memory at
-// the plan's cluster size; returns the cudaError_t of the attribute call, of
-// the cluster occupancy check (cluster sizes > 1:
-// cudaErrorLaunchOutOfResources when not one cluster fits the device) or
-// of the launch (cudaGetLastError), 0 on success; cudaErrorInvalidValue
-// when no layout fits.
-int ssn_solve_launch_plan(const void* W, const void* I, const void* alpha, void* r,
-                          void* conv, void* div, void* iters, int B, int n2, int S,
-                          int io_type, float k, float n, float r0, float r1,
-                          float u0, float slope, float atol, float rate_stop_at,
-                          float ceiling, int max_iter, int check_every, int init_ff,
-                          int accel, void* stream, int rows, int wglobal) {
+// the plan's cluster size; with `two_phase`, the header's two-phase schedule:
+// phase 1 to `coarse` within `max_iter1` substeps, phase-1 diverged rows
+// whose peak passes `reopen_at` (> 0) kept diverged. Returns the
+// cudaError_t of the attribute call, of the cluster occupancy check
+// (cluster sizes > 1: cudaErrorLaunchOutOfResources when not one cluster
+// fits the device) or of the launch (cudaGetLastError), 0 on success;
+// cudaErrorInvalidValue when no layout fits.
+int ssn_solve_launch_schedule(const void* W, const void* I, const void* alpha, void* r,
+                              void* conv, void* div, void* iters, int B, int n2, int S,
+                              int io_type, float k, float n, float r0, float r1,
+                              float u0, float slope, float atol, float rate_stop_at,
+                              float ceiling, int max_iter, int check_every, int init_ff,
+                              int accel, void* stream, int rows, int wglobal, int two_phase,
+                              float coarse, int max_iter1, float reopen_at) {
   Plan P;
   Kernel kernel;
-  cudaError_t err = prepare(n2, S, accel, rows, wglobal, &P, &kernel);
+  cudaError_t err = prepare(n2, S, accel, rows, wglobal, two_phase, &P, &kernel);
   if (err != cudaSuccess) return (int)err;
   const Layout& L = P.L;
   Params p;
@@ -926,6 +1063,9 @@ int ssn_solve_launch_plan(const void* W, const void* I, const void* alpha, void*
   p.slab = slab(n2, L.cluster);
   p.lds = L.lds;
   p.wrows = L.wglobal ? 0 : std::min(p.slab, n2);
+  p.coarse = coarse;
+  p.reopen_at = reopen_at;
+  p.max_iter1 = max_iter1;
   const float* Wf = static_cast<const float*>(W);
   const float* If = static_cast<const float*>(I);
   const float* af = static_cast<const float*>(alpha);
@@ -950,6 +1090,19 @@ int ssn_solve_launch_plan(const void* W, const void* I, const void* alpha, void*
   return (int)cudaGetLastError();
 }
 
+// ssn_solve_launch_schedule in one phase.
+int ssn_solve_launch_plan(const void* W, const void* I, const void* alpha, void* r,
+                          void* conv, void* div, void* iters, int B, int n2, int S,
+                          int io_type, float k, float n, float r0, float r1,
+                          float u0, float slope, float atol, float rate_stop_at,
+                          float ceiling, int max_iter, int check_every, int init_ff,
+                          int accel, void* stream, int rows, int wglobal) {
+  return ssn_solve_launch_schedule(W, I, alpha, r, conv, div, iters, B, n2, S, io_type, k, n,
+                                   r0, r1, u0, slope, atol, rate_stop_at, ceiling, max_iter,
+                                   check_every, init_ff, accel, stream, rows, wglobal, 0, atol,
+                                   0, 0.0f);
+}
+
 // ssn_solve_launch_plan at the plan's rows per chunk and W.
 int ssn_solve_launch(const void* W, const void* I, const void* alpha, void* r,
                      void* conv, void* div, void* iters, int B, int n2, int S,
@@ -968,7 +1121,7 @@ int ssn_solve_launch(const void* W, const void* I, const void* alpha, void* r,
 int ssn_solve_blocks_per_sm(int n2, int S, int accel) {
   Plan P;
   Kernel kernel;
-  cudaError_t err = prepare(n2, S, accel, 0, 0, &P, &kernel);
+  cudaError_t err = prepare(n2, S, accel, 0, 0, 0, &P, &kernel);
   int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -1000,7 +1153,7 @@ int ssn_solve_w_global(int n2, int S, int accel) {
 int ssn_solve_active_clusters(int n2, int S, int accel) {
   Plan P;
   Kernel kernel;
-  cudaError_t err = prepare(n2, S, accel, 0, 0, &P, &kernel);
+  cudaError_t err = prepare(n2, S, accel, 0, 0, 0, &P, &kernel);
   if (err != cudaSuccess) return -(int)err;
   if (P.L.cluster == 1) {
     int dev = 0, sms = 0;

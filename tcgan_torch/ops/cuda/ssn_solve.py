@@ -30,16 +30,31 @@ operand is split into a TF32 high part and a TF32 low part and the products
 hi*hi, hi*lo and lo*hi are accumulated in fp32, which holds the fp32
 lockstep solver's flags and rates (one TF32 pass does not: it changes
 flags and leaves rows unconverged at atol 1e-5). Everything else runs in
-fp32. The TPU kernel's two-phase precision, refinement tail and reopen
-margin exist to get fp32 answers out of bf16 matrix-unit passes; this
-kernel is fp32-accurate in one phase, so ``SSNConfig.pallas_two_phase``,
-``pallas_refine``, ``pallas_reopen_margin`` and ``pallas_block_b`` are not
-read here.
+fp32.
+
+The schedule (:func:`schedule`) is the TPU kernel's. With
+``SSNConfig.pallas_two_phase`` (the default) a first phase runs one TF32
+pass per product (the tensor cores' fast pass, in the role of the TPU's
+default-precision pass) down to a coarse residual, max(100 atol, 1e-2),
+within max_iter // 2 substeps; then every flag is cleared (but those of
+rows pinned above ``pallas_reopen_margin`` * rate_stop_at, when the margin
+is above 0) and the 3xTF32 phase runs on to atol, Anderson's history
+restarted. Every flag is thus decided at full precision. The phase boundary
+belongs to the unit of launch, one circuit's chunk of rows (:func:`plan`):
+the TPU kernel's tile at ``pallas_block_b`` = 1 wherever the battery is one
+chunk; ``pallas_block_b`` is not read. ``pallas_refine`` is accepted and
+changes nothing: the TPU kernel's refinement tail computes the same Euler
+iterate as its plain phase 2, which is the 3xTF32 loop here. With
+``pallas_two_phase`` off the kernel runs the 3xTF32 loop alone.
 
 On CPU tensors :func:`solve_fixed_point_cuda` runs the plain version,
-:func:`solve_fixed_point_plain` (the lockstep solver in fp32, which has the
-same per-row semantics: frozen resolved rows, flags from the plain chunk,
-the same ``iters`` clamp). On CUDA tensors it launches the kernel or raises.
+:func:`solve_fixed_point_plain`: in one phase the lockstep solver in fp32,
+which has the same per-row semantics (frozen resolved rows, flags from the
+plain chunk, the same ``iters`` clamp); in two, the same lockstep with a
+phase per chunk of rows, phase 1 in fp32 (what the TPU kernel's
+default-precision pass computes on a CPU) unless given another drive
+(:func:`drive_1xtf32` computes the kernel's phase 1). On CUDA tensors it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -47,6 +62,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -63,8 +79,10 @@ MAX_THREADS = 512  # kMaxThreads: threads per block
 CLUSTER_SIZES = (1, 2, 4, 8)  # blocks per circuit; 8 is the portable maximum
 _IO_CODES = {"asym_power": 0, "asym_tanh": 1, "asym_linear": 2}
 
-# Kernel launches since import (or since a caller reset it to 0).
+# Kernel launches since import (or since a caller reset it to 0), and of
+# those the launches in two phases.
 launches = 0
+launches_two_phase = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -186,15 +204,79 @@ def plan(n2: int, S: int, accel: bool, rows: int | None = None,
     return p
 
 
+class Schedule(NamedTuple):
+    """The kernel's schedule: in two phases or one; phase 1's residual and
+    substep budget; the peak above which a phase-1 diverged row keeps its
+    flag (0: every row reopens)."""
+
+    two_phase: bool
+    coarse: float
+    max_iter1: int
+    reopen_at: float
+
+
+def schedule(cfg: SSNConfig) -> Schedule:
+    """The schedule ``cfg`` asks for (the TPU kernel's ``_solver_kernel``
+    :291-343): phase 1 to max(100 atol, 1e-2) within max_iter // 2
+    substeps; rows pinned above ``pallas_reopen_margin`` * rate_stop_at keep
+    their phase-1 divergence flag where the margin is above 0. Raises
+    ``ValueError`` on a flag that is not a bool or a margin that is not a
+    finite number >= 0."""
+    for name in ("pallas_two_phase", "pallas_refine"):
+        if not isinstance(getattr(cfg, name), bool):
+            raise ValueError(f"{name} must be a bool; got "
+                             f"{getattr(cfg, name)!r}")
+    m = cfg.pallas_reopen_margin
+    if (isinstance(m, bool) or not isinstance(m, (int, float))
+            or not math.isfinite(m) or m < 0):
+        raise ValueError("pallas_reopen_margin must be a finite number >= 0 "
+                         f"(0: every row reopens); got {m!r}")
+    return Schedule(cfg.pallas_two_phase, max(cfg.atol * 100.0, 1e-2),
+                    cfg.max_iter // 2,
+                    m * cfg.rate_stop_at if m > 0 else 0.0)
+
+
+def rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10-bit mantissa), to nearest, ties away from
+    zero, as the kernel's ``rna_tf32``: add half of the 13 dropped bits to
+    the magnitude, then clear them."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def drive_1xtf32(W: torch.Tensor, r: torch.Tensor,
+                 I_ext: torch.Tensor) -> torch.Tensor:
+    """u = r @ W^T + I in one TF32 pass, as the kernel's phase 1 computes
+    it: both operands rounded to TF32, exact products summed in fp32 (in
+    another order than the tensor cores')."""
+    return torch.matmul(rna_tf32(r), rna_tf32(W.transpose(-1, -2))) + I_ext
+
+
 def solve_fixed_point_plain(cfg: SSNConfig, W: torch.Tensor,
                             I_ext: torch.Tensor, check_every: int = 1,
-                            accel: bool = False
+                            accel: bool = False, fast_drive=None,
+                            stop_at: torch.Tensor | None = None,
+                            stats: dict | None = None
                             ) -> fixed_point.FixedPointResult:
-    """The kernel's function in plain torch: the lockstep solve in fp32."""
+    """The kernel's function in plain torch, in fp32: the lockstep solve
+    (``fixed_point.solve_fixed_point``) in the schedule of :func:`schedule`,
+    in two phases with a phase per tile, one chunk of rows of one circuit
+    as :func:`plan` cuts the battery (``fixed_point.TwoPhase``). Phase 1
+    drives with ``fast_drive(W, r, I)`` (default: the fp32 drive).
+    ``stop_at`` (B, S) replays a launch's rows to their ``iters``, and
+    ``stats`` receives the substeps each row ran in each phase, as
+    ``solve_fixed_point`` takes them."""
     cfg = dataclasses.replace(cfg, accel="anderson" if accel else "none")
+    W, I_ext = W.to(torch.float32), I_ext.to(torch.float32)
+    sched = schedule(cfg)
+    two_phase = None
+    if sched.two_phase:
+        two_phase = fixed_point.TwoPhase(
+            plan(W.shape[-1], I_ext.shape[-2], accel).rows, sched.coarse,
+            sched.max_iter1, sched.reopen_at, fast_drive)
     return fixed_point.solve_fixed_point(
-        cfg, W.to(torch.float32), I_ext.to(torch.float32),
-        check_every=check_every)
+        cfg, W, I_ext, check_every=check_every, two_phase=two_phase,
+        stop_at=stop_at, stats=stats)
 
 
 def bind(path) -> ctypes.CDLL:
@@ -215,10 +297,15 @@ def bind(path) -> ctypes.CDLL:
         if fn is not None:
             fn.argtypes = [i, i, i]
             fn.restype = i
-    # absent from earlier builds: forced rows per chunk and W-global path
+    # absent from earlier builds: forced rows per chunk and W-global path;
+    # the two-phase schedule
     fn = getattr(lib, "ssn_solve_launch_plan", None)
     if fn is not None:
         fn.argtypes = lib.ssn_solve_launch.argtypes + [i, i]
+        fn.restype = i
+    fn = getattr(lib, "ssn_solve_launch_schedule", None)
+    if fn is not None:
+        fn.argtypes = lib.ssn_solve_launch.argtypes + [i, i, i, f, i, f]
         fn.restype = i
     fn = getattr(lib, "ssn_solve_w_global", None)
     if fn is not None:
@@ -272,11 +359,12 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
     """Fixed-point solve of W (B, 2N, 2N) under a shared battery I (S, 2N).
 
     Returns fp32 rates (B, S, 2N), bool converged/diverged (B, S) and int32
-    iters (B, S), on the inputs' device, one launch for any S. Raises
-    ``ValueError`` past 2N = 2048 (:func:`plan`; every S is solved below),
-    and ``RuntimeError`` when the launch fails.
+    iters (B, S), on the inputs' device, one launch for any S, in the
+    schedule of :func:`schedule`. Raises ``ValueError`` past 2N = 2048
+    (:func:`plan`; every S is solved below) or on a bad schedule flag, and
+    ``RuntimeError`` when the launch fails.
     """
-    global launches
+    global launches, launches_two_phase
     if (W.ndim != 3 or I_ext.ndim != 2 or W.shape[1] != W.shape[2]
             or I_ext.shape[1] != W.shape[2]):
         raise ValueError("expected W (B, 2N, 2N) and I_ext (S, 2N); got "
@@ -286,6 +374,7 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
     B, n2 = W.shape[0], W.shape[2]
     S = I_ext.shape[0]
     plan(n2, S, accel)  # raises past 2N = 2048
+    two_phase = schedule(cfg).two_phase  # raises on a bad flag
     if W.device.type == "cpu" and I_ext.device.type == "cpu":
         return solve_fixed_point_plain(cfg, W, I_ext, check_every, accel)
     if W.device.type != "cuda" or I_ext.device != W.device:
@@ -297,6 +386,7 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
         return _outputs(B, S, n2, W.device)
     result = launch(_library(), cfg, W, I_ext, check_every, accel)
     launches += 1
+    launches_two_phase += two_phase
     return result
 
 
@@ -313,13 +403,16 @@ def launch(lib: ctypes.CDLL, cfg: SSNConfig, W: torch.Tensor,
            rows_per_chunk: int | None = None, w_global: bool = False
            ) -> fixed_point.FixedPointResult:
     """One launch of the solver in ``lib`` (see :func:`bind`) on CUDA
-    tensors that :func:`solve_fixed_point_cuda` has checked; raises if the
-    launch fails. Counts nothing. ``rows_per_chunk`` forces the plan's rows
+    tensors that :func:`solve_fixed_point_cuda` has checked, in the
+    schedule of :func:`schedule`; raises if the launch fails, and where
+    ``lib`` has no two-phase entry (an earlier build) and ``cfg`` asks for
+    two phases. Counts nothing. ``rows_per_chunk`` forces the plan's rows
     per chunk (``plan(..., rows=)``), so that a split launch can be held to
     an unsplit one; ``w_global`` forces W from device memory at the plan's
     cluster size (``plan(..., w_global=)``), so that the W-global path can
     be held to the shared-W one."""
     B, n2, S = W.shape[0], W.shape[2], I_ext.shape[0]
+    sched = schedule(cfg)
     device = W.device
     W32 = W.to(torch.float32).contiguous()
     I32 = I_ext.to(torch.float32).contiguous()
@@ -334,7 +427,14 @@ def launch(lib: ctypes.CDLL, cfg: SSNConfig, W: torch.Tensor,
             check_every, int(cfg.init == "feedforward"), int(accel),
             ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)]
     with torch.cuda.device(device):
-        if rows_per_chunk is None and not w_global:
+        if sched.two_phase:
+            if not hasattr(lib, "ssn_solve_launch_schedule"):
+                raise RuntimeError("this solver library has no two-phase "
+                                   "schedule; set pallas_two_phase=False")
+            err = lib.ssn_solve_launch_schedule(
+                *args, rows_per_chunk or 0, int(w_global), 1, sched.coarse,
+                sched.max_iter1, sched.reopen_at)
+        elif rows_per_chunk is None and not w_global:
             err = lib.ssn_solve_launch(*args)
         else:
             err = lib.ssn_solve_launch_plan(*args, rows_per_chunk or 0,

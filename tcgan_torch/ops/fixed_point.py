@@ -12,12 +12,14 @@ Port of :mod:`tcgan_tpu.ops.fixed_point`. Semantics:
 
 This lockstep path is the semantic reference of the port; the CUDA kernel
 (:mod:`tcgan_torch.ops.cuda.ssn_solve`) computes the same function with
-per-circuit early exit.
+per-circuit early exit. With ``two_phase`` (:class:`TwoPhase`) it runs the
+kernel's default schedule, the TPU kernel's two phases; the kernel's plain
+version is this loop in one schedule or the other.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -81,6 +83,24 @@ def solve_any(cfg: SSNConfig, W: torch.Tensor, I_ext: torch.Tensor,
     return FixedPointResult(*(t.reshape(lead + t.shape[1:]) for t in res))
 
 
+class TwoPhase(NamedTuple):
+    """The TPU kernel's two-phase schedule on the lockstep solve, with a
+    phase per tile of ``rows`` rows of one circuit: phase 1 drives with
+    ``fast_drive(W, r, I)`` (None: the full drive) to the residual
+    ``coarse`` within ``max_iter1`` substeps; a tile switches at the first
+    chunk boundary where its rows have all resolved or that budget is
+    spent. There every flag of the tile is cleared, but those of diverged
+    rows whose peak passes ``reopen_at`` (0: none), the reopened rows get
+    ``iters = max_iter``, Anderson's history restarts, and phase 2 runs the
+    full drive on to ``atol``, its substeps counted on from phase 1's."""
+
+    rows: int
+    coarse: float
+    max_iter1: int
+    reopen_at: float
+    fast_drive: Callable | None = None
+
+
 def solve_fixed_point(
     cfg: SSNConfig,
     W: torch.Tensor,
@@ -88,6 +108,9 @@ def solve_fixed_point(
     r0: torch.Tensor | None = None,
     check_every: int = 1,
     model=None,
+    two_phase: TwoPhase | None = None,
+    stop_at: torch.Tensor | None = None,
+    stats: dict | None = None,
 ) -> FixedPointResult:
     """Solve the SSN fixed point for a batch of circuits and stimuli.
 
@@ -103,11 +126,22 @@ def solve_fixed_point(
       model: a :class:`tcgan_torch.parallel.mesh.ModelAxis` when W holds
         this rank's columns only; the rates stay whole on every rank of the
         model group, and the group takes each stop decision together.
+      two_phase: the schedule of :class:`TwoPhase` (not under ``model``);
+        None: one phase.
+      stop_at: (..., S) int substeps, 0 for none: a row with a count stops
+        as converged at the first check at or past it (in phase 2 under
+        ``two_phase``) unless it diverged, whatever its residual; it
+        replays another solve's row to that solve's stopping substep.
+      stats: where given, with ``two_phase``, receives the substeps each
+        row ran in each phase (``phase1_substeps``, ``phase2_substeps``).
 
     Returns:
       FixedPointResult on W's device, rates in W's dtype. Not
       differentiable.
     """
+    if two_phase is not None and model is not None:
+        raise ValueError("the two-phase schedule solves whole circuits; it "
+                         "takes no model axis")
     f = cfg.io_fun()
     dtype, device = W.dtype, W.device
     lead = torch.broadcast_shapes(W.shape[:-2], I_ext.shape[:-2])
@@ -132,8 +166,11 @@ def solve_fixed_point(
     # drive, tests/test_torch_ssn_solve_tf32.py, takes three)
     sharded = {} if model is None else {"model": model}
 
-    def step(r):
-        delta = -r + f(recurrent_drive(W, r, I_ext, **sharded))
+    def full(W, r, I):
+        return recurrent_drive(W, r, I, **sharded)
+
+    def step(r, drive):
+        delta = -r + f(drive(W, r, I_ext))
         return torch.minimum(r + alpha * delta, r_ceiling), delta
 
     anderson = cfg.accel == "anderson"
@@ -142,6 +179,18 @@ def solve_fixed_point(
     iters = torch.full(lead + (S,), cfg.max_iter, dtype=torch.int32,
                        device=device)
     r_in_prev = f_prev = torch.zeros_like(r) if anderson else None
+    ph = None  # the rows in phase 1 (two phases only)
+    if two_phase is not None:
+        rows = two_phase.rows
+        K = -(-S // rows)
+        tile = torch.arange(S, device=device) // rows  # the tile of each row
+        phase1 = torch.full(lead + (K,), two_phase.max_iter1 > 0,
+                            device=device)
+        nhist = torch.zeros(lead + (K,), dtype=torch.int32, device=device)
+        steps = torch.zeros((2,) + lead + (S,), dtype=torch.int32,
+                            device=device)
+        atols = torch.tensor([cfg.atol, two_phase.coarse], dtype=dtype,
+                             device=device)  # by phase 2, 1
     it = 0
     # one host sync per chunk: the lockstep loop's "any row active" test
     while it < cfg.max_iter:
@@ -151,23 +200,38 @@ def solve_fixed_point(
             more = model.max(more.to(torch.int32))
         if not bool(more):
             break
+        drive, atol = full, cfg.atol
+        if two_phase is not None:
+            ph = phase1[..., tile]  # (..., S)
+            atol = atols[ph.long()]
+            fast = two_phase.fast_drive
+            if fast is not None and bool(ph.any()):
+                drive = fast if bool(ph.all()) else (
+                    lambda W, r, I: torch.where(ph[..., None], fast(W, r, I),
+                                                full(W, r, I)))
         r_new = r
         for _ in range(check_every):
-            r_new, delta = step(r_new)
+            r_new, delta = step(r_new, drive)
         err = delta.abs().amax(dim=-1)
         peak = r_new.amax(dim=-1)
         it_next = it + check_every
         newly_div = active & (peak > cfg.rate_stop_at)
-        newly_conv = active & ~newly_div & (err < cfg.atol)
+        newly_conv = active & ~newly_div & (err < atol)
+        if stop_at is not None:
+            forced = stop_at > 0 if ph is None else (stop_at > 0) & ~ph
+            newly_conv = torch.where(
+                forced, active & ~newly_div & (it_next >= stop_at),
+                newly_conv)
         resolved_now = newly_div | newly_conv
         r_next = r_new
         if anderson:
             # Anderson(1) on the chunk map H: gamma = <F, F - F_prev> /
             # ||F - F_prev||^2, r_aa = H(r) - gamma * (H(r) - H(r_prev)).
-            # Safeguards: history exists, |gamma| < 2, denom > 0, the
-            # extrapolation stays under rate_stop_at (no false divergence
-            # flags), active and unresolved rows only; clamped to
-            # [0, ceiling]. Flags use the plain chunk.
+            # Safeguards: history exists (since the phase began, in two
+            # phases), |gamma| < 2, denom > 0, the extrapolation stays
+            # under rate_stop_at (no false divergence flags), active and
+            # unresolved rows only; clamped to [0, ceiling]. Flags use the
+            # plain chunk.
             f_cur = r_new - r
             dF = f_cur - f_prev
             denom = (dF * dF).sum(dim=-1, keepdim=True)
@@ -175,7 +239,8 @@ def solve_fixed_point(
             h_prev = r_in_prev + f_prev
             r_aa = torch.clamp(r_new - gamma * (r_new - h_prev), 0.0,
                                10.0 * cfg.rate_stop_at)
-            ok = ((it > 0) & (gamma[..., 0].abs() < 2.0)
+            history = it > 0 if ph is None else nhist[..., tile] > 0
+            ok = (history & (gamma[..., 0].abs() < 2.0)
                   & (denom[..., 0] > 0.0)
                   & (r_aa.amax(dim=-1) <= cfg.rate_stop_at)
                   & active & ~resolved_now)
@@ -184,12 +249,51 @@ def solve_fixed_point(
         r = torch.where(active[..., None], r_next, r)
         converged = converged | newly_conv
         diverged = diverged | newly_div
-        # clamp: the final chunk may overshoot max_iter by up to
-        # check_every-1 steps; iters == max_iter must keep meaning
-        # "unresolved"
-        iters = torch.where(resolved_now,
-                            torch.full_like(iters, min(it_next, cfg.max_iter)),
-                            iters)
+        # clamp: the final chunk may overshoot max_iter (phase 1: its
+        # budget) by up to check_every-1 steps; iters == max_iter must keep
+        # meaning "unresolved"
+        if ph is None:
+            cap = torch.full_like(iters, min(it_next, cfg.max_iter))
+        else:
+            cap = torch.where(ph, min(it_next, two_phase.max_iter1),
+                              min(it_next, cfg.max_iter)).to(torch.int32)
+        iters = torch.where(resolved_now, cap, iters)
         it = it_next
+        if two_phase is not None:
+            steps[0] += (active & ph) * check_every
+            steps[1] += (active & ~ph) * check_every
+            nhist += 1
+            (converged, diverged, iters, nhist, r_in_prev, f_prev,
+             phase1) = _phase_boundary(
+                cfg, two_phase, it, tile, r, converged, diverged, iters,
+                nhist, r_in_prev, f_prev, phase1)
+    if stats is not None and two_phase is not None:
+        stats["phase1_substeps"], stats["phase2_substeps"] = steps
     return FixedPointResult(r, converged, diverged, iters)
 
+
+def _phase_boundary(cfg, sched, it, tile, r, converged, diverged, iters,
+                    nhist, r_in_prev, f_prev, phase1):
+    """Switch the tiles done with phase 1 after the chunk that ends at
+    substep ``it`` (:class:`TwoPhase`); returns the state updated."""
+    lead, S = converged.shape[:-1], converged.shape[-1]
+    K, rows = phase1.shape[-1], sched.rows
+    open_rows = torch.nn.functional.pad(~(converged | diverged),
+                                        (0, K * rows - S))
+    done = phase1 & ~(open_rows.reshape(lead + (K, rows)).any(-1)
+                      & (it < sched.max_iter1))
+    if not bool(done.any()):
+        return converged, diverged, iters, nhist, r_in_prev, f_prev, phase1
+    sw = done[..., tile]
+    keep = (diverged & (r.amax(dim=-1) > sched.reopen_at)
+            if sched.reopen_at > 0 else torch.zeros_like(diverged))
+    converged = converged & ~sw
+    diverged = torch.where(sw, keep, diverged)
+    iters = torch.where(sw & ~keep, torch.full_like(iters, cfg.max_iter),
+                        iters)
+    nhist = torch.where(done, 0, nhist)
+    if r_in_prev is not None:
+        r_in_prev = torch.where(sw[..., None], 0.0, r_in_prev)
+        f_prev = torch.where(sw[..., None], 0.0, f_prev)
+    return (converged, diverged, iters, nhist, r_in_prev, f_prev,
+            phase1 & ~done)

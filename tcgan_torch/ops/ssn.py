@@ -73,10 +73,13 @@ class SSNConfig:
     # reference's "pallas"), used for a (B, 2N, 2N) W and a shared (S, 2N)
     # battery. The reference's names are stored as the port's.
     backend: str = "torch"
-    # The pallas_* fields keep the reference's flags parseable. The CUDA
-    # kernel computes every substep in fp32 and reads none of them: the
-    # two-phase, refine and reopen-margin strategies exist to get fp32
-    # answers out of bf16 matmul passes.
+    # The reference's kernel schedule, read by the CUDA kernel
+    # (ops/cuda/ssn_solve.py::schedule): two phases, a first of one TF32
+    # pass per product to a coarse residual, then 3xTF32 to atol with every
+    # flag decided again, but those of rows pinned above
+    # pallas_reopen_margin * rate_stop_at (margin > 0). pallas_block_b is
+    # not read (the kernel's tile is one circuit's chunk of rows), nor is
+    # pallas_refine (its tail computes the iterate of the 3xTF32 phase).
     pallas_block_b: int = 8
     pallas_two_phase: bool = True
     pallas_refine: bool = True

@@ -92,17 +92,26 @@ def add_ssn_flags(p: argparse.ArgumentParser):
                         "only the stop check is strided")
     g.add_argument("--pallas-block-b", type=int, default=16,
                    help="circuits per TPU kernel tile; parsed for flag "
-                        "parity, not read by the CUDA kernel (one block "
-                        "per circuit)")
+                        "parity, not read: the CUDA kernel's tile is one "
+                        "circuit's chunk of rows (a block or a cluster), "
+                        "the TPU kernel's tile at 1")
     g.add_argument("--pallas-two-phase", choices=("on", "off"), default="on",
-                   help="TPU kernel's fast-pass first loop; parsed for flag "
-                        "parity, the CUDA kernel runs every substep in fp32")
+                   help="the solver kernel's two-phase schedule: a first "
+                        "phase of one TF32 pass per product down to "
+                        "max(100 atol, 1e-2) within max-iter/2 substeps, "
+                        "then every flag decided again in 3xTF32 (fp32 "
+                        "accuracy) to atol; off: 3xTF32 throughout")
     g.add_argument("--pallas-refine", choices=("on", "off"), default="on",
-                   help="TPU kernel's iterative-refinement tail; parsed for "
-                        "flag parity, not read by the CUDA kernel")
+                   help="TPU kernel's iterative-refinement tail; accepted "
+                        "and not read: it computes the same iterate as the "
+                        "CUDA kernel's 3xTF32 phase 2")
     g.add_argument("--pallas-reopen-margin", type=float, default=0.0,
-                   help="TPU kernel's phase-2 divergence-reopen margin; "
-                        "parsed for flag parity, not read by the CUDA kernel")
+                   help="two-phase schedule: rows whose phase-1 rates are "
+                        "pinned above MARGIN * rate-stop-at keep their "
+                        "divergence flag and phase-1 iters instead of "
+                        "re-proving it in phase 2; 0 = reopen every row "
+                        "(the reference's default), 2.0 the reference's "
+                        "validated setting; must be finite and >= 0")
     g.add_argument("--init", choices=("zero", "feedforward"), default="zero",
                    help="fixed-point initial rates: zeros (reference) or "
                         "the feedforward estimate f(I)")

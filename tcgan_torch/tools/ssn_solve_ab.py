@@ -2,8 +2,10 @@
 another build of its source, in turns.
 
 :data:`SHAPES`, :data:`CLUSTER_SHAPES`, :data:`SPLIT_SHAPES`,
-:data:`GLOBAL_SHAPES`, :func:`problem`, :func:`bound`,
-:func:`off_own_trajectory`, :func:`median_ms` and :func:`card` are what
+:data:`GLOBAL_SHAPES`, :data:`TWO_PHASE_SHAPES`, :func:`problem`,
+:func:`bound`,
+:func:`off_own_trajectory`, :func:`own_trajectory`,
+:func:`median_ms` and :func:`card` are what
 ``chip_smoke.py`` and the card tests use. Run as a script on a machine
 with one CUDA device, from the repository root:
 
@@ -18,7 +20,10 @@ kernels solve the same inputs in turns: baseline, this, this, baseline, each
 turn the median of ``--reps`` launches timed with CUDA events (at
 :data:`CLUSTER_SHAPES`, :data:`SPLIT_SHAPES` and :data:`GLOBAL_SHAPES`,
 which a baseline without thread-block clusters, row chunks or W read from
-device memory refuses, this kernel alone). Printed per shape and kernel:
+device memory refuses, this kernel alone); these shapes run one phase, as
+they did before the two-phase schedule. At :data:`TWO_PHASE_SHAPES` this
+kernel alone runs in one phase and in two, in turns (one, two, two, one).
+Printed per shape and kernel:
 the time, the bound from the run's own ``iters`` and its share, the
 slowest circuit's time per substep (launch time / max iters) and the plan
 of its C entry points (cluster size, rows per chunk), with the card's name
@@ -52,7 +57,8 @@ from tcgan_torch.ops.ssn import SSNConfig
 
 # Published H100 SXM peaks at 700 W, dense: TF32 on the tensor cores, fp32
 # outside them, HBM3. The kernel runs each fp32 product as 3 TF32 products
-# (3xTF32), the least that keeps its results fp32-accurate.
+# (3xTF32), the least that keeps its results fp32-accurate; phase 1 of the
+# two-phase schedule as one.
 PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
@@ -127,18 +133,41 @@ GLOBAL_SHAPES = {
     "2N=1024 S=8 B=16": (512, 16, (CONTRAST,), {}, False),  # 4, 8, 1
     "2N=2048 S=8 B=4": (1024, 4, (CONTRAST,), {}, False),  # 8, 8, 1
 }
+# The two-phase schedule (the CLI's default) on every path of the kernel: the
+# register path (N=51: run.forward's batch, the round-2 GAN battery, the
+# bench step, and 3 and 4 row tiles, where the two-phase instantiations
+# spill), one block with W in fp32 (2N=224), clusters (2N=402), row
+# chunks (2N=402, S=32 with Anderson: 4 chunks of 8 rows) and W from device
+# memory (2N=600). Same key layout as CLUSTER_SHAPES.
+TWO_PHASE_SHAPES = {
+    "forward B=512 S=8": (51, 512, (CONTRAST,), {}, False),
+    "gan B=256 S=16": (51, 256, (5.0, CONTRAST),
+                       dict(atol=1e-5, max_iter=10000), False),
+    "bench_step B=32 S=8": (51, 32, (CONTRAST,), {}, False),
+    "S=24 B=256": (51, 256, (2.5, 5.0, CONTRAST), {}, False),
+    "S=32 B=256": (51, 256, (2.5, 5.0, 7.5, CONTRAST), {}, False),
+    "2N=224 S=8 B=64": (WIDE_N, 64, (CONTRAST,), {}, False),
+    "2N=402 S=8 B=64": (201, 64, (CONTRAST,), {}, False),
+    "2N=402 S=32 B=16 anderson": (201, 16, (2.5, 5.0, 7.5, CONTRAST), {},
+                                  True),
+    "2N=600 S=8 B=64": (300, 64, (CONTRAST,), {}, False),
+}
 
 
 def problem(batch: int, contrasts=(CONTRAST,), ssn_overrides=None,
             N: int = 51, seed: int = 0, device: str = "cuda",
-            rescale: bool = True):
+            rescale: bool = True, two_phase: bool = False,
+            j_factor: float = 1.0):
     """(cfg, W (B, 2N, 2N), I (8 * len(contrasts), 2N)) of the slice's
     circuit at width N, z drawn on ``device`` from ``seed``. Away from N=51
     and with ``rescale``, J and D are scaled by 51 / N, so that a neuron's
     summed input (N sites on the same interval) and the circuit's regime
     stay those of the slice; without it the circuit is stronger than the
-    slice's and many rows diverge or sit near criticality."""
-    cfg = SSNConfig(**{**SLICE_SSN, "N": N, **(ssn_overrides or {})})
+    slice's and many rows diverge or sit near criticality; ``j_factor``
+    scales J further. The config runs one phase unless ``two_phase`` (the
+    shapes' history is one phase)."""
+    cfg = SSNConfig(**{**SLICE_SSN, "N": N, "pallas_two_phase": two_phase,
+                       **(ssn_overrides or {})})
     dev = torch.device(device)
     scale = SLICE_SSN["N"] / N if rescale else 1.0
     as22 = lambda v, c=1.0: c * torch.tensor(  # noqa: E731
@@ -146,7 +175,8 @@ def problem(batch: int, contrasts=(CONTRAST,), ssn_overrides=None,
     z = weights.sample_z(torch.Generator(dev).manual_seed(seed), (batch,), N,
                          device=dev)
     x = cfg.site_pos(device=dev)
-    W = weights.build_weight(as22(SLICE_J, scale), as22(SLICE_D, scale),
+    W = weights.build_weight(as22(SLICE_J, scale * j_factor),
+                             as22(SLICE_D, scale),
                              as22(SLICE_S), z, x)
     I = stimulus.stimulus_battery(BANDWIDTHS, contrasts, x, cfg.smoothness)
     return cfg, W, I
@@ -159,15 +189,22 @@ def matvec_flops(W: torch.Tensor, iters: torch.Tensor) -> float:
     return 2.0 * n2 * n2 * float(iters.double().sum())
 
 
-def bound(W: torch.Tensor, I: torch.Tensor, iters: torch.Tensor
-          ) -> tuple[float, str]:
+def bound(W: torch.Tensor, I: torch.Tensor, iters: torch.Tensor,
+          phase_substeps=None) -> tuple[float, str]:
     """Least time (ms) the card could take for this solve and what sets it:
     the mat-vec as 3 TF32 passes at the tensor cores' TF32 peak, against W,
     I and alpha read once and r and the flags written once at the HBM
-    rate."""
+    rate. In two phases, ``phase_substeps`` (the substeps each row ran in
+    phase 1 and in phase 2, ``solve_fixed_point_plain(stats=)``) in place
+    of ``iters``: phase 1 in one TF32 pass, phase 2 in three."""
     B, n2, S = W.shape[0], W.shape[-1], I.shape[0]
     nbytes = 4 * (B * n2 * n2 + S * n2 + n2) + B * S * (4 * n2 + 2 + 4)
-    t_op = TF32_PASSES * matvec_flops(W, iters) / PEAK_TF32_FLOPS
+    if phase_substeps is None:
+        flops = TF32_PASSES * matvec_flops(W, iters)
+    else:
+        p1, p2 = phase_substeps
+        flops = matvec_flops(W, p1) + TF32_PASSES * matvec_flops(W, p2)
+    t_op = flops / PEAK_TF32_FLOPS
     t_mem = nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_op, t_mem), ("operations" if t_op >= t_mem
                                      else "bytes")
@@ -187,17 +224,34 @@ def median_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def own_trajectory(cfg, W, I, b, s, it, check_every, accel) -> torch.Tensor:
+    """The rates (2N,) of row (b, s) in the kernel's plain version run to
+    the substep ``it`` at which a launch stopped that row. In one phase the
+    row alone, at atol 0 and max_iter ``it``. In two, where a row's
+    trajectory depends on when its tile-mates end phase 1, circuit b's
+    whole battery with phase 1 in emulated TF32 (``ssn_solve.drive_1xtf32``,
+    the kernel's phase-1 arithmetic), row s stopped at ``it`` in phase 2
+    (``stop_at``) and its tile-mates left to their own tests."""
+    if not cfg.pallas_two_phase:
+        return ssn_solve.solve_fixed_point_plain(
+            dataclasses.replace(cfg, atol=0.0, max_iter=it), W[b:b + 1],
+            I[s:s + 1], check_every, accel).r[0, 0]
+    stop = torch.zeros((1, I.shape[0]), dtype=torch.int32, device=W.device)
+    stop[0, s] = it
+    return ssn_solve.solve_fixed_point_plain(
+        cfg, W[b:b + 1], I, check_every, accel,
+        fast_drive=ssn_solve.drive_1xtf32, stop_at=stop).r[0, s]
+
+
 def off_own_trajectory(out, cfg, W, I, b, s, check_every, accel
                        ) -> tuple[float, bool]:
-    """Max |dr| of row (b, s) of the kernel's rates from the plain fp32
-    solve of that row run to the kernel's own iters for it (atol 0), and
-    whether it lies within RTOL/ATOL: a row whose atol crossing lands a
-    chunk apart from the plain solve's (near criticality, where the order
-    of the sums decides it) must still be the right trajectory."""
-    it = int(out.iters[b, s])
-    rerun = ssn_solve.solve_fixed_point_plain(
-        dataclasses.replace(cfg, atol=0.0, max_iter=it), W[b:b + 1],
-        I[s:s + 1], check_every, accel).r[0, 0]
+    """Max |dr| of row (b, s) of the kernel's rates from the plain solve of
+    that row run to the kernel's own iters for it (:func:`own_trajectory`),
+    and whether it lies within RTOL/ATOL: a row whose atol crossing lands a
+    chunk or more apart from the plain solve's (near criticality, where the
+    order of the sums decides it) must still be the right trajectory."""
+    rerun = own_trajectory(cfg, W, I, b, s, int(out.iters[b, s]),
+                           check_every, accel)
     d = (out.r[b, s] - rerun).abs()
     return float(d.max()), bool((d <= ATOL + RTOL * rerun.abs()).all())
 
@@ -213,11 +267,12 @@ def card() -> str:
 def _kernel_name(fn: str) -> str:
     """A mangled function name without its anonymous namespace, which
     carries the source file's name and a hash, so that two builds' names
-    compare; an instantiation with W in shared memory (``kWGlobal`` false,
-    a fourth template argument that earlier sources lack) under the name of
-    the same instantiation in those sources."""
+    compare; an instantiation whose trailing template arguments are false
+    (``kWGlobal``, ``kTwoPhase``: arguments that earlier sources lack)
+    under the name of the same instantiation in those sources."""
     fn = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", fn)
-    return re.sub(r"(ssn_solve_kernelILi\d+ELb[01]ELb[01]E)Lb0E", r"\1", fn)
+    return re.sub(r"(ssn_solve_kernelILi\d+ELb[01]ELb[01]E(?:Lb[01]E)*?)"
+                  r"(?:Lb0E)+(?=E)", r"\1", fn)
 
 
 def _ptxas_report(log: str) -> dict:
@@ -291,6 +346,58 @@ def _rows_off_plain(out, plain) -> list[dict]:
                  plain_iters=int(plain.iters[b, s]),
                  max_abs_dr=float((out.r[b, s] - plain.r[b, s]).abs().max()))
             for b, s in off.nonzero().tolist()]
+
+
+def _one_against_two(lib, shape, spec, reps, name) -> dict:
+    """This kernel at one of :data:`TWO_PHASE_SHAPES` in one phase and in
+    two, in turns (one, two, two, one): each one's time, bound and share,
+    iters, the share of the two-phase substeps run in phase 1 (from the
+    plain version on the same inputs), and the flags and rates between
+    the two."""
+    N, batch, contrasts, overrides, accel = spec
+    cfg, W, I = problem(batch, contrasts, overrides, N=N, two_phase=True)
+    cfgs = {"one": dataclasses.replace(cfg, pallas_two_phase=False),
+            "two": cfg}
+    solve = {k: (lambda c=c: ssn_solve.launch(lib, c, W, I, CHECK_EVERY,
+                                              accel))
+             for k, c in cfgs.items()}
+    outs = {k: fn() for k, fn in solve.items()}
+    stats = {}
+    ssn_solve.solve_fixed_point_plain(cfg, W, I, CHECK_EVERY, accel,
+                                      fast_drive=ssn_solve.drive_1xtf32,
+                                      stats=stats)
+    torch.cuda.synchronize()
+    turns = [(k, median_ms(solve[k], reps))
+             for k in ("one", "two", "two", "one")]
+    steps = (stats["phase1_substeps"], stats["phase2_substeps"])
+    rows = {}
+    for k, out in outs.items():
+        ms = statistics.median(t for kk, t in turns if kk == k)
+        bound_ms, by = bound(W, I, out.iters, steps if k == "two" else None)
+        rows[k] = dict(turns_ms=[t for kk, t in turns if kk == k], ms=ms,
+                       bound_ms=bound_ms, bound_by=by, share=bound_ms / ms,
+                       mean_iters=float(out.iters.float().mean()),
+                       max_iters=int(out.iters.max()))
+    a, b = outs["one"], outs["two"]
+    both = a.converged & b.converged
+    rows["phase1_share_of_substeps"] = float(
+        steps[0].sum() / (steps[0].sum() + steps[1].sum()))
+    rows["flags_differ"] = int((a.converged != b.converged).sum()
+                               + (a.diverged != b.diverged).sum())
+    rows["max_abs_dr"] = float((a.r - b.r).abs()[both].max())
+    one, two = rows["one"], rows["two"]
+    print(f"[ab] two-phase {shape}: one phase {one['ms']:.3f} ms (turns "
+          f"{', '.join(f'{t:.3f}' for t in one['turns_ms'])}), bound "
+          f"{one['bound_ms']:.4f}, mean iters {one['mean_iters']:.1f}; two "
+          f"phases {two['ms']:.3f} ms (turns "
+          f"{', '.join(f'{t:.3f}' for t in two['turns_ms'])}), bound "
+          f"{two['bound_ms']:.4f} ({two['bound_by']}), mean iters "
+          f"{two['mean_iters']:.1f}; one / two = "
+          f"{one['ms'] / two['ms']:.3f}; phase 1's share of "
+          f"the substeps {rows['phase1_share_of_substeps']:.4f}; between the "
+          f"two: flags differing {rows['flags_differ']}, max |dr| on rows "
+          f"both converged {rows['max_abs_dr']:.3e}; {name}", flush=True)
+    return rows
 
 
 def main(argv=None) -> int:
@@ -400,6 +507,10 @@ def main(argv=None) -> int:
               f"(r, flags, iters) bit-equal {rows['bit_equal']}, the same "
               f"plan {rows['same_plan']}", flush=True)
         report["shapes"][shape] = rows
+    report["two_phase"] = {
+        shape: _one_against_two(kernels["this"]["lib"], shape, spec, args.reps,
+                                name)
+        for shape, spec in TWO_PHASE_SHAPES.items()}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))

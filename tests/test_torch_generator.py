@@ -52,7 +52,8 @@ def _configs(jax_backend, readout):
                            pallas_block_b=4),
         dtype=jdt, **GEN, **READOUTS[readout])
     tcfg = tgen.GeneratorConfig(
-        ssn=tssn.SSNConfig(**SSN, backend=port_backend), dtype=tdt, **GEN,
+        ssn=tssn.SSNConfig(**SSN, backend=port_backend,
+                           pallas_two_phase=False), dtype=tdt, **GEN,
         **READOUTS[readout])
     return jcfg, tcfg
 

@@ -210,7 +210,7 @@ def test_kernel_backends_f32_match_jax_pallas():
     f32 = dict(SSN, max_iter=20000, atol=1e-6, check_every=8)
     jcfg = jssn.SSNConfig(**f32, backend="pallas", pallas_two_phase=False,
                           pallas_block_b=2)
-    tcfg = tssn.SSNConfig(**f32, backend="cuda")
+    tcfg = tssn.SSNConfig(**f32, backend="cuda", pallas_two_phase=False)
     r_j, g_j = _jax_grads(jcfg, z, "iterative", dtype=jnp.float32)
     r_t, g_t = _torch_grads(tcfg, z, "iterative", dtype=torch.float32)
     assert r_t.dtype == np.float32

@@ -10,6 +10,11 @@ Tolerance: flags equal, rates rtol 1e-4 atol 1e-5 (the kernel-vs-lockstep
 tolerance of tests/test_pallas_solver.py), iters within two check strides
 (the mat-vec summation order differs, which can move the atol crossing by a
 chunk).
+
+The tests from before the two-phase schedule run one phase
+(``pallas_two_phase=False``; ``ab.problem`` does so by default); the
+two-phase tests hold the kernel to the plain version with phase 1 in
+emulated TF32 (``ssn_solve.drive_1xtf32``), at every path of the kernel.
 """
 
 import dataclasses
@@ -23,7 +28,8 @@ from tcgan_torch.ops.cuda import ssn_solve
 from tcgan_torch.ops.ssn import SSNConfig
 from tcgan_torch.tools import ssn_solve_ab as ab
 
-BASE = dict(N=8, k=0.01, n=2.2, dt=0.001, max_iter=4000, atol=1e-6)
+BASE = dict(N=8, k=0.01, n=2.2, dt=0.001, max_iter=4000, atol=1e-6,
+            pallas_two_phase=False)
 RTOL, ATOL = 1e-4, 1e-5
 SATURATING = dict(rate_soft_bound=0.15, rate_hard_bound=0.8,
                   rate_stop_at=50.0)
@@ -66,12 +72,16 @@ def _check(cfg, W, I, check_every, accel, converged_rows_only=False,
     rows both converged, where asked: a diverging or unresolved row's rates
     depend on the summation order; with ``witness``, a row outside it
     passes on its own fp32 trajectory, ``ab.off_own_trajectory``), iters
-    within two strides."""
-    before = ssn_solve.launches
+    within two strides. In two phases the plain version's phase 1 runs in
+    emulated TF32, as the kernel's does."""
+    before = (ssn_solve.launches, ssn_solve.launches_two_phase)
     out = ssn_solve.solve_fixed_point_cuda(cfg, W, I, check_every, accel)
-    ref = ssn_solve.solve_fixed_point_plain(cfg, W, I, check_every, accel)
+    fast = ssn_solve.drive_1xtf32 if cfg.pallas_two_phase else None
+    ref = ssn_solve.solve_fixed_point_plain(cfg, W, I, check_every, accel,
+                                            fast_drive=fast)
     torch.cuda.synchronize()
-    assert ssn_solve.launches == before + 1
+    assert (ssn_solve.launches, ssn_solve.launches_two_phase) == (
+        before[0] + 1, before[1] + cfg.pallas_two_phase)
     assert out.r.device == W.device and out.r.dtype == torch.float32
     assert torch.equal(out.converged, ref.converged)
     assert torch.equal(out.diverged, ref.diverged)
@@ -114,7 +124,7 @@ def _slice_problem(device, B, N=51, contrasts=(10.0,), seed=3):
     """chip_smoke.py's forward-slice circuit (its J, D, S unscaled) at width
     N: W (B, 2N, 2N) from NumPy noise and 8 bandwidths x ``contrasts``
     rows."""
-    cfg = SSNConfig(**{**ab.SLICE_SSN, "N": N})
+    cfg = SSNConfig(**{**ab.SLICE_SSN, "N": N, "pallas_two_phase": False})
     z = np.random.default_rng(seed).standard_normal((B, 2 * N, 2 * N))
     t = lambda v: torch.tensor(v, device=device).reshape(2, 2)  # noqa: E731
     x = cfg.site_pos(device=device)
@@ -307,7 +317,7 @@ def test_cluster_kernel_flags_runaway_divergence(cuda_device):
     """Hard divergers at 2N=402 (a cluster of 4): every row diverges, under
     the ceiling, as in the plain solve."""
     cfg = SSNConfig(N=201, k=0.05, n=2.2, dt=0.002, max_iter=512,
-                    rate_stop_at=200.0, atol=1e-6)
+                    rate_stop_at=200.0, atol=1e-6, pallas_two_phase=False)
     W = 0.05 * torch.tensor(
         np.abs(np.random.default_rng(0).standard_normal((3, 402, 402))),
         dtype=torch.float32, device=cuda_device)
@@ -320,7 +330,7 @@ def test_cluster_kernel_flags_runaway_divergence(cuda_device):
 @pytest.mark.cuda
 def test_kernel_flags_runaway_divergence(cuda_device):
     cfg = SSNConfig(N=4, k=0.05, n=2.2, dt=0.002, max_iter=512,
-                    rate_stop_at=200.0, atol=1e-6)
+                    rate_stop_at=200.0, atol=1e-6, pallas_two_phase=False)
     W = 8.0 * torch.tensor(
         np.abs(np.random.default_rng(0).standard_normal((2, 8, 8))),
         dtype=torch.float32, device=cuda_device)
@@ -385,3 +395,105 @@ def test_solve_any_cuda_backend_launches(cuda_device):
     res = fixed_point.solve_any(cfg, W.double(), I.double())
     assert ssn_solve.launches == before + 1
     assert res.r.dtype == torch.float32 and res.converged.all()
+
+
+TWO_PHASE_CASES = {
+    # name: (N, B, contrasts, SSNConfig overrides, accel): the two-phase
+    # schedule on every path: the register path (2N <= 112, with Anderson
+    # too), one block with W in fp32 (2N=224), a cluster of 4 (2N=402), row
+    # chunks (2N=402, S=32 with Anderson: 4 chunks of 8 rows on clusters of
+    # 4) and W read from device memory (2N=600); J and D scaled to N
+    "register_S8": (51, 32, (10.0,), {}, False),
+    "register_S16_atol1e-5": (51, 32, (5.0, 10.0),
+                              dict(atol=1e-5, max_iter=10000), False),
+    "register_anderson_S16": (51, 16, (5.0, 10.0),
+                              dict(atol=1e-5, max_iter=10000), True),
+    "one_block_2N224_S8": (112, 8, (10.0,), {}, False),
+    "cluster_2N402_S8": (201, 8, (10.0,), {}, False),
+    "chunks_2N402_S32_anderson": (201, 4, (2.5, 5.0, 7.5, 10.0), {}, True),
+    "wglobal_2N600_S8": (300, 4, (10.0,), {}, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TWO_PHASE_CASES))
+def test_two_phase_kernel_matches_plain(cuda_device, case):
+    N, B, contrasts, cfg_kw, accel = TWO_PHASE_CASES[case]
+    cfg, W, I = ab.problem(B, contrasts, cfg_kw, N=N, seed=1, two_phase=True)
+    p = ssn_solve.plan(2 * N, I.shape[0], accel)
+    assert (p.cluster > 1) == case.startswith(("cluster", "chunks", "wglobal"))
+    assert (p.chunks > 1) == case.startswith("chunks")
+    assert p.w_global == case.startswith("wglobal")
+    out = _check(cfg, W, I, 32, accel, converged_rows_only=True)
+    assert torch.isfinite(out.r).all()
+    assert float(out.converged.float().mean()) > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("margin,want", [(0.0, 64), (2.0, 32)])
+def test_two_phase_reopen_margin_on_card(cuda_device, margin, want):
+    """Hard divergers (tests/test_torch_ssn_solve.py::_runaway_problem):
+    reopened at margin 0, they diverge again a chunk later; at 2.0 they keep
+    their phase-1 flag and iters, as on the CPU and in the reference."""
+    cfg = SSNConfig(N=4, k=0.05, n=2.2, dt=0.002, max_iter=512,
+                    rate_stop_at=200.0, atol=1e-6,
+                    pallas_reopen_margin=margin)
+    W = 8.0 * torch.tensor(
+        np.abs(np.random.default_rng(0).standard_normal((2, 8, 8))),
+        dtype=torch.float32, device=cuda_device)
+    I = 50.0 * torch.ones((1, 8), device=cuda_device)
+    out = _check(cfg, W, I, 32, False)
+    assert out.diverged.all() and (out.iters == want).all()
+
+
+@pytest.mark.cuda
+def test_two_phase_reopen_margin_keeps_flags(cuda_device):
+    """The slice's battery with half its circuits hard divergers (W = 0.5
+    |N(0, 1)|): margins 0 and 2.0 give the same flags, and 2.0 fewer iters
+    on the diverged rows."""
+    outs = []
+    for margin in (0.0, 2.0):
+        cfg, W, I = ab.problem(16, (10.0,), dict(pallas_reopen_margin=margin),
+                               seed=1, two_phase=True)
+        W[8:] = 0.5 * torch.tensor(
+            np.abs(np.random.default_rng(2).standard_normal((8, 102, 102))),
+            dtype=torch.float32, device=cuda_device)
+        outs.append(_check(cfg, W, I, 32, False, converged_rows_only=True))
+    a, b = outs
+    assert a.diverged[8:].all() and a.converged[:8].all()
+    assert torch.equal(a.diverged, b.diverged)
+    assert torch.equal(a.converged, b.converged)
+    assert (b.iters[8:] <= a.iters[8:]).all()
+    assert (b.iters[8:] < a.iters[8:]).any()
+
+
+@pytest.mark.cuda
+def test_two_phase_bad_margin_raises_on_card(cuda_device):
+    """A bad schedule flag raises for a CUDA tensor; nothing launches."""
+    W, I = _problem(cuda_device, B=2)
+    before = ssn_solve.launches
+    with pytest.raises(ValueError, match="pallas_reopen_margin"):
+        ssn_solve.solve_fixed_point_cuda(
+            SSNConfig(**{**BASE, "pallas_two_phase": True,
+                         "pallas_reopen_margin": -1.0}), W, I)
+    assert ssn_solve.launches == before
+
+
+@pytest.mark.cuda
+def test_two_phase_needs_the_schedule_entry(cuda_device):
+    """A library without the two-phase entry (an earlier build) refuses a
+    two-phase launch and still runs one phase."""
+    lib = ssn_solve._library()
+
+    class Earlier:
+        ssn_solve_launch = lib.ssn_solve_launch
+        ssn_solve_error_string = lib.ssn_solve_error_string
+
+    W, I = _problem(cuda_device, B=2)
+    with pytest.raises(RuntimeError, match="no two-phase"):
+        ssn_solve.launch(Earlier, SSNConfig(**{**BASE,
+                                               "pallas_two_phase": True}),
+                         W, I, 4, False)
+    out = ssn_solve.launch(Earlier, SSNConfig(**BASE), W, I, 4, False)
+    torch.cuda.synchronize()
+    assert out.converged.all()

@@ -14,6 +14,8 @@ tolerance of tests/test_pallas_solver.py), iters within two check strides
 (the summation order differs, which can move the atol crossing by a chunk).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,7 +31,10 @@ from tcgan_torch.ops import stimulus, weights
 from tcgan_torch.ops.cuda import ssn_solve
 from tcgan_torch.tools import ssn_solve_ab as ab
 
-BASE = dict(N=8, k=0.01, n=2.2, dt=0.001, max_iter=4000, atol=1e-6)
+# one phase: these tests hold the arithmetic of the kernel's 3xTF32 loop,
+# which is all of it with pallas_two_phase off and its phase 2 with it on
+BASE = dict(N=8, k=0.01, n=2.2, dt=0.001, max_iter=4000, atol=1e-6,
+            pallas_two_phase=False)
 RTOL, ATOL = 1e-4, 1e-5
 # Circuits of the seed-3 draw of 16 (``_slice_problem``) at which one TF32
 # pass flips 3, 3, 3 and 4 flags of the 16-row GAN battery at atol 1e-5
@@ -49,19 +54,10 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def rna_tf32(x: torch.Tensor) -> torch.Tensor:
-    """fp32 rounded to TF32 (10-bit mantissa), to nearest, ties away from
-    zero: add half of the 13 dropped bits to the magnitude, then clear
-    them."""
-    bits = x.to(torch.float32).contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def drive_1xtf32(W: torch.Tensor, r: torch.Tensor,
-                 I_ext: torch.Tensor) -> torch.Tensor:
-    """u = r @ W^T + I with one TF32 pass: both operands rounded to TF32,
-    products and sums in fp32."""
-    return torch.matmul(rna_tf32(r), rna_tf32(W.transpose(-1, -2))) + I_ext
+# the kernel's TF32 rounding and its phase-1 drive, as the port's plain
+# version emulates them
+rna_tf32 = ssn_solve.rna_tf32
+drive_1xtf32 = ssn_solve.drive_1xtf32
 
 
 def drive_3xtf32(W: torch.Tensor, r: torch.Tensor,
@@ -94,7 +90,8 @@ def _slice_problem(circuits, seed=3, contrasts=(ab.CONTRAST,), **cfg_kw):
     runs it) at N=51: W (len(circuits), 102, 102), the given circuits of a
     draw of 16 from NumPy noise, and the 8-bandwidth battery at
     ``contrasts``."""
-    cfg = tssn.SSNConfig(**{**ab.SLICE_SSN, **cfg_kw})
+    cfg = tssn.SSNConfig(**{**ab.SLICE_SSN, "pallas_two_phase": False,
+                            **cfg_kw})
     z = np.random.default_rng(seed).standard_normal(
         (16, 102, 102))[list(circuits)]
     t = lambda v: torch.tensor(v).reshape(2, 2)  # noqa: E731
@@ -268,3 +265,61 @@ def test_shared_memory_layout_admits_every_earlier_shape(accel):
                 assert ssn_solve.smem_bytes(n2, S, accel, 1) == one, (n2, S)
     assert ssn_solve.smem_bytes(102, 16, accel) < _fp32_core_layout_bytes(
         102, 16, accel)
+
+
+def _solve_kernel_arithmetic(monkeypatch, cfg, W, I, check_every,
+                             accel=False, stats=None):
+    """The two-phase plain version computing what the kernel computes:
+    phase 1 in one TF32 pass (``drive_1xtf32``), phase 2 in 3xTF32."""
+    with monkeypatch.context() as m:
+        m.setattr(tfp, "recurrent_drive", drive_3xtf32)
+        return ssn_solve.solve_fixed_point_plain(
+            cfg, W, I, check_every, accel,
+            fast_drive=drive_1xtf32, stats=stats)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_two_phase_kernel_arithmetic_matches_jax(monkeypatch, case):
+    """The kernel's two-phase arithmetic (phase 1 one TF32 pass, phase 2
+    3xTF32) against the reference's two-phase kernel in interpret mode at
+    block_b=1 (phase 1 in fp32 on the CPU): flags equal, rates within
+    rtol/atol, iters within two strides."""
+    from tcgan_tpu.ops.pallas import solve_fixed_point_pallas
+
+    cfg_kw, check_every, accel = CASES[case]
+    kw = {**BASE, **cfg_kw, "pallas_two_phase": True}
+    W, I = _base_problem()
+    out = _solve_kernel_arithmetic(monkeypatch, tssn.SSNConfig(**kw),
+                                   torch.tensor(W), torch.tensor(I),
+                                   check_every, accel)
+    ref = solve_fixed_point_pallas(jssn.SSNConfig(**kw), jnp.asarray(W),
+                                   jnp.asarray(I), block_b=1,
+                                   check_every=check_every, interpret=True,
+                                   accel=accel)
+    assert out.converged.all()
+    _assert_match(out, ref, check_every)
+
+
+def test_two_phase_holds_the_flags_one_tf32_pass_breaks(monkeypatch):
+    """Where one TF32 pass over the whole solve changes flags
+    (``TF32_FLIP_CIRCUITS``, the GAN battery at atol 1e-5), the two-phase
+    schedule with a TF32 first phase gives the fp32 flags: phase 2 decides
+    every flag again at full precision. Its iters are the fp32 two-phase
+    solve's within two strides, and phase 1 runs a share of the substeps
+    (``pytest -s`` prints it)."""
+    cfg, W, I = _slice_problem(TF32_FLIP_CIRCUITS,
+                               contrasts=(5.0, ab.CONTRAST), atol=1e-5,
+                               max_iter=4096, pallas_two_phase=True)
+    fp32 = ssn_solve.solve_fixed_point_plain(cfg, W, I, 32)
+    one_phase = ssn_solve.solve_fixed_point_plain(
+        dataclasses.replace(cfg, pallas_two_phase=False), W, I, 32)
+    assert bool(fp32.converged.all())
+    assert torch.equal(fp32.converged, one_phase.converged)
+    stats = {}
+    out = _solve_kernel_arithmetic(monkeypatch, cfg, W, I, 32, stats=stats)
+    _assert_match(out, fp32, 32)
+    p1, p2 = stats["phase1_substeps"].sum(), stats["phase2_substeps"].sum()
+    print(f"two phases, TF32 phase 1: phase 1's share of the substeps "
+          f"{float(p1 / (p1 + p2)):.4f}, max |dr| from fp32 "
+          f"{float((out.r - fp32.r).abs().max()):.3e}")
+    assert p1 > 0 and p2 > 0
