@@ -49,17 +49,21 @@ no result line):
    B=512 S=8, B=256 S=16 atol 1e-5, B=32 S=8, and B=256 at S=24 and 32
    (3 and 4 row tiles) on the register path,
    2N=224, 2N=402 on clusters of 4, 2N=402 S=32 with Anderson in row
-   chunks, 2N=600 with W from device memory), each held to the plain
-   version with phase 1 in emulated TF32 and timed in one phase and in
-   two, in turns, beside its bound and phase 1's share of the substeps;
-   hard divergers and the slice's circuit with J x4 at reopen margins 0
-   and 2.0 (the same flags; no more iters on a diverged row at 2.0);
+   chunks, 2N=600 with W from device memory), with the refinement tail
+   (the default) and with the 3xTF32 tail (``--pallas-refine off``), each
+   held to the plain version in its schedule with the fast pass (phase 1,
+   the tail's ``W e``) in emulated TF32, and the three schedules timed in
+   turns (``[refine]`` lines), each beside its bound and phase 1's share
+   of the substeps; hard divergers and the slice's circuit with J x4 at
+   reopen margins 0 and 2.0 (the same flags; no more iters on a diverged
+   row at 2.0);
 4. the serving path: ``python -m tcgan_torch.run.forward`` (through its
    ``main``) with the CUDA backend, 8 batches of 512 circuits, checked for
-   launches (all in two phases), shapes, convergence and agreement with
-   the plain version; 2 batches with ``--pallas-two-phase off`` (one
-   phase), their circuits/s beside; then one batch on the 24-stimulus
-   battery;
+   launches (all in the default schedule), shapes, convergence and
+   agreement with the plain version; 2 batches with ``--pallas-refine
+   off`` (the 3xTF32 tail) and 2 with ``--pallas-two-phase off`` (one
+   phase), each checked the same way, their circuits/s beside; then one
+   batch on the 24-stimulus battery;
 4b. the paper's circuit, N=201, through ``run.forward``: 4 batches of 64
    circuits (one launch each, batch 0 against the plain solve, circuits/s),
    then 2 batches with the reference's ``--solver-backend pallas``;
@@ -168,17 +172,19 @@ no result line):
 
 Every phase prints its seconds.
 
-Every path runs the CLI's default schedule, two phases, but phase 4's run
-with ``--pallas-two-phase off``; a ``_plain`` comparison runs the plain
-version in the schedule of the config it is given. Each path reads the
-wrapper's counts where it ran (``_count_launches``; a rank worker returns
-both) and checks that every launch of it ran in the path's schedule; the
-kernels line sums them by schedule.
+Every path runs the CLI's default schedule, two phases with the
+refinement tail, but phase 4's runs with ``--pallas-refine off`` and
+``--pallas-two-phase off``; a ``_plain`` comparison runs the plain version
+in the schedule of the config it is given. Each path reads the wrapper's
+counts where it ran (``_count_launches``; a rank worker returns them) and
+checks that every launch of it ran in the path's schedule; the kernels
+line sums them by schedule.
 
 The line before the last is a JSON object describing the kernel's
-instantiations, one entry each for one phase and two (route, source, the
-TPU kernel code it replaces, launches on the main paths, error and times);
-the last line is ``{"ok": true, "device": {...}}``.
+instantiations, one entry each for one phase, two phases with the 3xTF32
+tail and two with the refinement tail (route, source, the TPU kernel code
+it replaces, launches on the main paths by path, error and times); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -618,74 +624,103 @@ def _forced_global(card: str, lib) -> None:
             raise AssertionError("forced W-global: differs from shared W")
 
 
-def _two_phase_kernel(card: str) -> dict:
+def _two_phase_kernel(card: str) -> list[dict]:
     """The two-phase schedule (the CLI's default) at
-    ``ab.TWO_PHASE_SHAPES``, every path of the kernel: against the plain
-    version with phase 1 in emulated TF32 (``_compare``: flags equal, rates
-    within RTOL/ATOL, or for a row that stopped at another substep on the
-    evidence of ``_witness``; iters within two strides), then the kernel in one
-    phase and in two, in turns (one, two, two, one; each the median of 5),
-    each beside its bound (two phases: phase 1 in one TF32 pass, phase 2 in
-    three, from the plain version's substeps per phase) and the share of
-    the substeps run in phase 1. Returns the kernels line's entry for the
-    two-phase instantiations (the forward shape's times)."""
+    ``ab.TWO_PHASE_SHAPES``, every path of the kernel, with the refinement
+    tail (the default) and with the 3xTF32 tail (``--pallas-refine off``):
+    each against the plain version in the same schedule, computing the
+    kernel's arithmetic (the fast pass in emulated TF32; ``_compare``:
+    flags equal, rates within RTOL/ATOL, or for a row that stopped at
+    another substep on the evidence of ``_witness``; iters within two
+    strides), then the kernel in its three schedules in turns (one phase,
+    3xTF32 tail, refinement tail, refinement tail, 3xTF32 tail, one phase;
+    each the median of 5), each beside its bound (phase 1 in one TF32 pass;
+    phase 2 in three, or per chunk a 3-pass anchor and check_every - 1
+    one-pass corrections; from the plain version's substeps per phase) and
+    phase 1's share of the substeps. Returns the kernels line's entries for
+    the two-phase instantiations, 3xTF32 tail then refinement tail (the
+    forward shape's times)."""
     from tcgan_torch.ops.cuda import ssn_solve
 
-    rows, max_err, first = [], 0.0, None
+    rows, first = [], None
+    err = {"two": 0.0, "refine": 0.0}
     for name, (N, batch, contrasts, kw, accel) in ab.TWO_PHASE_SHAPES.items():
         c, W, I = ab.problem(batch, contrasts, kw, N=N, seed=SEED,
                              two_phase=True)
-        first = first or (c, W, I)
-        plan = ssn_solve.plan(W.shape[-1], I.shape[0], accel)
-        stats = {}
-        out, err = _compare(f"two-phase {name}", c, W, I, CHECK_EVERY, accel,
-                            witness=True, stats=stats)
-        max_err = max(max_err, err)
-        one = dataclasses.replace(c, pallas_two_phase=False)
-        one_out = _solve(one, W, I, accel)
-        turns = [_median_ms(lambda cc=cc: _solve(cc, W, I, accel))
-                 for cc in (one, c, c, one)]
-        one_ms, two_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-        steps = (stats["phase1_substeps"], stats["phase2_substeps"])
-        bound_ms, bound_by = ab.bound(W, I, out.iters, steps)
-        one_bound, _ = ab.bound(W, I, one_out.iters)
-        p1 = float(steps[0].sum() / (steps[0].sum() + steps[1].sum()))
-        rows.append({"shape": name, "B": batch, "S": I.shape[0],
-                     "2N": W.shape[-1], "accel": accel, "plan": tuple(plan),
-                     "ms": two_ms, "one_phase_ms": one_ms, "turns_ms": turns,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "one_phase_bound_ms": one_bound,
-                     "phase1_share_of_substeps": p1,
-                     "mean_iters": float(out.iters.float().mean()),
-                     "one_phase_mean_iters": float(
-                         one_out.iters.float().mean()),
-                     "max_iters": int(out.iters.max()),
-                     "one_phase_max_iters": int(one_out.iters.max()),
-                     "max_abs_err": err})
-        _line(f"[two-phase] ssn_solve {name} (2N={W.shape[-1]}, S="
+        cfgs = {k: dataclasses.replace(c, **v)
+                for k, v in ab.SCHEDULES.items()}
+        first = first or (cfgs, W, I)
+        outs, steps, plans = {}, {}, {}
+        for k in ("refine", "two"):
+            stats = {}
+            outs[k], e = _compare(f"{k} {name}", cfgs[k], W, I, CHECK_EVERY,
+                                  accel, witness=True, stats=stats)
+            err[k] = max(err[k], e)
+            steps[k] = (stats["phase1_substeps"], stats["phase2_substeps"])
+            plans[k] = tuple(ssn_solve.plan(W.shape[-1], I.shape[0], accel,
+                                            refine=k == "refine"))
+        outs["one"] = _solve(cfgs["one"], W, I, accel)
+        order = ("one", "two", "refine", "refine", "two", "one")
+        turns = [_median_ms(lambda k=k: _solve(cfgs[k], W, I, accel))
+                 for k in order]
+        row = {"shape": name, "B": batch, "S": I.shape[0], "2N": W.shape[-1],
+               "accel": accel, "plan": plans["two"],
+               "refine_plan": plans["refine"], "turns_ms": turns}
+        for k, out in outs.items():
+            ms = statistics.mean(t for kk, t in zip(order, turns) if kk == k)
+            bound_ms, bound_by = ab.bound(W, I, out.iters, steps.get(k),
+                                          CHECK_EVERY if k == "refine" else 0)
+            row[k] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "mean_iters": float(out.iters.float().mean()),
+                      "max_iters": int(out.iters.max())}
+            if k in steps:
+                p1, p2 = steps[k]
+                row[k]["phase1_share_of_substeps"] = float(
+                    p1.sum() / (p1.sum() + p2.sum()))
+        rows.append(row)
+        one, two, ref = row["one"], row["two"], row["refine"]
+        _line(f"[refine] ssn_solve {name} (2N={W.shape[-1]}, S="
               f"{I.shape[0]}, atol {c.atol}{', Anderson' if accel else ''}; "
-              f"plan {tuple(plan)}): two phases {two_ms:.3f} ms, one phase "
-              f"{one_ms:.3f} ms (turns one, two, two, one: "
-              f"{', '.join(f'{t:.3f}' for t in turns)}; each the median of "
-              f"5), one / two {one_ms / two_ms:.3f}; bound {bound_ms:.4f} ms "
-              f"({bound_by}; phase 1's share of the substeps {p1:.4f}), "
-              f"share {bound_ms / two_ms:.4f}; one phase's bound "
-              f"{one_bound:.4f} ms; max iters {int(out.iters.max())} (one "
-              f"phase {int(one_out.iters.max())}), mean iters "
-              f"{float(out.iters.float().mean()):.1f} (one phase "
-              f"{float(one_out.iters.float().mean()):.1f}) ({card})")
+              f"plan {plans['two']}, refinement tail {plans['refine']}): "
+              f"refinement tail {ref['ms']:.3f} ms, 3xTF32 tail "
+              f"{two['ms']:.3f} ms, one phase {one['ms']:.3f} ms (turns "
+              f"{', '.join(order)}: {', '.join(f'{t:.3f}' for t in turns)}; "
+              f"each the median of 5); 3xTF32 tail / refinement tail "
+              f"{two['ms'] / ref['ms']:.3f}, one / refinement tail "
+              f"{one['ms'] / ref['ms']:.3f}; bounds {ref['bound_ms']:.4f} / "
+              f"{two['bound_ms']:.4f} / {one['bound_ms']:.4f} ms "
+              f"({ref['bound_by']}), shares {ref['bound_ms'] / ref['ms']:.4f}"
+              f" / {two['bound_ms'] / two['ms']:.4f} / "
+              f"{one['bound_ms'] / one['ms']:.4f}; phase 1's share of the "
+              f"substeps {ref['phase1_share_of_substeps']:.4f} / "
+              f"{two['phase1_share_of_substeps']:.4f}; max iters "
+              f"{ref['max_iters']} / {two['max_iters']} / {one['max_iters']}"
+              f", mean iters {ref['mean_iters']:.1f} / {two['mean_iters']:.1f}"
+              f" / {one['mean_iters']:.1f} ({card})")
     fwd = rows[0]
-    plain_ms = _median_ms(lambda: _plain(*first, CHECK_EVERY), reps=3)
-    _line(f"[two-phase] ssn_solve {fwd['shape']}: kernel {fwd['ms']:.3f} ms, "
-          f"plain (phase 1 in emulated TF32) {plain_ms:.3f} ms (median of 3; "
-          f"{card})")
-    return {"name": "ssn_solve two-phase", "route": "cuda",
+    cfgs, W, I = first
+    entries = []
+    for k, label, sched in (
+            ("two", "ssn_solve two-phase", "two phases, the 3xTF32 tail "
+             "(--pallas-refine off; _solver_kernel :291-343)"),
+            ("refine", "ssn_solve refine", "two phases, the refinement tail "
+             "(the default; _solver_kernel :252-273, :339-342)")):
+        plain_ms = _median_ms(lambda k=k: _plain(cfgs[k], W, I, CHECK_EVERY),
+                              reps=3)
+        _line(f"[refine] ssn_solve {fwd['shape']}, {sched}: kernel "
+              f"{fwd[k]['ms']:.3f} ms, plain (the fast pass in emulated TF32) "
+              f"{plain_ms:.3f} ms (median of 3; {card})")
+        entries.append({
+            "name": label, "route": "cuda",
             "source": "tcgan_torch/csrc/ssn_solve.cu",
-            "replaces": "tcgan_tpu/ops/pallas/ssn_solve.py:291",
-            "schedule": "two phases (the default; _solver_kernel :291-343)",
-            "max_abs_err": max_err, "ms": fwd["ms"], "plain_ms": plain_ms,
-            "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
-            "library_ms": None, "shapes": rows}
+            "replaces": ("tcgan_tpu/ops/pallas/ssn_solve.py:291" if k == "two"
+                         else "tcgan_tpu/ops/pallas/ssn_solve.py:252"),
+            "schedule": sched, "max_abs_err": err[k], "ms": fwd[k]["ms"],
+            "plain_ms": plain_ms, "bound_ms": fwd[k]["bound_ms"],
+            "bound_by": fwd[k]["bound_by"], "library_ms": None,
+            "shapes": [{kk: v for kk, v in r.items() if kk not in (
+                "two" if k == "refine" else "refine",)} for r in rows]})
+    return entries
 
 
 def _reopen_margins(card: str, dcfg, W_bad, I_bad) -> None:
@@ -733,7 +768,7 @@ def _reopen_margins(card: str, dcfg, W_bad, I_bad) -> None:
                          j_factor=4.0)
     flips = {}
     for label, cfg in (("one phase", dataclasses.replace(
-            c, pallas_two_phase=False)), ("two phases", c)):
+            c, pallas_two_phase=False)), ("two phases, refinement tail", c)):
         out, ref = _solve(cfg, W, I), _plain(cfg, W, I, CHECK_EVERY)
         flips[label] = (int((out.converged != ref.converged).sum()
                             + (out.diverged != ref.diverged).sum()),
@@ -782,12 +817,10 @@ def phase_kernel(card: str) -> dict:
         c, Wk, Ik = ab.problem(batch, contrasts, kw, N=N, seed=SEED)
         n2, S = Wk.shape[-1], Ik.shape[0]
         plan = ssn_solve.plan(n2, S, accel)
-        cluster, at_once = ssn_solve.active_clusters(n2, S, accel)
-        kernel_plan = (cluster, lib.ssn_solve_rows_per_chunk(n2, S, accel),
-                       bool(lib.ssn_solve_w_global(n2, S, accel)))
-        if kernel_plan != (plan.cluster, plan.rows, plan.w_global):
-            raise AssertionError(f"{name}: the kernel plans (clusters, rows "
-                                 f"per chunk, W-global) {kernel_plan}, the "
+        q = ssn_solve.query(n2, S, accel)
+        cluster, at_once = q.plan.cluster, q.chunks_at_once
+        if q.plan != plan:
+            raise AssertionError(f"{name}: the kernel plans {q.plan}, the "
                                  f"wrapper {plan}")
         if ((name in ab.SPLIT_SHAPES) != (plan.chunks > 1)
                 or (name in ab.GLOBAL_SHAPES) != plan.w_global):
@@ -902,7 +935,7 @@ def phase_kernel(card: str) -> dict:
              "bound_by": fwd_row["bound_by"],
              "library_ms": None, "plain_ms_2N402": wide_plain_ms,
              "plain_ms_2N600": plain600_ms,
-             "shapes": rows}, two_phase]
+             "shapes": rows}, *two_phase]
 
 
 def _forward_argv(datastore, contrasts, total, N=SLICE_SSN["N"],
@@ -1006,29 +1039,33 @@ def _batch0_against_plain(tag, argv, data, witness=False):
 
 def _count_launches():
     """Set the wrapper's counts to 0; the returned function reads them:
-    (launches, of which in two phases)."""
+    (launches, of which in two phases, of which in the refinement tail)."""
     from tcgan_torch.ops.cuda import ssn_solve
 
     ssn_solve.launches = ssn_solve.launches_two_phase = 0
-    return lambda: (ssn_solve.launches, ssn_solve.launches_two_phase)
+    ssn_solve.launches_refine = 0
+    return lambda: (ssn_solve.launches, ssn_solve.launches_two_phase,
+                    ssn_solve.launches_refine)
 
 
-def _two_phase_launches(where, counts) -> int:
-    """The launches that a ``_count_launches()`` reader (or its (launches,
-    of which in two phases) pair) counts on a path run in the CLI's default
-    schedule; raises where one of them ran in one phase."""
-    launches, two = counts() if callable(counts) else counts
-    if two != launches:
-        raise AssertionError(f"{where}: {launches - two} of {launches} "
-                             "launches in one phase")
+def _default_launches(where, counts) -> int:
+    """The launches that a ``_count_launches()`` reader (or its triple)
+    counts on a path run in the CLI's default schedule, two phases with the
+    refinement tail; raises where one of them ran in another schedule."""
+    launches, two, refine = counts() if callable(counts) else counts
+    if not launches == two == refine:
+        raise AssertionError(f"{where}: of {launches} launches "
+                             f"{launches - two} in one phase, {two - refine} "
+                             "in two with the 3xTF32 tail")
     return launches
 
 
-def phase_main_path() -> tuple[int, int]:
+def phase_main_path() -> tuple[int, int, int]:
     """``run.forward`` at the slice's shape in the CLI's default schedule
-    (two phases), 8 batches; then 2 batches with ``--pallas-two-phase off``
-    (one phase), their circuits/s beside each other. Returns the launches
-    of each."""
+    (two phases, the refinement tail), 8 batches; then 2 batches with
+    ``--pallas-refine off`` (two phases, the 3xTF32 tail) and 2 with
+    ``--pallas-two-phase off`` (one phase), their circuits/s beside each
+    other. Returns the launches of each."""
     import numpy as np
 
     from tcgan_torch.run import forward
@@ -1039,13 +1076,12 @@ def phase_main_path() -> tuple[int, int]:
         argv = _forward_argv(store, (CONTRAST,), total)
         counts = _count_launches()
         rc = forward.main(argv)
-        launches, two = counts()
+        launches = _default_launches("run.forward", counts)
         if rc != 0:
             raise AssertionError(f"forward.main returned {rc}")
-        if launches != total // BATCH or two != launches:
+        if launches != total // BATCH:
             raise AssertionError(f"kernel launched {launches} times on the "
-                                 f"main path ({two} in two phases); "
-                                 f"expected {total // BATCH}, all two")
+                                 f"main path; expected {total // BATCH}")
         info = json.loads((store / "info.json").read_text())
         summary = info["summary"]
         data = np.load(store / "tuning_curves.npz")
@@ -1067,27 +1103,36 @@ def phase_main_path() -> tuple[int, int]:
 
         _batch0_against_plain("main", argv, data)
 
-        off = Path(tmp) / "one_phase"
-        argv = _forward_argv(off, (CONTRAST,), 2 * BATCH) + [
-            "--pallas-two-phase", "off"]
-        counts = _count_launches()
-        rc = forward.main(argv)
-        off_launches, two = counts()
-        s1 = json.loads((off / "info.json").read_text())["summary"]
-        _line(f"[main] --pallas-two-phase off, 2 batches: launches "
-              f"{off_launches} ({two} in two phases), frac_converged "
-              f"{s1['frac_converged']} mean_iters {s1['mean_iters']:.1f} "
-              f"circuits_per_sec {s1['circuits_per_sec']:.1f}; two phases "
-              f"(8 batches): mean_iters {summary['mean_iters']:.1f} "
-              f"circuits_per_sec {summary['circuits_per_sec']:.1f}")
-        if rc != 0 or off_launches != 2 or two:
-            raise AssertionError(f"one-phase forward: rc {rc}, launches "
-                                 f"{off_launches}, {two} in two phases")
-        _batch0_against_plain("main one phase", argv,
-                              np.load(off / "tuning_curves.npz"))
+        # the other schedules, 2 batches each: (launches, two phases,
+        # refinement tail) as each must count them
+        others = {"--pallas-refine": (2, 2, 0), "--pallas-two-phase": (2, 0, 0)}
+        off_launches = []
+        for flag, want in others.items():
+            off = Path(tmp) / flag.strip("-")
+            argv = _forward_argv(off, (CONTRAST,), 2 * BATCH) + [flag, "off"]
+            counts = _count_launches()
+            rc = forward.main(argv)
+            got = counts()
+            s1 = json.loads((off / "info.json").read_text())["summary"]
+            _line(f"[main] {flag} off, 2 batches: launches {got[0]} ({got[1]} "
+                  f"in two phases, {got[2]} in the refinement tail), "
+                  f"frac_converged {s1['frac_converged']} mean_iters "
+                  f"{s1['mean_iters']:.1f} circuits_per_sec "
+                  f"{s1['circuits_per_sec']:.1f}; the default (8 batches): "
+                  f"mean_iters {summary['mean_iters']:.1f} circuits_per_sec "
+                  f"{summary['circuits_per_sec']:.1f}")
+            if rc != 0 or got != want:
+                raise AssertionError(f"forward {flag} off: rc {rc}, (launches, "
+                                     f"two phases, refinement tail) {got}, "
+                                     f"not {want}")
+            _batch0_against_plain(f"main {flag} off", argv,
+                                  np.load(off / "tuning_curves.npz"))
+            off_launches.append(got[0])
 
         store24 = Path(tmp) / "fwd24"
+        counts = _count_launches()
         rc = forward.main(_forward_argv(store24, (5.0, 10.0, 13.0), 0))
+        launches += _default_launches("run.forward, 24 rows", counts)
         if rc != 0:
             raise AssertionError(f"24-row forward.main returned {rc}")
         s24 = json.loads((store24 / "info.json").read_text())["summary"]
@@ -1095,7 +1140,7 @@ def phase_main_path() -> tuple[int, int]:
               f"{s24['frac_converged']} frac_diverged "
               f"{s24['frac_diverged']} circuits_per_sec "
               f"{s24['circuits_per_sec']:.1f}")
-    return launches, off_launches
+    return (launches, *off_launches)
 
 
 def _wide_forward(card, tag, store, n_batches, backend="cuda",
@@ -1118,7 +1163,7 @@ def _wide_forward(card, tag, store, n_batches, backend="cuda",
     counts = _count_launches()
     t0 = time.perf_counter()
     rc = forward.main(argv)
-    n, two = counts()
+    n, two, refine = counts()
     info = json.loads((store / "info.json").read_text())
     summary = info["summary"]
     data = np.load(store / "tuning_curves.npz")
@@ -1135,9 +1180,10 @@ def _wide_forward(card, tag, store, n_batches, backend="cuda",
           f"{summary['mean_iters']:.1f} circuits_per_sec "
           f"{summary['circuits_per_sec']:.1f} ({card})")
     if (rc != 0 or n != n_batches or summary["kernel_launches"] != n
-            or two != n):
+            or not n == two == refine):
         raise AssertionError(f"{tag} forward {backend}: rc {rc}, launches "
-                             f"{n}, {two} in two phases")
+                             f"{n}, {two} in two phases, {refine} in the "
+                             "refinement tail")
     if info["config"]["solver_backend"] != "cuda":
         raise AssertionError(f"{tag} forward: backend not stored as cuda")
     if data["rates"].shape != (total, len(BANDWIDTHS) * len(contrasts),
@@ -1305,7 +1351,8 @@ def phase_ift(card: str) -> None:
     # A second wave shows as a jump of about one block's time.
     n2, S = W.shape[-1], I.shape[0]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_sm = ssn_solve.blocks_per_sm(n2, S, device=dev)
+    refine = ssn_solve.schedule(c).refine
+    per_sm = ssn_solve.blocks_per_sm(n2, S, device=dev, refine=refine)
     cap = per_sm * sms
 
     def copies_ms(b):
@@ -1315,7 +1362,8 @@ def phase_ift(card: str) -> None:
 
     t_one, t_cap, t_over = copies_ms(sms), copies_ms(cap), copies_ms(cap + 1)
     _line(f"[ift] occupancy at 2N={n2} S={S}: "
-          f"{ssn_solve.smem_bytes(n2, S, False)} B of shared memory per "
+          f"{ssn_solve.smem_bytes(n2, S, False, refine=refine)} B of shared "
+          f"memory per "
           f"block, {per_sm} blocks per SM (CUDA occupancy API), {sms} SMs: "
           f"{GAN_BATCH} circuits in {math.ceil(GAN_BATCH / cap)} wave(s); "
           f"copies of one circuit {t_one:.3f} ms at {sms}, {t_cap:.3f} ms at "
@@ -1355,7 +1403,7 @@ def _run_entry(entry, argv, store, steps, schedule):
     counts = _count_launches()
     t0 = time.perf_counter()
     rc = entry.main(argv)
-    launches = _two_phase_launches(entry.__name__, counts)
+    launches = _default_launches(entry.__name__, counts)
     if rc != 0:
         raise AssertionError(f"{entry.__name__}.main returned {rc}")
     info = json.loads((store / "info.json").read_text())
@@ -1909,7 +1957,7 @@ def _run_ensemble(argv, store, steps, per_step):
     counts = _count_launches()
     t0 = time.perf_counter()
     rc = ensemble.main(argv)
-    launches = _two_phase_launches(f"run.ensemble {store.name}", counts)
+    launches = _default_launches(f"run.ensemble {store.name}", counts)
     info = json.loads((store / "info.json").read_text())
     truth = info["kernel_launches_fake_truth"]
     expected = sum(per_step(args, s) for s in steps)
@@ -2001,7 +2049,7 @@ def _ensemble_vs_solo(card: str) -> None:
     new, m = ens_lib.ensemble_train_step(wcfg, n_c, states, real,
                                          noise=noise)
     torch.cuda.synchronize()
-    ens_launches = _two_phase_launches("ensemble step", counts)
+    ens_launches = _default_launches("ensemble step", counts)
     worst = dict.fromkeys(MEMBER_TOL, 0.0)
     solos = []
     for k in range(ENS_K):
@@ -2159,7 +2207,7 @@ def phase_eval(card: str, gan_store: Path) -> int:
             counts = _count_launches()
             t0 = time.perf_counter()
             rc = run_eval.main(argv)
-            n = _two_phase_launches(f"eval {source}", counts)
+            n = _default_launches(f"eval {source}", counts)
             info = json.loads((out / "info.json").read_text())
             res, truth = info["result"], info["kernel_launches_fake_truth"]
             _line(f"[eval] --params-source {source}: rc {rc} in "
@@ -2207,7 +2255,7 @@ def phase_analyses(card: str, gan_store: Path) -> int:
             t0 = time.perf_counter()
             rc = identifiability.main(argv)
             seconds = time.perf_counter() - t0
-            n = _two_phase_launches(f"identifiability {backend}", counts)
+            n = _default_launches(f"identifiability {backend}", counts)
             rep = json.loads(out.read_text())
             reports[backend] = rep
             jacs[backend] = np.load(str(jac) + ".npz")["jacobian"]
@@ -2246,7 +2294,7 @@ def phase_analyses(card: str, gan_store: Path) -> int:
         t0 = time.perf_counter()
         rc = uncertainty.main(["--run", str(gan_store), "--device", DEVICE,
                                "--solver-backend", "cuda", "-o", str(out)])
-        n = _two_phase_launches("uncertainty", counts)
+        n = _default_launches("uncertainty", counts)
         rep = json.loads(out.read_text())
         cal = rep.get("calibration", {})
         _line(f"[uncertainty] rc {rc} in {time.perf_counter() - t0:.2f} s; "
@@ -2476,7 +2524,7 @@ def _mesh_cli(card: str, work: Path) -> dict:
         if forward.main(_forward_argv(store, (CONTRAST,), 2 * BATCH)
                         + list(more)) != 0:
             raise AssertionError(f"mesh: run.forward ({name}) failed")
-        launches[name] = _two_phase_launches(f"mesh: run.forward ({name})",
+        launches[name] = _default_launches(f"mesh: run.forward ({name})",
                                              counts)
         data[name] = np.load(store / "tuning_curves.npz")
         summary[name] = json.loads((store / "info.json").read_text())[
@@ -2538,9 +2586,10 @@ def _mesh_rank(card: str) -> dict:
     noise = wgan.draw_step_noise(wcfg, n_c, real, gen)
     scfg = dataclasses.replace(wcfg, gen=par.with_mesh_axes(wcfg.gen))
     step = par.make_sharded_gan_step(wgan.train_step_impl, mesh)
-    (new, m), (launches, two), per, counts = run(
+    (new, m), (launches, two, refine), per, counts = run(
         lambda: step(scfg, n_c, state, real, noise=noise))
     out = {"rank": rank, "gan": dict(launches=launches, two_phase=two,
+                                     refine=refine,
                                      circuits=per, collectives=counts)}
     if rank == 0:
         ref, rm = wgan.train_step_impl(wcfg, n_c, state, real, noise=noise)
@@ -2575,9 +2624,12 @@ def _mesh_rank(card: str) -> dict:
     noise = wgan.draw_step_noise(ecfg, n_c, real.transpose(0, 1), gen)
     estep = par.make_sharded_ensemble_step(ens_lib.ensemble_train_step,
                                            mesh)
-    (new, m), (launches, two), per, counts = run(lambda: mesh.gather_members(
-        estep(ecfg, n_c, mesh.member_shard(states), real, noise=noise)))
-    out["ensemble"] = dict(launches=launches, two_phase=two, circuits=per,
+    (new, m), (launches, two, refine), per, counts = run(
+        lambda: mesh.gather_members(estep(ecfg, n_c,
+                                          mesh.member_shard(states), real,
+                                          noise=noise)))
+    out["ensemble"] = dict(launches=launches, two_phase=two, refine=refine,
+                           circuits=per,
                            collectives=counts)
     if rank == 0:
         ref, rm = ens_lib.ensemble_train_step(ecfg, n_c, states, real,
@@ -2631,8 +2683,8 @@ def _model_rank(card: str) -> dict:
         with par.set_mesh(mesh):
             out = fn()
         torch.cuda.synchronize()
-        launches, two = counts()
-        return out, dict(launches=launches, two_phase=two,
+        launches, two, refine = counts()
+        return out, dict(launches=launches, two_phase=two, refine=refine,
                          circuits=list(circuits),
                          collectives=dict(mesh.counts),
                          host_ms=(time.perf_counter() - t0) * 1e3)
@@ -2741,9 +2793,9 @@ def _model_axis(card: str) -> int:
                 raise AssertionError(f"model axis: {kind} rank {r['rank']} "
                                      f"launched on {got['circuits']}, not "
                                      f"{circuits}")
-            launches += _two_phase_launches(
+            launches += _default_launches(
                 f"model axis: {kind} rank {r['rank']}",
-                (got["launches"], got["two_phase"]))
+                (got["launches"], got["two_phase"], got["refine"]))
             if "max_dr" in got:
                 _line(f"[model] {kind}, rank {r['rank']}: the generator's "
                       f"outputs against one unsharded launch: max |dr| "
@@ -2814,8 +2866,9 @@ def phase_mesh(card: str) -> dict:
     _line(f"[mesh] the two ranks took {seconds:.1f} s, process start "
           "included")
     by_path["make_sharded_gan_step + ensemble, 2 ranks sharing the card"] = \
-        sum(_two_phase_launches(f"mesh: {k} rank {r['rank']}",
-                                (r[k]["launches"], r[k]["two_phase"]))
+        sum(_default_launches(f"mesh: {k} rank {r['rank']}",
+                                (r[k]["launches"], r[k]["two_phase"],
+                                 r[k]["refine"]))
             for r in ranks for k in ("gan", "ensemble"))
 
     t0 = time.perf_counter()
@@ -2842,8 +2895,9 @@ def main() -> int:
     kernels = _timed(3, phase_kernel, card)
     # launches by path and schedule, each count read where the path ran,
     # every launch of it checked there to be in the path's schedule
-    two, one = _timed(4, phase_main_path)
-    by_path = {"run.forward": two}
+    refine, two, one = _timed(4, phase_main_path)
+    by_path = {"run.forward": refine}
+    two_by_path = {"run.forward --pallas-refine off": two}
     one_by_path = {"run.forward --pallas-two-phase off": one}
     by_path["run.forward --N 201"] = _timed("4b", phase_wide_forward, card)
     by_path["run.forward --N 201, 32 rows, Anderson"] = _timed(
@@ -2865,10 +2919,9 @@ def main() -> int:
         _timed(14, phase_reports, card, work / "gan", work / "ens")
     _timed(13, phase_native, card)
     by_path.update(_timed(15, phase_mesh, card))
-    kernels[0]["launches"] = sum(one_by_path.values())
-    kernels[0]["launches_by_path"] = one_by_path
-    kernels[1]["launches"] = sum(by_path.values())
-    kernels[1]["launches_by_path"] = by_path
+    for entry, paths in zip(kernels, (one_by_path, two_by_path, by_path)):
+        entry["launches"] = sum(paths.values())
+        entry["launches_by_path"] = paths
     _line(f"[smoke] all phases took {time.perf_counter() - t_start:.1f} s")
     import torch
 

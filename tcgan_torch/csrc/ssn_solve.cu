@@ -77,6 +77,8 @@
 //   rB   rows * ld
 //   [accel] rst, rip, fpv  rows * ld each: chunk input, previous chunk
 //                          input, previous chunk displacement
+//   [refine] ua, [no accel] rb  rows * ld each: the refinement tail's
+//                          anchor and the chunk's input rates (rst with accel)
 //   flag R ints (0 active, 1 converged, 2 diverged), iters R ints,
 //   err rows ints (max |delta| of the chunk's last substep, as float bits),
 //   live rows / 8 ints (active rows per n8 tile), n_active 1 int
@@ -158,6 +160,30 @@
 // takes the switch from its own flags and its own copy of the rate planes,
 // which are bit-identical across the cluster, so all take it at the same
 // chunk.
+//
+// The refinement tail (kRefine, with kTwoPhase; the TPU kernel's default
+// phase 2, _solver_kernel :252-273). Phase 2 iterates on the correction e =
+// r - r_base from the chunk's input rates r_base: substep 0 of each chunk
+// runs the 3xTF32 k-loop on the rate plane, which holds r_base, and keeps its
+// u = W r_base + I (the anchor) and r_base for the block's own neurons in two
+// slab planes (r_base in Anderson's chunk-input plane where it has one);
+// substeps 1 .. check_every - 1 run the one-TF32-pass k-loop of phase 1 on e,
+// which the rate planes then hold (in a cluster it is what travels through
+// distributed shared memory), with u = anchor + W e. The step is delta =
+// f(u) - (r_base + e), e <- min(e + alpha delta, ceiling - r_base), and the
+// chunk's last substep stores r_base + e, so that every block's rate plane
+// holds the whole r for the epilogue, Anderson and the next anchor. The
+// rounding error of one TF32 pass is relative to |e|, not |r|, so phase 2's
+// mat-vec costs phase 1's while the result keeps fp32 accuracy
+// (tests/test_torch_ssn_solve_tf32.py holds the flags on the CPU). Frozen
+// rows keep r in both planes; the columns the k-loop computes for them are
+// not stored. The anchor and r_base are written and read by the one thread
+// that owns the element, so they need no barrier of their own. What it
+// buys (PERF.md, H100 at 700 W, every substep run, atol 0): a tail substep
+// costs 0.77-0.82 of a one-phase 3xTF32 substep at N=51 with two blocks an
+// SM, 0.82-0.94 on clusters, 0.95 at 2N=600 (W's loads), but 0.91 with one
+// block an SM (B=32: the chain's latency, not the mma issue, sets the
+// substep) and 1.07 at 4 row tiles of the register path, where it spills.
 
 #include <cooperative_groups.h>
 #include <algorithm>
@@ -363,8 +389,9 @@ __device__ __forceinline__ void phase_boundary(const Params& p, const float* cur
 // kRegK / 2 warps, two blocks to an SM. kCluster: p.cluster blocks solve
 // one circuit (the header's cluster path). kWGlobal (with kCluster only):
 // W is read from device memory in the k-loop, not from shared memory.
-// kTwoPhase: the header's two-phase schedule.
-template <int NT, bool kRegA, bool kCluster, bool kWGlobal, bool kTwoPhase>
+// kTwoPhase: the header's two-phase schedule; kRefine (with kTwoPhase): its
+// phase 2 in the refinement tail.
+template <int NT, bool kRegA, bool kCluster, bool kWGlobal, bool kTwoPhase, bool kRefine>
 __global__ void __launch_bounds__(kRegA ? 32 * kRegK / 2 : kMaxThreads, kRegA ? 2 : 1)
 ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
                  const float* __restrict__ alpha, float* __restrict__ r_out,
@@ -391,6 +418,7 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
   const size_t plane = (size_t)rows * ld, splane = (size_t)rows * lds;
 
   static_assert(!kWGlobal || (kCluster && !kRegA), "W-global is a cluster path");
+  static_assert(!kRefine || kTwoPhase, "the refinement tail is phase 2");
   float* Ws = smem;
   float* Is = kWGlobal ? smem : Ws + (size_t)(kCluster ? p.wrows : n2) * ld;
   float* cur = Is + splane;
@@ -398,7 +426,12 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
   float* rst = nxt + plane;  // the three Anderson planes exist only if accel
   float* rip = rst + splane;
   float* fpv = rip + splane;
-  int* flag = reinterpret_cast<int*>(p.accel ? fpv + splane : rst);
+  // the refinement tail's anchor, then its chunk input (Anderson's where it
+  // has one)
+  float* ua = p.accel ? fpv + splane : rst;
+  float* rbase = p.accel ? rst : ua + splane;
+  int* flag = reinterpret_cast<int*>(kRefine ? (p.accel ? ua + splane : rbase + splane)
+                                             : (p.accel ? fpv + splane : rst));
   int* iters = flag + p.R;
   int* err = iters + p.R;
   int* live = err + rows;
@@ -493,6 +526,10 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
   while (it < p.max_iter && *n_active > 0) {
     for (int sub = 0; sub < p.check_every; ++sub) {
       const bool last = sub == p.check_every - 1;
+      // the refinement tail: in phase 2; past substep 0 the rate planes hold
+      // the correction e
+      const bool tail = kRefine && !phase1;
+      const bool corr = tail && sub > 0;
       for (int nb = 0; nb < p.ntiles; nb += NT) {
         bool on[NT];
         bool any = false;
@@ -509,8 +546,8 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
           for (int c = 0; c < 4; ++c) hh[q][c] = hl[q][c] = lh[q][c] = 0.0f;
 
         const float* rb = cur + (size_t)(nb * kTileN + g) * ld + t;
-        bool fast = false;  // phase 1: one TF32 pass
-        if constexpr (kTwoPhase) fast = phase1;
+        bool fast = false;  // phase 1 and the tail's corrections: one TF32 pass
+        if constexpr (kTwoPhase) fast = phase1 || corr;
         if (fast) {
           if constexpr (kTwoPhase && kRegA) {
             // the high parts in registers are W's TF32 rounding; the low
@@ -564,6 +601,10 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
           }
         }
 
+        // the drive's constant term: I, or the tail's anchor
+        const float* ub = Is;
+        if constexpr (kRefine)
+          if (corr) ub = ua;
 #pragma unroll
         for (int q = 0; q < NT; ++q) {
           if (!on[q]) continue;
@@ -583,21 +624,48 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
             xs[c] = kCluster ? (s0 + (c & 1)) * lds + (i < n2 ? i - base : 0) : x[c];
             act[c] = row_on[c & 1] && i < n2;
             r[c] = cur[x[c]];
-            u[c] = hh[q][c] + (hl[q][c] + lh[q][c]) + Is[xs[c]];
+            u[c] = hh[q][c] + (hl[q][c] + lh[q][c]) + ub[xs[c]];
           }
           io_fun4(u, f, p);
           float e[2] = {0.0f, 0.0f};  // max |delta| of rows s0, s0 + 1
+          if (kRefine && tail) {
+            // The refinement tail, in a loop of its own so that the plain
+            // loop below compiles as in the kernels without the tail (one
+            // loop with a branch per element slowed their phase 1 by up to
+            // 14%, PERF.md). r[c]: the correction e, or at substep 0 r_base
+            // (e = 0).
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            if (!act[c]) continue;
-            const float d = f[c] - r[c];
-            if (p.accel && sub == 0) rst[xs[c]] = r[c];
-            const float rn = fminf(__fadd_rn(r[c], __fmul_rn(c < 2 ? a0 : a1, d)), p.ceiling);
-            if constexpr (kCluster)
-              store_all(cluster, nxt + x[c], rn, p.cluster);
-            else
-              nxt[x[c]] = rn;
-            e[c & 1] = fmaxf(e[c & 1], fabsf(d));
+            for (int c = 0; c < 4; ++c) {
+              if (!act[c]) continue;
+              if (sub == 0) {
+                ua[xs[c]] = u[c];
+                rbase[xs[c]] = r[c];
+              }
+              const float r0 = sub == 0 ? r[c] : rbase[xs[c]];
+              const float e0 = sub == 0 ? 0.0f : r[c];
+              const float d = f[c] - __fadd_rn(r0, e0);
+              const float en = fminf(__fadd_rn(e0, __fmul_rn(c < 2 ? a0 : a1, d)),
+                                     __fsub_rn(p.ceiling, r0));
+              const float rn = last ? __fadd_rn(r0, en) : en;
+              if constexpr (kCluster)
+                store_all(cluster, nxt + x[c], rn, p.cluster);
+              else
+                nxt[x[c]] = rn;
+              e[c & 1] = fmaxf(e[c & 1], fabsf(d));
+            }
+          } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              if (!act[c]) continue;
+              const float d = f[c] - r[c];
+              if (p.accel && sub == 0) rst[xs[c]] = r[c];
+              const float rn = fminf(__fadd_rn(r[c], __fmul_rn(c < 2 ? a0 : a1, d)), p.ceiling);
+              if constexpr (kCluster)
+                store_all(cluster, nxt + x[c], rn, p.cluster);
+              else
+                nxt[x[c]] = rn;
+              e[c & 1] = fmaxf(e[c & 1], fabsf(d));
+            }
           }
           if (last) {
             // max over the 8 lanes (g) that hold the same two columns
@@ -861,28 +929,30 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
 using Kernel = void (*)(const float*, const float*, const float*, float*,
                         uint8_t*, uint8_t*, int*, Params);
 
-template <bool kRegA, bool kCluster, bool kWGlobal, bool kTwoPhase>
+template <bool kRegA, bool kCluster, bool kWGlobal, bool kTwoPhase, bool kRefine>
 Kernel kernel_for_rows(int ntiles) {
   switch (ntiles < kMaxGroupN ? ntiles : kMaxGroupN) {
-    case 1: return ssn_solve_kernel<1, kRegA, kCluster, kWGlobal, kTwoPhase>;
-    case 2: return ssn_solve_kernel<2, kRegA, kCluster, kWGlobal, kTwoPhase>;
-    case 3: return ssn_solve_kernel<3, kRegA, kCluster, kWGlobal, kTwoPhase>;
-    default: return ssn_solve_kernel<kMaxGroupN, kRegA, kCluster, kWGlobal, kTwoPhase>;
+    case 1: return ssn_solve_kernel<1, kRegA, kCluster, kWGlobal, kTwoPhase, kRefine>;
+    case 2: return ssn_solve_kernel<2, kRegA, kCluster, kWGlobal, kTwoPhase, kRefine>;
+    case 3: return ssn_solve_kernel<3, kRegA, kCluster, kWGlobal, kTwoPhase, kRefine>;
+    default: return ssn_solve_kernel<kMaxGroupN, kRegA, kCluster, kWGlobal, kTwoPhase, kRefine>;
   }
 }
 
-template <bool kTwoPhase>
+template <bool kTwoPhase, bool kRefine>
 Kernel kernel_for_path(int n2, int ntiles, int cluster, bool wglobal) {
-  if (wglobal) return kernel_for_rows<false, true, true, kTwoPhase>(ntiles);
-  if (cluster > 1) return kernel_for_rows<false, true, false, kTwoPhase>(ntiles);
-  return n2 <= kRegK * kTileK ? kernel_for_rows<true, false, false, kTwoPhase>(ntiles)
-                              : kernel_for_rows<false, false, false, kTwoPhase>(ntiles);
+  if (wglobal) return kernel_for_rows<false, true, true, kTwoPhase, kRefine>(ntiles);
+  if (cluster > 1) return kernel_for_rows<false, true, false, kTwoPhase, kRefine>(ntiles);
+  return n2 <= kRegK * kTileK ? kernel_for_rows<true, false, false, kTwoPhase, kRefine>(ntiles)
+                              : kernel_for_rows<false, false, false, kTwoPhase, kRefine>(ntiles);
 }
 
-Kernel kernel_for(int n2, int S, int cluster, bool wglobal, bool two_phase) {
+// schedule: 0 one phase, 1 two phases, 2 two phases with the refinement tail
+Kernel kernel_for(int n2, int S, int cluster, bool wglobal, int schedule) {
   const int ntiles = round_up(S, kTileN) / kTileN;
-  return two_phase ? kernel_for_path<true>(n2, ntiles, cluster, wglobal)
-                   : kernel_for_path<false>(n2, ntiles, cluster, wglobal);
+  if (schedule == 2) return kernel_for_path<true, true>(n2, ntiles, cluster, wglobal);
+  return schedule ? kernel_for_path<true, false>(n2, ntiles, cluster, wglobal)
+                  : kernel_for_path<false, false>(n2, ntiles, cluster, wglobal);
 }
 
 // Neurons per block of a cluster of c: one warp per m16 slab of them.
@@ -890,13 +960,14 @@ int slab(int n2, int c) { return round_up((n2 + c - 1) / c, kTileM); }
 
 // The shared-memory layout of the header at cluster size c for R rows: W's
 // rows of the block's slab (all n2 at c = 1; none on the W-global path) and
-// both rate planes at stride ld, Is and the Anderson planes at stride lds
-// (= ld at c = 1), then the ints and, in a cluster with Anderson, the
-// per-rank exchange.
-size_t layout_bytes(int n2, int R, int accel, int c, int ld, int lds, bool wglobal) {
+// both rate planes at stride ld, Is, the Anderson planes and (refine) the
+// refinement tail's at stride lds (= ld at c = 1), then the ints and, in a
+// cluster with Anderson, the per-rank exchange.
+size_t layout_bytes(int n2, int R, int accel, int c, int ld, int lds, bool wglobal, bool refine) {
   const size_t rows = round_up(R, kTileN);
   const size_t w = wglobal ? 0 : std::min(slab(n2, c), n2);
-  const size_t floats = w * ld + 2 * rows * ld + rows * lds * (accel ? 4 : 1);
+  const size_t slab_planes = (accel ? 4 : 1) + (refine ? (accel ? 1 : 2) : 0);
+  const size_t floats = w * ld + 2 * rows * ld + rows * lds * slab_planes;
   const size_t ints = 2 * (size_t)R + rows + rows / kTileN + 1 +
                       (c > 1 && accel ? 3 * (size_t)c * rows : 0);
   return (floats + ints) * 4;
@@ -915,16 +986,16 @@ struct Layout {
 // padding would not fit (a few rows of floats at tiny N with hundreds of
 // rows). cluster = 0 where it does not fit a block (its threads or its
 // shared memory), or where W-global is asked at c = 1.
-Layout layout_at(int n2, int R, int accel, int c, bool wglobal) {
+Layout layout_at(int n2, int R, int accel, int c, bool wglobal, bool refine) {
   const int w = std::min(slab(n2, c), n2);
   if (32 * slab(n2, c) / kTileM > kMaxThreads || (wglobal && c == 1))
     return Layout{0, 0, 0, 0, wglobal};
   Layout L{c, round_up(n2 + 4, 8) - 4, round_up(w + 4, 8) - 4, 0, wglobal};
-  L.bytes = layout_bytes(n2, R, accel, c, L.ld, L.lds, wglobal);
+  L.bytes = layout_bytes(n2, R, accel, c, L.ld, L.lds, wglobal, refine);
   if (L.bytes > kMaxSmemBytes) {
     L.ld = round_up(n2, 4);
     L.lds = round_up(w, 4);
-    L.bytes = layout_bytes(n2, R, accel, c, L.ld, L.lds, wglobal);
+    L.bytes = layout_bytes(n2, R, accel, c, L.ld, L.lds, wglobal, refine);
   }
   if (L.bytes > kMaxSmemBytes) L.cluster = 0;
   return L;
@@ -932,9 +1003,9 @@ Layout layout_at(int n2, int R, int accel, int c, bool wglobal) {
 
 // The least cluster size whose layout fits R rows (from 2 on the W-global
 // path).
-Layout layout(int n2, int R, int accel, bool wglobal) {
+Layout layout(int n2, int R, int accel, bool wglobal, bool refine) {
   for (int c : kClusterSizes) {
-    const Layout L = layout_at(n2, R, accel, c, wglobal);
+    const Layout L = layout_at(n2, R, accel, c, wglobal, refine);
     if (L.cluster) return L;
   }
   return Layout{0, 0, 0, 0, wglobal};
@@ -951,16 +1022,16 @@ struct Plan {
 // The plan at one kind of layout, W in shared memory or not: the least
 // cluster that holds the whole battery, else the least that holds 8 rows
 // and the most rows there, balanced over the chunks.
-Plan plan_at(int n2, int S, int accel, bool wglobal) {
-  const Layout whole = layout(n2, S, accel, wglobal);
+Plan plan_at(int n2, int S, int accel, bool wglobal, bool refine) {
+  const Layout whole = layout(n2, S, accel, wglobal, refine);
   if (whole.cluster) return Plan{whole, S, 1};
-  const Layout L8 = layout(n2, kTileN, accel, wglobal);
+  const Layout L8 = layout(n2, kTileN, accel, wglobal, refine);
   if (!L8.cluster) return Plan{L8, 0, 0};
   int R = kTileN;  // the most rows, a multiple of 8, that fit at L8's size
-  while (layout_at(n2, R + kTileN, accel, L8.cluster, wglobal).cluster) R += kTileN;
+  while (layout_at(n2, R + kTileN, accel, L8.cluster, wglobal, refine).cluster) R += kTileN;
   const int K = (S + R - 1) / R;
   R = round_up((S + K - 1) / K, kTileN);
-  return Plan{layout_at(n2, R, accel, L8.cluster, wglobal), R, K};
+  return Plan{layout_at(n2, R, accel, L8.cluster, wglobal, refine), R, K};
 }
 
 // The plan of the header: W in shared memory wherever a cluster of 1, 2, 4
@@ -968,17 +1039,17 @@ Plan plan_at(int n2, int S, int accel, bool wglobal) {
 // R (the least cluster that fits it with W in shared memory; none where
 // none does); `wglobal` forces W from device memory at the plan's cluster
 // size (c > 1), so that the two paths can be held to each other bit for
-// bit.
-Plan plan(int n2, int S, int accel, int rows, int wglobal) {
+// bit. `refine`: the same rule on the refinement tail's layout.
+Plan plan(int n2, int S, int accel, int rows, int wglobal, bool refine) {
   Plan P;
   if (rows > 0) {
-    P = Plan{layout(n2, rows, accel, false), rows, (S + rows - 1) / rows};
+    P = Plan{layout(n2, rows, accel, false, refine), rows, (S + rows - 1) / rows};
   } else {
-    P = plan_at(n2, S, accel, false);
-    if (!P.L.cluster) P = plan_at(n2, S, accel, true);
+    P = plan_at(n2, S, accel, false, refine);
+    if (!P.L.cluster) P = plan_at(n2, S, accel, true, refine);
   }
   if (wglobal && P.L.cluster && !P.L.wglobal)
-    P.L = layout_at(n2, P.rows, accel, P.L.cluster, true);
+    P.L = layout_at(n2, P.rows, accel, P.L.cluster, true, refine);
   return P;
 }
 
@@ -1000,13 +1071,14 @@ cudaLaunchConfig_t launch_config(int clusters, int n2, const Layout& L, cudaStre
   return cfg;
 }
 
-// The plan of this shape and its kernel (one phase or two), with the
-// dynamic shared memory admitted.
-cudaError_t prepare(int n2, int S, int accel, int rows, int wglobal, int two_phase, Plan* P,
+// The plan of this shape and its kernel in a schedule (0 one phase, 1 two
+// phases, 2 two phases with the refinement tail), with the dynamic shared
+// memory admitted.
+cudaError_t prepare(int n2, int S, int accel, int rows, int wglobal, int schedule, Plan* P,
                     Kernel* kernel) {
-  *P = plan(n2, S, accel, rows, wglobal);
+  *P = plan(n2, S, accel, rows, wglobal, schedule == 2);
   if (P->L.cluster == 0) return cudaErrorInvalidValue;
-  *kernel = kernel_for(n2, P->rows, P->L.cluster, P->L.wglobal, two_phase != 0);
+  *kernel = kernel_for(n2, P->rows, P->L.cluster, P->L.wglobal, schedule);
   return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)P->L.bytes);
 }
@@ -1017,13 +1089,14 @@ extern "C" {
 
 // Launches the solve of B circuits on `stream` with R = `rows` rows per
 // chunk (0: the plan's) and, with `wglobal`, W read from device memory at
-// the plan's cluster size; with `two_phase`, the header's two-phase schedule:
-// phase 1 to `coarse` within `max_iter1` substeps, phase-1 diverged rows
-// whose peak passes `reopen_at` (> 0) kept diverged. Returns the
-// cudaError_t of the attribute call, of the cluster occupancy check
-// (cluster sizes > 1: cudaErrorLaunchOutOfResources when not one cluster
-// fits the device) or of the launch (cudaGetLastError), 0 on success;
-// cudaErrorInvalidValue when no layout fits.
+// the plan's cluster size; with `two_phase` 1, the header's two-phase
+// schedule: phase 1 to `coarse` within `max_iter1` substeps, phase-1
+// diverged rows whose peak passes `reopen_at` (> 0) kept diverged; with 2,
+// the same with phase 2 in the refinement tail (and its layout's plan).
+// Returns the cudaError_t of the attribute call, of the cluster occupancy
+// check (cluster sizes > 1: cudaErrorLaunchOutOfResources when not one
+// cluster fits the device) or of the launch (cudaGetLastError), 0 on
+// success; cudaErrorInvalidValue when no layout fits.
 int ssn_solve_launch_schedule(const void* W, const void* I, const void* alpha, void* r,
                               void* conv, void* div, void* iters, int B, int n2, int S,
                               int io_type, float k, float n, float r0, float r1,
@@ -1115,59 +1188,37 @@ int ssn_solve_launch(const void* W, const void* I, const void* alpha, void* r,
                                check_every, init_ff, accel, stream, 0, 0);
 }
 
-// Blocks of the compiled kernel that one SM of the current device holds at
-// this shape's plan (the runtime's occupancy calculation: registers,
-// threads and dynamic shared memory); minus the cudaError_t on failure.
-int ssn_solve_blocks_per_sm(int n2, int S, int accel) {
+// The plan of this shape in a schedule (0 one phase, 1 two phases, 2 two
+// phases with the refinement tail, whose layout may plan otherwise) and its
+// kernel's occupancy on the current device: out = {cluster size, rows per
+// chunk, chunks, W-global, dynamic shared memory per block, blocks per SM,
+// chunks at once (clusters; at cluster size 1, blocks per SM times SMs)}.
+// Returns 0, cudaErrorInvalidValue where no layout fits, or the cudaError_t
+// of a query that failed.
+int ssn_solve_query(int n2, int S, int accel, int schedule, int* out) {
   Plan P;
   Kernel kernel;
-  cudaError_t err = prepare(n2, S, accel, 0, 0, 0, &P, &kernel);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, kernel, 32 * slab(n2, P.L.cluster) / kTileM, P.L.bytes);
-  return err == cudaSuccess ? blocks : -(int)err;
-}
-
-// Blocks per chunk of rows at this shape: 1, or the cluster size; 0 when no
-// layout fits.
-int ssn_solve_cluster_size(int n2, int S, int accel) {
-  return plan(n2, S, accel, 0, 0).L.cluster;
-}
-
-// Rows per chunk at this shape (S where one chunk holds the battery;
-// ceil(S / that) chunks); 0 when no layout fits.
-int ssn_solve_rows_per_chunk(int n2, int S, int accel) { return plan(n2, S, accel, 0, 0).rows; }
-
-// 1 where this shape's plan reads W from device memory (the W-global path),
-// else 0.
-int ssn_solve_w_global(int n2, int S, int accel) {
-  const Plan P = plan(n2, S, accel, 0, 0);
-  return P.L.cluster && P.L.wglobal;
-}
-
-// Clusters of this shape's plan that the current device runs at once (at
-// cluster size 1: blocks per SM times SMs), each solving one chunk of one
-// circuit's rows, so B circuits take ceil(B * chunks / that) waves; minus
-// the cudaError_t on failure.
-int ssn_solve_active_clusters(int n2, int S, int accel) {
-  Plan P;
-  Kernel kernel;
-  cudaError_t err = prepare(n2, S, accel, 0, 0, 0, &P, &kernel);
-  if (err != cudaSuccess) return -(int)err;
+  cudaError_t err = prepare(n2, S, accel, 0, 0, schedule, &P, &kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = P.L.cluster;
+  out[1] = P.rows;
+  out[2] = P.chunks;
+  out[3] = P.L.wglobal;
+  out[4] = (int)P.L.bytes;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[5], kernel, 32 * slab(n2, P.L.cluster) / kTileM, P.L.bytes);
+  if (err != cudaSuccess) return (int)err;
   if (P.L.cluster == 1) {
     int dev = 0, sms = 0;
     err = cudaGetDevice(&dev);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    const int blocks = ssn_solve_blocks_per_sm(n2, S, accel);
-    if (err != cudaSuccess) return -(int)err;
-    return blocks < 0 ? blocks : blocks * sms;
+    out[6] = out[5] * sms;
+    return (int)err;
   }
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(P.L.cluster, n2, P.L, nullptr, &attr);
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(kernel), &cfg);
-  return err == cudaSuccess ? clusters : -(int)err;
+  return (int)cudaOccupancyMaxActiveClusters(&out[6], reinterpret_cast<const void*>(kernel),
+                                             &cfg);
 }
 
 const char* ssn_solve_error_string(int err) {

@@ -42,19 +42,24 @@ is above 0) and the 3xTF32 phase runs on to atol, Anderson's history
 restarted. Every flag is thus decided at full precision. The phase boundary
 belongs to the unit of launch, one circuit's chunk of rows (:func:`plan`):
 the TPU kernel's tile at ``pallas_block_b`` = 1 wherever the battery is one
-chunk; ``pallas_block_b`` is not read. ``pallas_refine`` is accepted and
-changes nothing: the TPU kernel's refinement tail computes the same Euler
-iterate as its plain phase 2, which is the 3xTF32 loop here. With
-``pallas_two_phase`` off the kernel runs the 3xTF32 loop alone.
+chunk; ``pallas_block_b`` is not read. With ``pallas_refine`` (the default)
+phase 2 is the TPU kernel's refinement tail: once per chunk a 3xTF32 anchor
+``W r + I`` at the chunk's input rates, then the substeps on the correction
+``e`` from those rates in one TF32 pass, ``u = anchor + W e`` (the pass's
+rounding error is relative to the small ``|e|``); the anchor and the input
+rates take two more planes of shared memory (one with Anderson), so the
+plan may differ from the 3xTF32 tail's (:func:`plan`, ``refine``). Without
+it phase 2 is the 3xTF32 loop. With ``pallas_two_phase`` off the kernel
+runs the 3xTF32 loop alone.
 
 On CPU tensors :func:`solve_fixed_point_cuda` runs the plain version,
 :func:`solve_fixed_point_plain`: in one phase the lockstep solver in fp32,
 which has the same per-row semantics (frozen resolved rows, flags from the
 plain chunk, the same ``iters`` clamp); in two, the same lockstep with a
-phase per chunk of rows, phase 1 in fp32 (what the TPU kernel's
-default-precision pass computes on a CPU) unless given another drive
-(:func:`drive_1xtf32` computes the kernel's phase 1). On CUDA tensors it
-launches the kernel or raises.
+phase per chunk of rows, the fast pass (phase 1, and the refinement
+tail's ``W e``) in fp32 (what the TPU kernel's default-precision pass
+computes on a CPU) unless given another drive (:func:`drive_1xtf32`
+computes the kernel's). On CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -79,10 +84,12 @@ MAX_THREADS = 512  # kMaxThreads: threads per block
 CLUSTER_SIZES = (1, 2, 4, 8)  # blocks per circuit; 8 is the portable maximum
 _IO_CODES = {"asym_power": 0, "asym_tanh": 1, "asym_linear": 2}
 
-# Kernel launches since import (or since a caller reset it to 0), and of
-# those the launches in two phases.
+# Kernel launches since import (or since a caller reset it to 0), of those
+# the launches in two phases, and of those the launches whose phase 2 is the
+# refinement tail.
 launches = 0
 launches_two_phase = 0
+launches_refine = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -95,30 +102,33 @@ def slab(n2: int, cluster: int) -> int:
 
 
 def _layout_bytes(n2: int, S: int, accel: bool, cluster: int, ld: int,
-                  lds: int, w_global: bool) -> int:
+                  lds: int, w_global: bool, refine: bool) -> int:
     rows = _round_up(S, TILE_N)
     w = 0 if w_global else min(slab(n2, cluster), n2)
-    floats = w * ld + 2 * rows * ld + rows * lds * (4 if accel else 1)
+    slab_planes = (4 if accel else 1) + ((1 if accel else 2) if refine else 0)
+    floats = w * ld + 2 * rows * ld + rows * lds * slab_planes
     ints = 2 * S + rows + rows // TILE_N + 1 + (
         3 * cluster * rows if cluster > 1 and accel else 0)
     return 4 * (floats + ints)
 
 
 def smem_bytes(n2: int, S: int, accel: bool, cluster: int = 1,
-               w_global: bool = False) -> int:
+               w_global: bool = False, refine: bool = False) -> int:
     """Dynamic shared memory of one block of a cluster of ``cluster``
     blocks per circuit: the layout in ``ssn_solve.cu``. W's rows of the
     block's slab (all 2N at one block; none with ``w_global``) and both
-    rate planes at stride ld, the battery and Anderson's planes over the
-    slab at stride lds, each the least stride >= its row that is 4 mod 8,
-    or the row rounded up to 4 where that padding would not fit."""
+    rate planes at stride ld, the battery, Anderson's planes and, with
+    ``refine``, the refinement tail's anchor and input rates (the latter
+    Anderson's chunk input where it has one) over the slab at stride lds,
+    each the least stride >= its row that is 4 mod 8, or the row rounded up
+    to 4 where that padding would not fit."""
     w = min(slab(n2, cluster), n2)
     padded = _layout_bytes(n2, S, accel, cluster, _round_up(n2 + 4, 8) - 4,
-                           _round_up(w + 4, 8) - 4, w_global)
+                           _round_up(w + 4, 8) - 4, w_global, refine)
     if padded <= MAX_SMEM_BYTES:
         return padded
     return _layout_bytes(n2, S, accel, cluster, _round_up(n2, 4),
-                         _round_up(w, 4), w_global)
+                         _round_up(w, 4), w_global, refine)
 
 
 class Plan(NamedTuple):
@@ -132,42 +142,45 @@ class Plan(NamedTuple):
     w_global: bool
 
 
-def _fits(n2: int, R: int, accel: bool, cluster: int,
-          w_global: bool) -> bool:
+def _fits(n2: int, R: int, accel: bool, cluster: int, w_global: bool,
+          refine: bool) -> bool:
     return ((cluster > 1 or not w_global)
             and 32 * slab(n2, cluster) // TILE_M <= MAX_THREADS
-            and smem_bytes(n2, R, accel, cluster, w_global) <= MAX_SMEM_BYTES)
+            and smem_bytes(n2, R, accel, cluster, w_global,
+                           refine) <= MAX_SMEM_BYTES)
 
 
 @functools.cache
-def _max_rows(n2: int, accel: bool, cluster: int, w_global: bool) -> int:
+def _max_rows(n2: int, accel: bool, cluster: int, w_global: bool,
+              refine: bool) -> int:
     """The most rows, a multiple of 8, whose layout fits at this cluster
     size (at least 8: called where 8 fit)."""
     R = TILE_N
-    while _fits(n2, R + TILE_N, accel, cluster, w_global):
+    while _fits(n2, R + TILE_N, accel, cluster, w_global, refine):
         R += TILE_N
     return R
 
 
-def _plan_at(n2: int, S: int, accel: bool, w_global: bool) -> Plan | None:
+def _plan_at(n2: int, S: int, accel: bool, w_global: bool,
+             refine: bool) -> Plan | None:
     """The plan at one kind of layout, W in shared memory or not: the least
     cluster size that fits the whole battery, one chunk; else the least at
     which an 8-row chunk fits, K = ceil(S / the most rows that fit there)
     chunks of round_up(ceil(S / K), 8) rows. None where 8 rows fit no
     cluster."""
     for c in CLUSTER_SIZES:
-        if _fits(n2, S, accel, c, w_global):
+        if _fits(n2, S, accel, c, w_global, refine):
             return Plan(c, S, 1, w_global)
     c = next((c for c in CLUSTER_SIZES if _fits(n2, TILE_N, accel, c,
-                                                w_global)), 0)
+                                                w_global, refine)), 0)
     if not c:
         return None
-    chunks = -(-S // _max_rows(n2, accel, c, w_global))
+    chunks = -(-S // _max_rows(n2, accel, c, w_global, refine))
     return Plan(c, _round_up(-(-S // chunks), TILE_N), chunks, w_global)
 
 
 def plan(n2: int, S: int, accel: bool, rows: int | None = None,
-         w_global: bool = False) -> Plan:
+         w_global: bool = False, refine: bool = False) -> Plan:
     """The launch plan of ``plan()`` in ``ssn_solve.cu``. W in shared
     memory wherever a cluster of :data:`CLUSTER_SIZES` holds 8 rows with
     it: the least cluster size that fits the whole battery, one chunk;
@@ -177,17 +190,20 @@ def plan(n2: int, S: int, accel: bool, rows: int | None = None,
     4 and 8. ``rows`` forces the rows per chunk (at the least cluster size
     that fits them with W in shared memory); ``w_global`` forces W from
     device memory at the plan's cluster size, which must be 2 or more.
+    ``refine``: the same rule on the layout of the refinement tail
+    (:func:`smem_bytes`), which a launch in that schedule takes.
     Raises ``ValueError`` past 2N = 2048, where a block of a cluster of 8
     would need more than 512 threads."""
     if rows is not None:
         c = next((c for c in CLUSTER_SIZES
-                  if _fits(n2, rows, accel, c, False)), 0)
+                  if _fits(n2, rows, accel, c, False, refine)), 0)
         if rows < 1 or not c:
             raise ValueError(f"2N={n2}: no cluster size fits a chunk of "
                              f"{rows} rows with W in shared memory")
         p = Plan(c, rows, -(-S // rows), False)
     else:
-        p = _plan_at(n2, S, accel, False) or _plan_at(n2, S, accel, True)
+        p = (_plan_at(n2, S, accel, False, refine)
+             or _plan_at(n2, S, accel, True, refine))
         if p is None:
             big = CLUSTER_SIZES[-1]
             raise ValueError(
@@ -207,21 +223,23 @@ def plan(n2: int, S: int, accel: bool, rows: int | None = None,
 class Schedule(NamedTuple):
     """The kernel's schedule: in two phases or one; phase 1's residual and
     substep budget; the peak above which a phase-1 diverged row keeps its
-    flag (0: every row reopens)."""
+    flag (0: every row reopens); whether phase 2 is the refinement tail."""
 
     two_phase: bool
     coarse: float
     max_iter1: int
     reopen_at: float
+    refine: bool
 
 
 def schedule(cfg: SSNConfig) -> Schedule:
     """The schedule ``cfg`` asks for (the TPU kernel's ``_solver_kernel``
     :291-343): phase 1 to max(100 atol, 1e-2) within max_iter // 2
     substeps; rows pinned above ``pallas_reopen_margin`` * rate_stop_at keep
-    their phase-1 divergence flag where the margin is above 0. Raises
-    ``ValueError`` on a flag that is not a bool or a margin that is not a
-    finite number >= 0."""
+    their phase-1 divergence flag where the margin is above 0; phase 2 in
+    the refinement tail with ``pallas_refine``, which (as in the TPU
+    kernel, :339) acts in two phases only. Raises ``ValueError`` on a flag
+    that is not a bool or a margin that is not a finite number >= 0."""
     for name in ("pallas_two_phase", "pallas_refine"):
         if not isinstance(getattr(cfg, name), bool):
             raise ValueError(f"{name} must be a bool; got "
@@ -233,7 +251,8 @@ def schedule(cfg: SSNConfig) -> Schedule:
                          f"(0: every row reopens); got {m!r}")
     return Schedule(cfg.pallas_two_phase, max(cfg.atol * 100.0, 1e-2),
                     cfg.max_iter // 2,
-                    m * cfg.rate_stop_at if m > 0 else 0.0)
+                    m * cfg.rate_stop_at if m > 0 else 0.0,
+                    cfg.pallas_two_phase and cfg.pallas_refine)
 
 
 def rna_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -246,10 +265,26 @@ def rna_tf32(x: torch.Tensor) -> torch.Tensor:
 
 def drive_1xtf32(W: torch.Tensor, r: torch.Tensor,
                  I_ext: torch.Tensor) -> torch.Tensor:
-    """u = r @ W^T + I in one TF32 pass, as the kernel's phase 1 computes
-    it: both operands rounded to TF32, exact products summed in fp32 (in
-    another order than the tensor cores')."""
+    """u = r @ W^T + I in one TF32 pass, as the kernel's phase 1 and the
+    refinement tail's ``W e`` (with I = 0) compute it: both operands
+    rounded to TF32, exact products summed in fp32 (in another order than
+    the tensor cores')."""
     return torch.matmul(rna_tf32(r), rna_tf32(W.transpose(-1, -2))) + I_ext
+
+
+def drive_3xtf32(W: torch.Tensor, r: torch.Tensor,
+                 I_ext: torch.Tensor) -> torch.Tensor:
+    """u = r @ W^T + I in 3xTF32, as the kernel's 3xTF32 loop and the
+    refinement tail's anchor compute it: each operand split into TF32 high
+    and low parts, u = hh + (hl + lh) + I with hh = W_hi r_hi, hl = W_hi
+    r_lo, lh = W_lo r_hi, each product exact and each sum in fp32."""
+    Wt = W.transpose(-1, -2)
+    W_hi, r_hi = rna_tf32(Wt), rna_tf32(r)
+    W_lo, r_lo = rna_tf32(Wt - W_hi), rna_tf32(r - r_hi)
+    hh = torch.matmul(r_hi, W_hi)
+    hl = torch.matmul(r_lo, W_hi)
+    lh = torch.matmul(r_hi, W_lo)
+    return hh + (hl + lh) + I_ext
 
 
 def solve_fixed_point_plain(cfg: SSNConfig, W: torch.Tensor,
@@ -261,8 +296,10 @@ def solve_fixed_point_plain(cfg: SSNConfig, W: torch.Tensor,
     """The kernel's function in plain torch, in fp32: the lockstep solve
     (``fixed_point.solve_fixed_point``) in the schedule of :func:`schedule`,
     in two phases with a phase per tile, one chunk of rows of one circuit
-    as :func:`plan` cuts the battery (``fixed_point.TwoPhase``). Phase 1
-    drives with ``fast_drive(W, r, I)`` (default: the fp32 drive).
+    as :func:`plan` cuts the battery (``fixed_point.TwoPhase``), phase 2 in
+    the refinement tail where the schedule asks for it. The fast pass,
+    phase 1's drive and the tail's ``W e``, is ``fast_drive(W, r, I)``
+    (default: the fp32 drive; :func:`drive_1xtf32` computes the kernel's).
     ``stop_at`` (B, S) replays a launch's rows to their ``iters``, and
     ``stats`` receives the substeps each row ran in each phase, as
     ``solve_fixed_point`` takes them."""
@@ -272,8 +309,9 @@ def solve_fixed_point_plain(cfg: SSNConfig, W: torch.Tensor,
     two_phase = None
     if sched.two_phase:
         two_phase = fixed_point.TwoPhase(
-            plan(W.shape[-1], I_ext.shape[-2], accel).rows, sched.coarse,
-            sched.max_iter1, sched.reopen_at, fast_drive)
+            plan(W.shape[-1], I_ext.shape[-2], accel,
+                 refine=sched.refine).rows, sched.coarse, sched.max_iter1,
+            sched.reopen_at, fast_drive, sched.refine)
     return fixed_point.solve_fixed_point(
         cfg, W, I_ext, check_every=check_every, two_phase=two_phase,
         stop_at=stop_at, stats=stats)
@@ -288,15 +326,6 @@ def bind(path) -> ctypes.CDLL:
     lib.ssn_solve_launch.restype = i
     lib.ssn_solve_error_string.argtypes = [i]
     lib.ssn_solve_error_string.restype = ctypes.c_char_p
-    lib.ssn_solve_blocks_per_sm.argtypes = [i, i, i]
-    lib.ssn_solve_blocks_per_sm.restype = i
-    # absent from earlier builds: the cluster queries, the row chunks
-    for name in ("ssn_solve_cluster_size", "ssn_solve_active_clusters",
-                 "ssn_solve_rows_per_chunk"):
-        fn = getattr(lib, name, None)
-        if fn is not None:
-            fn.argtypes = [i, i, i]
-            fn.restype = i
     # absent from earlier builds: forced rows per chunk and W-global path;
     # the two-phase schedule
     fn = getattr(lib, "ssn_solve_launch_plan", None)
@@ -307,9 +336,13 @@ def bind(path) -> ctypes.CDLL:
     if fn is not None:
         fn.argtypes = lib.ssn_solve_launch.argtypes + [i, i, i, f, i, f]
         fn.restype = i
-    fn = getattr(lib, "ssn_solve_w_global", None)
+    # absent from earlier builds: the plan and occupancy in a schedule (and
+    # the refinement tail's launch, schedule 2); earlier builds answer with
+    # ssn_solve_blocks_per_sm, _cluster_size, _rows_per_chunk, _w_global
+    # and _active_clusters (n2, S, accel), in one phase
+    fn = getattr(lib, "ssn_solve_query", None)
     if fn is not None:
-        fn.argtypes = [i, i, i]
+        fn.argtypes = [i, i, i, i, p]
         fn.restype = i
     return lib
 
@@ -322,34 +355,54 @@ def _library() -> ctypes.CDLL:
     return bind(build.build("ssn_solve").path)
 
 
-def blocks_per_sm(n2: int, S: int, accel: bool = False,
-                  device: torch.device | str = "cuda") -> int:
-    """Blocks of the compiled kernel that one SM of ``device`` holds at this
-    shape, by the CUDA runtime's occupancy calculation; a batch of B
-    circuits runs in ceil(B / (blocks_per_sm * SMs)) waves."""
-    lib = _library()
+class Query(NamedTuple):
+    """The compiled kernel's plan of a shape in a schedule (``ssn_solve_query``
+    in ``ssn_solve.cu``), its shared memory per block, and its occupancy
+    on the current device: blocks per SM and chunks of rows at once."""
+
+    plan: Plan
+    smem_bytes: int
+    blocks_per_sm: int
+    chunks_at_once: int
+
+
+def query(n2: int, S: int, accel: bool = False, refine: bool = False,
+          device: torch.device | str = "cuda", lib=None) -> Query:
+    """The kernel's own plan and occupancy at this shape, in one phase (the
+    same plan as two phases with the 3xTF32 tail) or, with ``refine``, in
+    two phases with the refinement tail; raises ``ValueError`` where no
+    layout fits, ``RuntimeError`` where the runtime's query fails."""
+    lib = lib or _library()
+    out = (ctypes.c_int * 7)()
     with torch.cuda.device(device):
-        n = lib.ssn_solve_blocks_per_sm(n2, S, int(accel))
-    if n < 0:
-        raise RuntimeError(f"occupancy query failed: cudaError {-n} "
-                           f"({lib.ssn_solve_error_string(-n).decode()})")
-    return n
+        err = lib.ssn_solve_query(n2, S, int(accel), 2 if refine else 0, out)
+    if err == 1:  # cudaErrorInvalidValue: no layout fits
+        raise ValueError(f"2N={n2}, S={S}: the kernel has no plan")
+    if err:
+        raise RuntimeError(f"occupancy query failed: cudaError {err} "
+                           f"({lib.ssn_solve_error_string(err).decode()})")
+    c, rows, chunks, wg, nbytes, blocks, at_once = out
+    return Query(Plan(c, rows, chunks, bool(wg)), nbytes, blocks, at_once)
+
+
+def blocks_per_sm(n2: int, S: int, accel: bool = False,
+                  device: torch.device | str = "cuda",
+                  refine: bool = False) -> int:
+    """Blocks of the compiled kernel that one SM of ``device`` holds at this
+    shape (in the refinement tail's layout with ``refine``), by the CUDA
+    runtime's occupancy calculation; a batch of B circuits runs in ceil(B /
+    (blocks_per_sm * SMs)) waves."""
+    return query(n2, S, accel, refine, device).blocks_per_sm
 
 
 def active_clusters(n2: int, S: int, accel: bool = False,
                     device: torch.device | str = "cuda") -> tuple[int, int]:
     """(blocks per chunk of rows, chunks ``device`` solves at once) at this
-    shape's plan, by the CUDA runtime (at one block per chunk: blocks per
-    SM times SMs); a batch of B circuits in K chunks each runs in
-    ceil(B K / that) waves."""
-    lib = _library()
-    with torch.cuda.device(device):
-        c = lib.ssn_solve_cluster_size(n2, S, int(accel))
-        n = lib.ssn_solve_active_clusters(n2, S, int(accel))
-    if n < 0:
-        raise RuntimeError(f"cluster occupancy query failed: cudaError {-n} "
-                           f"({lib.ssn_solve_error_string(-n).decode()})")
-    return c, n
+    shape's one-phase plan, by the CUDA runtime (at one block per chunk:
+    blocks per SM times SMs); a batch of B circuits in K chunks each runs
+    in ceil(B K / that) waves."""
+    q = query(n2, S, accel, device=device)
+    return q.plan.cluster, q.chunks_at_once
 
 
 def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
@@ -364,7 +417,7 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
     (:func:`plan`; every S is solved below) or on a bad schedule flag, and
     ``RuntimeError`` when the launch fails.
     """
-    global launches, launches_two_phase
+    global launches, launches_two_phase, launches_refine
     if (W.ndim != 3 or I_ext.ndim != 2 or W.shape[1] != W.shape[2]
             or I_ext.shape[1] != W.shape[2]):
         raise ValueError("expected W (B, 2N, 2N) and I_ext (S, 2N); got "
@@ -373,8 +426,8 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
         raise ValueError(f"check_every must be >= 1; got {check_every}")
     B, n2 = W.shape[0], W.shape[2]
     S = I_ext.shape[0]
-    plan(n2, S, accel)  # raises past 2N = 2048
-    two_phase = schedule(cfg).two_phase  # raises on a bad flag
+    sched = schedule(cfg)  # raises on a bad flag
+    plan(n2, S, accel, refine=sched.refine)  # raises past 2N = 2048
     if W.device.type == "cpu" and I_ext.device.type == "cpu":
         return solve_fixed_point_plain(cfg, W, I_ext, check_every, accel)
     if W.device.type != "cuda" or I_ext.device != W.device:
@@ -386,7 +439,8 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
         return _outputs(B, S, n2, W.device)
     result = launch(_library(), cfg, W, I_ext, check_every, accel)
     launches += 1
-    launches_two_phase += two_phase
+    launches_two_phase += sched.two_phase
+    launches_refine += sched.refine
     return result
 
 
@@ -400,19 +454,21 @@ def _outputs(B: int, S: int, n2: int, device) -> fixed_point.FixedPointResult:
 
 def launch(lib: ctypes.CDLL, cfg: SSNConfig, W: torch.Tensor,
            I_ext: torch.Tensor, check_every: int, accel: bool,
-           rows_per_chunk: int | None = None, w_global: bool = False
-           ) -> fixed_point.FixedPointResult:
+           rows_per_chunk: int | None = None, w_global: bool = False,
+           sched: Schedule | None = None) -> fixed_point.FixedPointResult:
     """One launch of the solver in ``lib`` (see :func:`bind`) on CUDA
     tensors that :func:`solve_fixed_point_cuda` has checked, in the
     schedule of :func:`schedule`; raises if the launch fails, and where
-    ``lib`` has no two-phase entry (an earlier build) and ``cfg`` asks for
-    two phases. Counts nothing. ``rows_per_chunk`` forces the plan's rows
-    per chunk (``plan(..., rows=)``), so that a split launch can be held to
-    an unsplit one; ``w_global`` forces W from device memory at the plan's
-    cluster size (``plan(..., w_global=)``), so that the W-global path can
-    be held to the shared-W one."""
+    ``lib`` (an earlier build) has no two-phase entry and ``cfg`` asks for
+    two phases, or no refinement tail and ``cfg`` asks for it: nothing runs
+    another schedule in its place. Counts nothing. ``rows_per_chunk``
+    forces the plan's rows per chunk (``plan(..., rows=)``), so that a
+    split launch can be held to an unsplit one; ``w_global`` forces W from
+    device memory at the plan's cluster size (``plan(..., w_global=)``), so
+    that the W-global path can be held to the shared-W one. ``sched``
+    replaces ``schedule(cfg)`` (a tool's phase budget, for example)."""
     B, n2, S = W.shape[0], W.shape[2], I_ext.shape[0]
-    sched = schedule(cfg)
+    sched = sched or schedule(cfg)
     device = W.device
     W32 = W.to(torch.float32).contiguous()
     I32 = I_ext.to(torch.float32).contiguous()
@@ -431,9 +487,13 @@ def launch(lib: ctypes.CDLL, cfg: SSNConfig, W: torch.Tensor,
             if not hasattr(lib, "ssn_solve_launch_schedule"):
                 raise RuntimeError("this solver library has no two-phase "
                                    "schedule; set pallas_two_phase=False")
+            if sched.refine and not hasattr(lib, "ssn_solve_query"):
+                raise RuntimeError("this solver library has no refinement "
+                                   "tail; set pallas_refine=False")
             err = lib.ssn_solve_launch_schedule(
-                *args, rows_per_chunk or 0, int(w_global), 1, sched.coarse,
-                sched.max_iter1, sched.reopen_at)
+                *args, rows_per_chunk or 0, int(w_global),
+                2 if sched.refine else 1, sched.coarse, sched.max_iter1,
+                sched.reopen_at)
         elif rows_per_chunk is None and not w_global:
             err = lib.ssn_solve_launch(*args)
         else:

@@ -13,8 +13,8 @@ Port of :mod:`tcgan_tpu.ops.fixed_point`. Semantics:
 This lockstep path is the semantic reference of the port; the CUDA kernel
 (:mod:`tcgan_torch.ops.cuda.ssn_solve`) computes the same function with
 per-circuit early exit. With ``two_phase`` (:class:`TwoPhase`) it runs the
-kernel's default schedule, the TPU kernel's two phases; the kernel's plain
-version is this loop in one schedule or the other.
+kernel's default schedule, the TPU kernel's two phases and its refinement
+tail; the kernel's plain version is this loop in one of its schedules.
 """
 
 from __future__ import annotations
@@ -92,13 +92,22 @@ class TwoPhase(NamedTuple):
     spent. There every flag of the tile is cleared, but those of diverged
     rows whose peak passes ``reopen_at`` (0: none), the reopened rows get
     ``iters = max_iter``, Anderson's history restarts, and phase 2 runs the
-    full drive on to ``atol``, its substeps counted on from phase 1's."""
+    full drive on to ``atol``, its substeps counted on from phase 1's.
+
+    With ``refine`` phase 2 runs the TPU kernel's refinement tail
+    (``_solver_kernel`` :252-273): once per chunk an anchor ``u = W r + I``
+    in the full drive at the chunk's input rates ``r_base``, then each
+    substep on the correction ``e = r - r_base`` from zero, ``u = anchor +
+    W e`` with ``W e`` in the fast drive (``fast_drive(W, e, 0)``), ``delta
+    = -(r_base + e) + f(u)``, ``e = min(e + alpha delta, ceiling -
+    r_base)``; the chunk ends at ``r = r_base + e``."""
 
     rows: int
     coarse: float
     max_iter1: int
     reopen_at: float
     fast_drive: Callable | None = None
+    refine: bool = False
 
 
 def solve_fixed_point(
@@ -161,6 +170,7 @@ def solve_fixed_point(
     # diverged flag exact and the rates finite.
     r_ceiling = torch.tensor(10.0 * cfg.rate_stop_at, dtype=dtype,
                              device=device)
+    zero = torch.zeros((), dtype=dtype, device=device)
 
     # unsharded, the drive keeps its three-argument call (an emulated
     # drive, tests/test_torch_ssn_solve_tf32.py, takes three)
@@ -169,9 +179,13 @@ def solve_fixed_point(
     def full(W, r, I):
         return recurrent_drive(W, r, I, **sharded)
 
-    def step(r, drive):
-        delta = -r + f(drive(W, r, I_ext))
-        return torch.minimum(r + alpha * delta, r_ceiling), delta
+    def step(r, drive, base=None):
+        if base is None:
+            delta = -r + f(drive(W, r, I_ext))
+            return torch.minimum(r + alpha * delta, r_ceiling), delta
+        # the refinement tail: r is the correction from base
+        delta = -(base + r) + f(drive(W, r, I_ext))
+        return torch.minimum(r + alpha * delta, r_ceiling - base), delta
 
     anderson = cfg.accel == "anderson"
     converged = torch.zeros(lead + (S,), dtype=torch.bool, device=device)
@@ -209,9 +223,24 @@ def solve_fixed_point(
                 drive = fast if bool(ph.all()) else (
                     lambda W, r, I: torch.where(ph[..., None], fast(W, r, I),
                                                 full(W, r, I)))
-        r_new = r
+        r_new, base = r, None
+        if (two_phase is not None and two_phase.refine
+                and not bool(ph.all())):
+            # the refinement tail on the rows in phase 2: iterate on the
+            # correction from base = r (zero on the rows in phase 1, whose
+            # substeps this leaves bit for bit as they were) around the
+            # anchor W r + I (I on the rows in phase 1), W e in the fast
+            # pass
+            tail = ~ph[..., None]
+            base = torch.where(tail, r, zero)
+            anchor = torch.where(tail, full(W, r, I_ext), I_ext)
+            fast = two_phase.fast_drive or full
+            drive = lambda W, e, I: fast(W, e, zero) + anchor  # noqa: E731
+            r_new = r - base
         for _ in range(check_every):
-            r_new, delta = step(r_new, drive)
+            r_new, delta = step(r_new, drive, base)
+        if base is not None:
+            r_new = base + r_new
         err = delta.abs().amax(dim=-1)
         peak = r_new.amax(dim=-1)
         it_next = it + check_every

@@ -75,11 +75,12 @@ class SSNConfig:
     backend: str = "torch"
     # The reference's kernel schedule, read by the CUDA kernel
     # (ops/cuda/ssn_solve.py::schedule): two phases, a first of one TF32
-    # pass per product to a coarse residual, then 3xTF32 to atol with every
-    # flag decided again, but those of rows pinned above
-    # pallas_reopen_margin * rate_stop_at (margin > 0). pallas_block_b is
-    # not read (the kernel's tile is one circuit's chunk of rows), nor is
-    # pallas_refine (its tail computes the iterate of the 3xTF32 phase).
+    # pass per product to a coarse residual, then to atol with every flag
+    # decided again, but those of rows pinned above pallas_reopen_margin *
+    # rate_stop_at (margin > 0); phase 2 in the refinement tail with
+    # pallas_refine (a 3xTF32 anchor per chunk, the substeps on the
+    # correction in one TF32 pass), else 3xTF32. pallas_block_b is not
+    # read (the kernel's tile is one circuit's chunk of rows).
     pallas_block_b: int = 8
     pallas_two_phase: bool = True
     pallas_refine: bool = True

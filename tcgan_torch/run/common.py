@@ -99,12 +99,15 @@ def add_ssn_flags(p: argparse.ArgumentParser):
                    help="the solver kernel's two-phase schedule: a first "
                         "phase of one TF32 pass per product down to "
                         "max(100 atol, 1e-2) within max-iter/2 substeps, "
-                        "then every flag decided again in 3xTF32 (fp32 "
-                        "accuracy) to atol; off: 3xTF32 throughout")
+                        "then every flag decided again at fp32 accuracy "
+                        "(see --pallas-refine) to atol; off: 3xTF32 "
+                        "throughout")
     g.add_argument("--pallas-refine", choices=("on", "off"), default="on",
-                   help="TPU kernel's iterative-refinement tail; accepted "
-                        "and not read: it computes the same iterate as the "
-                        "CUDA kernel's 3xTF32 phase 2")
+                   help="the solver kernel's phase 2 in two phases: on, "
+                        "the iterative-refinement tail (per check chunk a "
+                        "3xTF32 anchor W r + I, then the substeps on the "
+                        "correction from those rates in one TF32 pass); "
+                        "off: 3xTF32 on every substep")
     g.add_argument("--pallas-reopen-margin", type=float, default=0.0,
                    help="two-phase schedule: rows whose phase-1 rates are "
                         "pinned above MARGIN * rate-stop-at keep their "

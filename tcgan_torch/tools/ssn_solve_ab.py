@@ -22,7 +22,10 @@ turn the median of ``--reps`` launches timed with CUDA events (at
 which a baseline without thread-block clusters, row chunks or W read from
 device memory refuses, this kernel alone); these shapes run one phase, as
 they did before the two-phase schedule. At :data:`TWO_PHASE_SHAPES` this
-kernel alone runs in one phase and in two, in turns (one, two, two, one).
+kernel alone runs in its three schedules, in turns (one phase, two with
+the 3xTF32 tail, two with the refinement tail, and back), and, where the
+baseline has two phases, the baseline's two-phase launch is held bit for
+bit to this one's with the 3xTF32 tail and timed against it in turns.
 Printed per shape and kernel:
 the time, the bound from the run's own ``iters`` and its share, the
 slowest circuit's time per substep (launch time / max iters) and the plan
@@ -190,20 +193,25 @@ def matvec_flops(W: torch.Tensor, iters: torch.Tensor) -> float:
 
 
 def bound(W: torch.Tensor, I: torch.Tensor, iters: torch.Tensor,
-          phase_substeps=None) -> tuple[float, str]:
+          phase_substeps=None, refine_every: int = 0) -> tuple[float, str]:
     """Least time (ms) the card could take for this solve and what sets it:
     the mat-vec as 3 TF32 passes at the tensor cores' TF32 peak, against W,
     I and alpha read once and r and the flags written once at the HBM
     rate. In two phases, ``phase_substeps`` (the substeps each row ran in
     phase 1 and in phase 2, ``solve_fixed_point_plain(stats=)``) in place
-    of ``iters``: phase 1 in one TF32 pass, phase 2 in three."""
+    of ``iters``: phase 1 in one TF32 pass, phase 2 in three; with
+    ``refine_every`` (the check stride) phase 2 in the refinement tail, per
+    chunk of that many substeps one 3-pass anchor and ``refine_every`` - 1
+    one-pass corrections."""
     B, n2, S = W.shape[0], W.shape[-1], I.shape[0]
     nbytes = 4 * (B * n2 * n2 + S * n2 + n2) + B * S * (4 * n2 + 2 + 4)
     if phase_substeps is None:
         flops = TF32_PASSES * matvec_flops(W, iters)
     else:
         p1, p2 = phase_substeps
-        flops = matvec_flops(W, p1) + TF32_PASSES * matvec_flops(W, p2)
+        passes2 = (TF32_PASSES if not refine_every else
+                   (TF32_PASSES + refine_every - 1) / refine_every)
+        flops = matvec_flops(W, p1) + passes2 * matvec_flops(W, p2)
     t_op = flops / PEAK_TF32_FLOPS
     t_mem = nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_op, t_mem), ("operations" if t_op >= t_mem
@@ -324,16 +332,34 @@ def _sass_report(lib_path: Path) -> dict | None:
 
 
 def _build_baseline(src: Path) -> tuple[Path, str]:
-    """Compile an earlier ssn_solve.cu with build.py's flags; (library,
-    nvcc's output)."""
+    """Compile an earlier ssn_solve.cu with build.py's flags, unless a
+    library of the same source is built already; (library, nvcc's
+    output)."""
     key = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
     out = build.BUILD_DIR / f"libssn_solve_baseline-{key}.so"
+    log = out.with_suffix(".log")
+    if out.exists() and log.exists():
+        return out, log.read_text()
     out.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o",
                            str(out), str(src)], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed building {src}:\n{proc.stderr}")
+    log.write_text(proc.stdout + proc.stderr)
     return out, proc.stdout + proc.stderr
+
+
+def _build_plan(lib, n2: int, S: int, accel: bool) -> tuple:
+    """(cluster size, rows per chunk, blocks per SM) of a build's one-phase
+    plan from its own C entry points: ``ssn_solve_query`` or, in builds
+    before it, the single queries; () where it has neither."""
+    if hasattr(lib, "ssn_solve_query"):
+        q = ssn_solve.query(n2, S, accel, lib=lib)
+        return q.plan.cluster, q.plan.rows, q.blocks_per_sm
+    if not hasattr(lib, "ssn_solve_cluster_size"):
+        return ()
+    return tuple(getattr(lib, f"ssn_solve_{q}")(n2, S, int(accel)) for q in (
+        "cluster_size", "rows_per_chunk", "blocks_per_sm"))
 
 
 def _rows_off_plain(out, plain) -> list[dict]:
@@ -348,56 +374,137 @@ def _rows_off_plain(out, plain) -> list[dict]:
             for b, s in off.nonzero().tolist()]
 
 
-def _one_against_two(lib, shape, spec, reps, name) -> dict:
-    """This kernel at one of :data:`TWO_PHASE_SHAPES` in one phase and in
-    two, in turns (one, two, two, one): each one's time, bound and share,
-    iters, the share of the two-phase substeps run in phase 1 (from the
-    plain version on the same inputs), and the flags and rates between
-    the two."""
+# The kernel's schedules: one phase, two with the 3xTF32 tail, two with the
+# refinement tail (the default).
+SCHEDULES = {"one": dict(pallas_two_phase=False),
+             "two": dict(pallas_two_phase=True, pallas_refine=False),
+             "refine": dict(pallas_two_phase=True, pallas_refine=True)}
+
+
+def _schedules(lib, shape, spec, reps, name, baseline=None) -> dict:
+    """This kernel at one of :data:`TWO_PHASE_SHAPES` in its three
+    schedules (:data:`SCHEDULES`), in turns (one, two, refine, refine, two,
+    one): each one's time, bound and share, iters, the share of the
+    two-phase substeps run in phase 1 (from the plain version on the same
+    inputs, in each schedule), and the flags and rates of each against one
+    phase. With ``baseline`` (an earlier build's library), its two-phase
+    launch against this one's with the 3xTF32 tail: bit-equal, and their
+    times in turns."""
     N, batch, contrasts, overrides, accel = spec
     cfg, W, I = problem(batch, contrasts, overrides, N=N, two_phase=True)
-    cfgs = {"one": dataclasses.replace(cfg, pallas_two_phase=False),
-            "two": cfg}
+    cfgs = {k: dataclasses.replace(cfg, **kw) for k, kw in SCHEDULES.items()}
     solve = {k: (lambda c=c: ssn_solve.launch(lib, c, W, I, CHECK_EVERY,
                                               accel))
              for k, c in cfgs.items()}
     outs = {k: fn() for k, fn in solve.items()}
-    stats = {}
-    ssn_solve.solve_fixed_point_plain(cfg, W, I, CHECK_EVERY, accel,
-                                      fast_drive=ssn_solve.drive_1xtf32,
-                                      stats=stats)
+    steps = {}
+    for k in ("two", "refine"):
+        stats = {}
+        ssn_solve.solve_fixed_point_plain(cfgs[k], W, I, CHECK_EVERY, accel,
+                                          fast_drive=ssn_solve.drive_1xtf32,
+                                          stats=stats)
+        steps[k] = (stats["phase1_substeps"], stats["phase2_substeps"])
     torch.cuda.synchronize()
     turns = [(k, median_ms(solve[k], reps))
-             for k in ("one", "two", "two", "one")]
-    steps = (stats["phase1_substeps"], stats["phase2_substeps"])
+             for k in ("one", "two", "refine", "refine", "two", "one")]
     rows = {}
     for k, out in outs.items():
         ms = statistics.median(t for kk, t in turns if kk == k)
-        bound_ms, by = bound(W, I, out.iters, steps if k == "two" else None)
+        bound_ms, by = bound(W, I, out.iters, steps.get(k),
+                             CHECK_EVERY if k == "refine" else 0)
         rows[k] = dict(turns_ms=[t for kk, t in turns if kk == k], ms=ms,
                        bound_ms=bound_ms, bound_by=by, share=bound_ms / ms,
                        mean_iters=float(out.iters.float().mean()),
                        max_iters=int(out.iters.max()))
-    a, b = outs["one"], outs["two"]
-    both = a.converged & b.converged
-    rows["phase1_share_of_substeps"] = float(
-        steps[0].sum() / (steps[0].sum() + steps[1].sum()))
-    rows["flags_differ"] = int((a.converged != b.converged).sum()
-                               + (a.diverged != b.diverged).sum())
-    rows["max_abs_dr"] = float((a.r - b.r).abs()[both].max())
-    one, two = rows["one"], rows["two"]
-    print(f"[ab] two-phase {shape}: one phase {one['ms']:.3f} ms (turns "
-          f"{', '.join(f'{t:.3f}' for t in one['turns_ms'])}), bound "
-          f"{one['bound_ms']:.4f}, mean iters {one['mean_iters']:.1f}; two "
-          f"phases {two['ms']:.3f} ms (turns "
-          f"{', '.join(f'{t:.3f}' for t in two['turns_ms'])}), bound "
-          f"{two['bound_ms']:.4f} ({two['bound_by']}), mean iters "
-          f"{two['mean_iters']:.1f}; one / two = "
-          f"{one['ms'] / two['ms']:.3f}; phase 1's share of "
-          f"the substeps {rows['phase1_share_of_substeps']:.4f}; between the "
-          f"two: flags differing {rows['flags_differ']}, max |dr| on rows "
-          f"both converged {rows['max_abs_dr']:.3e}; {name}", flush=True)
+        if k in steps:
+            p1, p2 = steps[k]
+            rows[k]["phase1_share_of_substeps"] = float(
+                p1.sum() / (p1.sum() + p2.sum()))
+        a, b = outs["one"], out
+        both = a.converged & b.converged
+        rows[k]["flags_differ_from_one"] = int(
+            (a.converged != b.converged).sum()
+            + (a.diverged != b.diverged).sum())
+        rows[k]["max_abs_dr_from_one"] = float((a.r - b.r).abs()[both].max())
+    print(f"[ab] schedules {shape}: " + "; ".join(
+        f"{k} {v['ms']:.3f} ms (turns "
+        f"{', '.join(f'{t:.3f}' for t in v['turns_ms'])}), bound "
+        f"{v['bound_ms']:.4f} ({v['bound_by']}), mean iters "
+        f"{v['mean_iters']:.1f}, max iters {v['max_iters']}"
+        + (f", phase 1's share of the substeps "
+           f"{v['phase1_share_of_substeps']:.4f}" if k in steps else "")
+        + f", flags differing from one phase {v['flags_differ_from_one']}, "
+        f"max |dr| {v['max_abs_dr_from_one']:.3e}"
+        for k, v in rows.items())
+        + f"; two / refine {rows['two']['ms'] / rows['refine']['ms']:.3f}, "
+        f"one / refine {rows['one']['ms'] / rows['refine']['ms']:.3f}; "
+        f"{name}", flush=True)
+    if baseline is not None:
+        two = cfgs["two"]
+        old = ssn_solve.launch(baseline, two, W, I, CHECK_EVERY, accel)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(old, outs["two"]))
+        bt = [median_ms(lambda b=b: ssn_solve.launch(b, two, W, I,
+                                                     CHECK_EVERY, accel),
+                        reps) for b in (baseline, lib, lib, baseline)]
+        rows["baseline_two"] = dict(bit_equal=same, turns_ms=bt,
+                                    speedup=(bt[0] + bt[3]) / (bt[1] + bt[2]))
+        print(f"[ab] schedules {shape}: the baseline's two phases against "
+              f"this build's 3xTF32 tail: (r, flags, iters) bit-equal "
+              f"{same}; turns baseline, this, this, baseline "
+              f"{', '.join(f'{t:.3f}' for t in bt)} ms, baseline / this "
+              f"{rows['baseline_two']['speedup']:.3f}; {name}", flush=True)
     return rows
+
+
+# The substep's cost in each arithmetic (``_substep_costs``): name ->
+# (N, circuits, contrasts, accel, substeps), the register path at 1-4 row
+# tiles, one block past it, a cluster, W from device memory.
+SUBSTEP_SHAPES = {
+    "S=8 B=32": (51, 32, (CONTRAST,), False, 1024),
+    "S=8 B=512": (51, 512, (CONTRAST,), False, 1024),
+    "S=16 B=256": (51, 256, (5.0, CONTRAST), False, 1024),
+    "S=24 B=256": (51, 256, (2.5, 5.0, CONTRAST), False, 1024),
+    "S=32 B=256": (51, 256, (2.5, 5.0, 7.5, CONTRAST), False, 1024),
+    "2N=240 S=8 B=64": (120, 64, (CONTRAST,), False, 512),
+    "2N=402 S=8 B=64": (201, 64, (CONTRAST,), False, 512),
+    "2N=600 S=8 B=64": (300, 64, (CONTRAST,), False, 256),
+}
+
+
+def _substep_costs(lib, shape, spec, reps, name) -> dict:
+    """Each arithmetic's time per substep at a fixed count of substeps
+    (atol 0: no row converges, so every block runs them all): one phase
+    (3xTF32), and in the two-phase kernel and the refinement tail's kernel
+    all substeps in phase 1 (one TF32 pass; coarse 0, phase 1's budget the
+    whole count) or all in phase 2 (budget 0): the 3xTF32 tail, the
+    refinement tail. Times in turns; per substep = median launch time /
+    substeps (every circuit of the launch runs them, in its waves)."""
+    N, batch, contrasts, accel, n_sub = spec
+    cfg, W, I = problem(batch, contrasts, dict(atol=0.0, max_iter=n_sub),
+                        N=N, two_phase=True)
+    s = ssn_solve.Schedule
+    modes = {"one phase (3xTF32)": s(False, 0.0, 0, 0.0, False),
+             "phase 1 (1xTF32), two-phase kernel": s(True, 0.0, n_sub, 0.0,
+                                                      False),
+             "phase 1 (1xTF32), refine kernel": s(True, 0.0, n_sub, 0.0, True),
+             "phase 2, 3xTF32 tail": s(True, 0.0, 0, 0.0, False),
+             "phase 2, refinement tail": s(True, 0.0, 0, 0.0, True)}
+    run = {k: (lambda m=m: ssn_solve.launch(lib, cfg, W, I, CHECK_EVERY,
+                                            accel, sched=m))
+           for k, m in modes.items()}
+    for fn in run.values():
+        fn()
+    torch.cuda.synchronize()
+    order = list(modes) + list(modes)[::-1]
+    turns = [(k, median_ms(run[k], reps)) for k in order]
+    us = {k: 1e3 * statistics.mean(t for kk, t in turns if kk == k) / n_sub
+          for k in modes}
+    base = us["one phase (3xTF32)"]
+    print(f"[ab] substep {shape} ({n_sub} substeps, atol 0): " + "; ".join(
+        f"{k} {v:.3f} us ({v / base:.3f})" for k, v in us.items())
+        + f"; {name}", flush=True)
+    return us
 
 
 def main(argv=None) -> int:
@@ -417,8 +524,8 @@ def main(argv=None) -> int:
         lib = ssn_solve.bind(path)
         kernels[label] = dict(
             lib=lib, ptxas=_ptxas_report(log), sass=_sass_report(path),
-            blocks_per_sm={f"2N=102 S={S}": lib.ssn_solve_blocks_per_sm(
-                102, S, 0) for S in (8, 16)})
+            blocks_per_sm={f"2N=102 S={S}": _build_plan(lib, 102, S, False)[2]
+                           for S in (8, 16)})
         print(f"[ab] {label}: ptxas {kernels[label]['ptxas']}; SASS "
               f"{kernels[label]['sass']}; blocks per SM "
               f"{kernels[label]['blocks_per_sm']}; {name}", flush=True)
@@ -478,13 +585,9 @@ def main(argv=None) -> int:
         _, n = ssn_solve.active_clusters(n2, S, accel)
         rows["plan"] = ssn_solve.plan(n2, S, accel)
         rows["active_clusters"] = n
-        # each build's own plan (cluster size, rows per chunk), where its C
-        # interface has the queries
-        rows["kernel_plans"] = {
-            k: tuple(getattr(v["lib"], q)(n2, S, int(accel))
-                     for q in ("ssn_solve_cluster_size",
-                               "ssn_solve_rows_per_chunk")
-                     if hasattr(v["lib"], q)) for k, v in kernels.items()}
+        # each build's own plan (cluster size, rows per chunk)
+        rows["kernel_plans"] = {k: _build_plan(v["lib"], n2, S, accel)[:2]
+                                for k, v in kernels.items()}
         print(f"[ab] {shape}: plan {rows['plan']}, {n} chunks at once; "
               f"the builds' C plans {rows['kernel_plans']}", flush=True)
         if "baseline" not in outs:
@@ -507,10 +610,16 @@ def main(argv=None) -> int:
               f"(r, flags, iters) bit-equal {rows['bit_equal']}, the same "
               f"plan {rows['same_plan']}", flush=True)
         report["shapes"][shape] = rows
-    report["two_phase"] = {
-        shape: _one_against_two(kernels["this"]["lib"], shape, spec, args.reps,
-                                name)
+    base = kernels["baseline"]["lib"]
+    report["schedules"] = {
+        shape: _schedules(kernels["this"]["lib"], shape, spec, args.reps, name,
+                          base if hasattr(base, "ssn_solve_launch_schedule")
+                          else None)
         for shape, spec in TWO_PHASE_SHAPES.items()}
+    report["substeps"] = {
+        label: {shape: _substep_costs(v["lib"], shape, spec, args.reps, name)
+                for shape, spec in SUBSTEP_SHAPES.items()}
+        for label, v in kernels.items() if hasattr(v["lib"], "ssn_solve_query")}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))

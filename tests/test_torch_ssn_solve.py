@@ -185,11 +185,12 @@ def test_shape_and_device_errors():
             torch.empty(I.shape, device="meta"))
 
 
+@pytest.mark.parametrize("refine", [False, True], ids=["3xtf32", "refine"])
 @pytest.mark.parametrize("n2,S,accel,cluster", [
     (102, 24, True, 1), (224, 8, False, 1), (240, 8, False, 2),
     (402, 8, False, 4), (402, 24, True, 8), (512, 16, True, 8),
     (512, 16, False, 8)])
-def test_shared_memory_limit_raises(n2, S, accel, cluster):
+def test_shared_memory_limit_raises(n2, S, accel, cluster, refine):
     """One circuit's state fits one block up to 2N=224 at S=8; past that a
     cluster of 2, 4 or 8 blocks takes it, each block's layout within the
     limit, up to every 2N <= 512 at S <= 16 and 2N=402 with the 24-row
@@ -198,37 +199,45 @@ def test_shared_memory_limit_raises(n2, S, accel, cluster):
     not even an 8-row chunk fits a cluster of 8 with W's slab in shared
     memory (2N=598, 578 with Anderson), W is read from device memory; past
     2N=2048, where a block of a cluster of 8 would need more than 512
-    threads, the wrapper raises, on CPU tensors too, naming the limit."""
-    assert ssn_solve.plan(n2, S, accel) == (cluster, S, 1, False)
-    assert ssn_solve.smem_bytes(n2, S, accel, cluster) <= \
+    threads, the wrapper raises, on CPU tensors too, naming the limit. The
+    refinement tail's two more slab planes (one with Anderson) move 2N=224
+    at S=8 to a cluster of 2 and W to device memory from 2N=586 (570 with
+    Anderson); the same shapes are solved."""
+    if refine and (n2, S) == (224, 8):
+        cluster = 2
+    kw = dict(refine=refine)
+    assert ssn_solve.plan(n2, S, accel, **kw) == (cluster, S, 1, False)
+    assert ssn_solve.smem_bytes(n2, S, accel, cluster, **kw) <= \
         ssn_solve.MAX_SMEM_BYTES
     if cluster > 1:  # the least cluster size that fits
-        assert ssn_solve.smem_bytes(n2, S, accel, cluster // 2) > \
+        assert ssn_solve.smem_bytes(n2, S, accel, cluster // 2, **kw) > \
             ssn_solve.MAX_SMEM_BYTES
     for n2, S, accel in ((512, 24, True), (402, 64, False)):
-        p = ssn_solve.plan(n2, S, accel)
+        p = ssn_solve.plan(n2, S, accel, **kw)
         assert p.chunks > 1 and not p.w_global and ssn_solve.smem_bytes(
-            n2, p.rows, accel, p.cluster) <= ssn_solve.MAX_SMEM_BYTES
-    for n2, accel in ((598, False), (578, True)):
-        assert ssn_solve.plan(n2 - 2, 1000, accel).chunks > 1
-        assert not ssn_solve.plan(n2 - 2, 8, accel).w_global
-        assert ssn_solve.smem_bytes(n2, 8, accel, 8) > \
+            n2, p.rows, accel, p.cluster, **kw) <= ssn_solve.MAX_SMEM_BYTES
+    for n2, accel in ((586, False), (570, True)) if refine else (
+            (598, False), (578, True)):
+        assert ssn_solve.plan(n2 - 2, 1000, accel, **kw).chunks > 1
+        assert not ssn_solve.plan(n2 - 2, 8, accel, **kw).w_global
+        assert ssn_solve.smem_bytes(n2, 8, accel, 8, **kw) > \
             ssn_solve.MAX_SMEM_BYTES
-        p = ssn_solve.plan(n2, 8, accel)
+        p = ssn_solve.plan(n2, 8, accel, **kw)
         assert p.w_global and p.chunks == 1 and ssn_solve.smem_bytes(
-            n2, 8, accel, p.cluster, True) <= ssn_solve.MAX_SMEM_BYTES
+            n2, 8, accel, p.cluster, True, **kw) <= ssn_solve.MAX_SMEM_BYTES
         with pytest.raises(ValueError, match="W in shared memory"):
-            ssn_solve.plan(n2, 8, accel, rows=8)  # forced rows keep W there
-    assert ssn_solve.plan(2048, 8, True) == (8, 8, 1, True)
+            # forced rows keep W there
+            ssn_solve.plan(n2, 8, accel, rows=8, **kw)
+    assert ssn_solve.plan(2048, 8, True, **kw) == (8, 8, 1, True)
     for accel in (False, True):
         with pytest.raises(ValueError, match="cluster of 8.*544 threads.*"
                            "512-thread limit") as e:
-            ssn_solve.plan(2050, 8, accel)
+            ssn_solve.plan(2050, 8, accel, **kw)
         assert "2048" in str(e.value)
     with pytest.raises(ValueError, match="512-thread limit"):
-        ssn_solve.solve_fixed_point_cuda(tssn.SSNConfig(N=1025),
-                                         torch.zeros(1, 2050, 2050),
-                                         torch.zeros(8, 2050))
+        ssn_solve.solve_fixed_point_cuda(
+            tssn.SSNConfig(N=1025, pallas_refine=refine),
+            torch.zeros(1, 2050, 2050), torch.zeros(8, 2050))
 
 
 def test_every_width_to_512_fits_a_cluster():
@@ -284,18 +293,20 @@ def test_plan_admits_every_battery(accel):
     assert n_split > 10000
 
 
-def _rule(n2, S, accel, w_global):
-    """The plan rule, from the layout bytes alone, at one kind of layout:
-    the least cluster size that holds the whole battery, one chunk; else
-    the least that holds 8 rows, the fewest chunks there, balanced rows;
-    None where 8 rows fit no cluster. Cluster sizes from 2 with W in
-    device memory."""
+def _rule(n2, S, accel, w_global, refine=False, nbytes=None):
+    """The plan rule, from the layout bytes alone (``nbytes(n2, R, accel,
+    c, w_global)``, by default ``smem_bytes`` in the refinement tail's
+    layout or not), at one kind of layout: the least cluster size that
+    holds the whole battery, one chunk; else the least that holds 8 rows,
+    the fewest chunks there, balanced rows; None where 8 rows fit no
+    cluster. Cluster sizes from 2 with W in device memory."""
     limit = ssn_solve.MAX_SMEM_BYTES
     sizes = (2, 4, 8) if w_global else (1, 2, 4, 8)
+    nbytes = nbytes or (lambda *a: ssn_solve.smem_bytes(*a, refine=refine))
 
     def fits(R, c):
         return (32 * ssn_solve.slab(n2, c) // 16 <= 512
-                and ssn_solve.smem_bytes(n2, R, accel, c, w_global) <= limit)
+                and nbytes(n2, R, accel, c, w_global) <= limit)
 
     whole = next((c for c in sizes if fits(S, c)), None)
     if whole is not None:
@@ -310,26 +321,79 @@ def _rule(n2, S, accel, w_global):
     return c, 8 * -(-S // (8 * K)), K
 
 
+@pytest.mark.parametrize("refine", [False, True], ids=["3xtf32", "refine"])
 @pytest.mark.parametrize("accel", [False, True])
-def test_plan_admits_every_width_to_2048(accel):
+def test_plan_admits_every_width_to_2048(accel, refine):
     """Every 2N in 577..2048 at S from 1 to 256: each chunk's layout fits a
     block, the slab needs at most 16 warps, the chunks cover the S rows
     exactly; W is read from device memory exactly where no cluster of 8
     holds 8 rows with W's slab in shared memory, and the plan is the
-    shared-W plan (unchanged) wherever one does."""
+    shared-W plan (unchanged) wherever one does; in the refinement tail's
+    layout too (from 2N=561, below its first W-global plan, 2N=569 with
+    Anderson)."""
     limit = ssn_solve.MAX_SMEM_BYTES
     n_global = 0
-    for n2 in range(577, 2049):
-        shared8 = ssn_solve.smem_bytes(n2, 8, accel, 8) <= limit
+    for n2 in range(561 if refine else 577, 2049):
+        shared8 = ssn_solve.smem_bytes(n2, 8, accel, 8, refine=refine) <= limit
         for S in (1, 8, 9, 16, 24, 32, 48, 64, 256):
-            c, R, K, w_global = ssn_solve.plan(n2, S, accel)
+            c, R, K, w_global = ssn_solve.plan(n2, S, accel, refine=refine)
             assert 32 * ssn_solve.slab(n2, c) // 16 <= 512, (n2, S)
-            assert ssn_solve.smem_bytes(n2, R, accel, c, w_global) <= limit
+            assert ssn_solve.smem_bytes(n2, R, accel, c, w_global,
+                                        refine) <= limit
             assert (K - 1) * R < S <= K * R, (n2, S)
             assert w_global == (not shared8), (n2, S)
-            assert (c, R, K) == _rule(n2, S, accel, w_global), (n2, S)
+            assert (c, R, K) == _rule(n2, S, accel, w_global, refine), (n2,
+                                                                        S)
             n_global += w_global
     assert n_global > 13000
+
+
+def _bytes_before_refine(n2, S, accel, c=1, w_global=False, extra=0):
+    """One block's shared memory in the layout before the refinement tail
+    (with ``extra``, that many more planes over the slab): W's slab (none
+    with W in device memory) and both rate planes at stride ld, the battery
+    and Anderson's three planes over the slab at stride lds (each the least
+    stride >= its row that is 4 mod 8, or the row rounded up to 4 where
+    that would not fit), then 2S + rows + rows / 8 + 1 ints and, in a
+    cluster with Anderson, 3 c rows floats."""
+    rows, w = -(-S // 8) * 8, min(ssn_solve.slab(n2, c), n2)
+
+    def nbytes(ld, lds):
+        floats = (0 if w_global else w) * ld + 2 * rows * ld + rows * lds * (
+            (4 if accel else 1) + extra)
+        return 4 * (floats + 2 * S + rows + rows // 8 + 1
+                    + (3 * c * rows if c > 1 and accel else 0))
+
+    padded = nbytes(-(-(n2 + 4) // 8) * 8 - 4, -(-(w + 4) // 8) * 8 - 4)
+    if padded <= ssn_solve.MAX_SMEM_BYTES:
+        return padded
+    return nbytes(-(-n2 // 4) * 4, -(-w // 4) * 4)
+
+
+@pytest.mark.parametrize("accel", [False, True])
+def test_plans_without_refine_are_unchanged(accel):
+    """Without the refinement tail every layout and plan is the one from
+    before it (``_bytes_before_refine`` and the plan rule on it), at every
+    cluster size, with W in shared or device memory; the tail's layout adds
+    its planes (two over the slab, one with Anderson, whose chunk-input
+    plane it shares) and nothing else."""
+    for n2 in list(range(2, 260, 3)) + list(range(400, 2049, 37)):
+        for S in (1, 8, 9, 16, 24, 32, 48, 64, 184, 256):
+            for c in ssn_solve.CLUSTER_SIZES:
+                for wg in (False, True):
+                    assert ssn_solve.smem_bytes(n2, S, accel, c, wg) == \
+                        _bytes_before_refine(n2, S, accel, c, wg), (n2, S)
+                    assert ssn_solve.smem_bytes(n2, S, accel, c, wg,
+                                                True) == _bytes_before_refine(
+                        n2, S, accel, c, wg, 1 if accel else 2), (n2, S)
+            want = [(_rule(n2, S, accel, wg, nbytes=_bytes_before_refine), wg)
+                    for wg in (False, True)]
+            want = next(((*p, wg) for p, wg in want if p is not None), None)
+            if want is None:
+                with pytest.raises(ValueError):
+                    ssn_solve.plan(n2, S, accel)
+                continue
+            assert ssn_solve.plan(n2, S, accel, refine=False) == want, (n2, S)
 
 
 def _circuit(N, bandwidths, contrasts, B=2, seed=5):

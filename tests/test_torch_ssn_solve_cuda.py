@@ -13,11 +13,18 @@ chunk).
 
 The tests from before the two-phase schedule run one phase
 (``pallas_two_phase=False``; ``ab.problem`` does so by default); the
-two-phase tests hold the kernel to the plain version with phase 1 in
-emulated TF32 (``ssn_solve.drive_1xtf32``), at every path of the kernel.
+two-phase tests hold the kernel to the plain version with the fast pass
+(phase 1, and the refinement tail's ``W e``) in emulated TF32
+(``ssn_solve.drive_1xtf32``), at every path of the kernel, with the
+refinement tail (the default) and with the 3xTF32 tail. With
+``SSN_SOLVE_BASELINE`` set to an earlier ``ssn_solve.cu`` that has the
+two-phase schedule, ``test_refine_off_is_the_baseline_two_phase`` holds
+the 3xTF32 tail bit for bit to that build's two phases.
 """
 
 import dataclasses
+import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -74,14 +81,17 @@ def _check(cfg, W, I, check_every, accel, converged_rows_only=False,
     passes on its own fp32 trajectory, ``ab.off_own_trajectory``), iters
     within two strides. In two phases the plain version's phase 1 runs in
     emulated TF32, as the kernel's does."""
-    before = (ssn_solve.launches, ssn_solve.launches_two_phase)
+    before = (ssn_solve.launches, ssn_solve.launches_two_phase,
+              ssn_solve.launches_refine)
     out = ssn_solve.solve_fixed_point_cuda(cfg, W, I, check_every, accel)
     fast = ssn_solve.drive_1xtf32 if cfg.pallas_two_phase else None
     ref = ssn_solve.solve_fixed_point_plain(cfg, W, I, check_every, accel,
                                             fast_drive=fast)
     torch.cuda.synchronize()
-    assert (ssn_solve.launches, ssn_solve.launches_two_phase) == (
-        before[0] + 1, before[1] + cfg.pallas_two_phase)
+    refine = ssn_solve.schedule(cfg).refine
+    assert (ssn_solve.launches, ssn_solve.launches_two_phase,
+            ssn_solve.launches_refine) == (
+        before[0] + 1, before[1] + cfg.pallas_two_phase, before[2] + refine)
     assert out.r.device == W.device and out.r.dtype == torch.float32
     assert torch.equal(out.converged, ref.converged)
     assert torch.equal(out.diverged, ref.diverged)
@@ -292,24 +302,25 @@ def test_global_w_kernel_matches_plain(cuda_device, case):
 
 @pytest.mark.cuda
 def test_plan_matches_the_kernel(cuda_device):
-    """The wrapper's plan is the kernel's: cluster size, rows per chunk and
-    where W is read from, from the C entry points over a grid of shapes,
-    both refusing past 2N=2048."""
-    lib = ssn_solve._library()
+    """The wrapper's plan is the kernel's: cluster size, rows per chunk,
+    chunks, where W is read from and the shared memory, from the C entry
+    point (``ssn_solve_query``) over a grid of shapes, in one phase and in
+    the refinement tail's layout, both refusing past 2N=2048."""
     for n2 in (2, 26, 102, 224, 240, 402, 512, 576, 578, 596, 598, 600, 640,
                1024, 1500, 2048, 2050):
         for S in (1, 8, 17, 24, 32, 48, 64, 96, 184, 256, 1000):
             for accel in (False, True):
-                c = lib.ssn_solve_cluster_size(n2, S, int(accel))
-                R = lib.ssn_solve_rows_per_chunk(n2, S, int(accel))
-                wg = lib.ssn_solve_w_global(n2, S, int(accel))
-                try:
-                    p = ssn_solve.plan(n2, S, accel)
-                except ValueError:
-                    assert (c, R, wg) == (0, 0, 0), (n2, S, accel)
-                    continue
-                assert (c, R, bool(wg)) == (p.cluster, p.rows, p.w_global), (
-                    n2, S, accel, p)
+                for refine in (False, True):
+                    try:
+                        p = ssn_solve.plan(n2, S, accel, refine=refine)
+                    except ValueError:
+                        with pytest.raises(ValueError, match="no plan"):
+                            ssn_solve.query(n2, S, accel, refine)
+                        continue
+                    q = ssn_solve.query(n2, S, accel, refine)
+                    assert q.plan == p, (n2, S, accel, refine)
+                    assert q.smem_bytes == ssn_solve.smem_bytes(
+                        n2, p.rows, accel, p.cluster, p.w_global, refine)
 
 
 @pytest.mark.cuda
@@ -365,23 +376,27 @@ def test_cuda_tensor_never_falls_back(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_blocks_per_sm_fits_shared_memory(cuda_device):
+@pytest.mark.parametrize("refine", [False, True], ids=["one", "refine"])
+def test_blocks_per_sm_fits_shared_memory(cuda_device, refine):
     """The runtime's occupancy figure at 2N=102 with the 8- and 16-row
     batteries: at least two blocks per SM (B=256 at S=16 in one wave on
     132 SMs), no more than the SM's shared memory or registers hold at one
-    warp per 16 neurons, and Anderson's extra planes never raise it."""
+    warp per 16 neurons, and Anderson's extra planes never raise it; the
+    same in the refinement tail's kernel and layout."""
     props = torch.cuda.get_device_properties(cuda_device)
     per_sm = getattr(props, "shared_memory_per_multiprocessor", None)
     threads = 32 * 7  # one warp per m16 slab of 102 neurons
     for S in (8, 16):
-        n = {accel: ssn_solve.blocks_per_sm(102, S, accel, cuda_device)
+        n = {accel: ssn_solve.blocks_per_sm(102, S, accel, cuda_device,
+                                            refine=refine)
              for accel in (False, True)}
         assert 2 <= n[True] <= n[False]
         assert n[False] * threads <= getattr(
             props, "max_threads_per_multi_processor", 2048)
         if per_sm:
             for accel, blocks in n.items():
-                assert blocks * ssn_solve.smem_bytes(102, S, accel) <= per_sm
+                assert blocks * ssn_solve.smem_bytes(
+                    102, S, accel, refine=refine) <= per_sm
 
 
 @pytest.mark.cuda
@@ -416,12 +431,18 @@ TWO_PHASE_CASES = {
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("refine", [True, False], ids=["refine", "3xtf32"])
 @pytest.mark.parametrize("case", sorted(TWO_PHASE_CASES))
-def test_two_phase_kernel_matches_plain(cuda_device, case):
+def test_two_phase_kernel_matches_plain(cuda_device, case, refine):
+    """Both tails at every path; 2N=224 takes a cluster of 2 in the
+    refinement tail's layout."""
     N, B, contrasts, cfg_kw, accel = TWO_PHASE_CASES[case]
-    cfg, W, I = ab.problem(B, contrasts, cfg_kw, N=N, seed=1, two_phase=True)
-    p = ssn_solve.plan(2 * N, I.shape[0], accel)
-    assert (p.cluster > 1) == case.startswith(("cluster", "chunks", "wglobal"))
+    cfg, W, I = ab.problem(B, contrasts, {**cfg_kw, "pallas_refine": refine},
+                           N=N, seed=1, two_phase=True)
+    p = ssn_solve.plan(2 * N, I.shape[0], accel, refine=refine)
+    assert (p.cluster > 1) == (case.startswith(("cluster", "chunks",
+                                                "wglobal"))
+                               or (refine and N == 112))
     assert (p.chunks > 1) == case.startswith("chunks")
     assert p.w_global == case.startswith("wglobal")
     out = _check(cfg, W, I, 32, accel, converged_rows_only=True)
@@ -497,3 +518,68 @@ def test_two_phase_needs_the_schedule_entry(cuda_device):
     out = ssn_solve.launch(Earlier, SSNConfig(**BASE), W, I, 4, False)
     torch.cuda.synchronize()
     assert out.converged.all()
+
+
+@pytest.mark.cuda
+def test_refine_cluster_blocks_agree(cuda_device):
+    """The refinement tail on clusters of 4 (2N=402): every block decides
+    the flags from its own copy of the rates, so a block that disagreed
+    would stop at another chunk and leave its peers at the cluster barrier.
+    The launch ends; each block's slab of the rates agrees with the plain
+    version (each block writes its own slab from its own flags); and the
+    W-global path forced at the same cluster size, which reads W from
+    device memory in the same order, is bit-equal."""
+    cfg, W, I = ab.problem(8, (5.0, 10.0), {}, N=201, seed=2, two_phase=True)
+    p = ssn_solve.plan(402, 16, False, refine=True)
+    assert p.cluster == 8 and not p.w_global
+    out = _check(cfg, W, I, 32, False, converged_rows_only=True,
+                 witness=True)
+    lib = ssn_solve._library()
+    forced = ssn_solve.launch(lib, cfg, W, I, 32, False, w_global=True)
+    torch.cuda.synchronize()
+    for x, y in zip(out, forced):
+        assert torch.equal(x, y)
+    assert float(out.converged.float().mean()) > 0.5
+
+
+@pytest.mark.cuda
+def test_refine_needs_the_refine_entry(cuda_device):
+    """A library without the refinement tail (an earlier build) refuses a
+    launch that asks for it: it never runs the 3xTF32 tail in its place."""
+    lib = ssn_solve._library()
+
+    class Earlier:
+        ssn_solve_launch = lib.ssn_solve_launch
+        ssn_solve_launch_schedule = lib.ssn_solve_launch_schedule
+        ssn_solve_error_string = lib.ssn_solve_error_string
+
+    W, I = _problem(cuda_device, B=2)
+    cfg = SSNConfig(**{**BASE, "pallas_two_phase": True})
+    with pytest.raises(RuntimeError, match="no refinement tail"):
+        ssn_solve.launch(Earlier, cfg, W, I, 4, False)
+    out = ssn_solve.launch(Earlier, dataclasses.replace(
+        cfg, pallas_refine=False), W, I, 4, False)
+    torch.cuda.synchronize()
+    assert out.converged.all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TWO_PHASE_CASES))
+def test_refine_off_is_the_baseline_two_phase(cuda_device, case):
+    """With ``pallas_refine`` off the kernel's two phases are those of the
+    build before the refinement tail, bit for bit: the earlier source named
+    by ``SSN_SOLVE_BASELINE`` (for example ``git show
+    <rev>:tcgan_torch/csrc/ssn_solve.cu`` into a git-ignored directory),
+    built with the same flags, on the same inputs."""
+    src = os.environ.get("SSN_SOLVE_BASELINE")
+    if not src:
+        pytest.skip("SSN_SOLVE_BASELINE names no earlier ssn_solve.cu")
+    old = ssn_solve.bind(ab._build_baseline(Path(src))[0])
+    N, B, contrasts, cfg_kw, accel = TWO_PHASE_CASES[case]
+    cfg, W, I = ab.problem(B, contrasts, {**cfg_kw, "pallas_refine": False},
+                           N=N, seed=1, two_phase=True)
+    a = ssn_solve.launch(old, cfg, W, I, 32, accel)
+    b = ssn_solve.launch(ssn_solve._library(), cfg, W, I, 32, accel)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)

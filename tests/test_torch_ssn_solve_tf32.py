@@ -54,22 +54,12 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-# the kernel's TF32 rounding and its phase-1 drive, as the port's plain
-# version emulates them
+# the kernel's TF32 rounding, its one-pass drive (phase 1, the refinement
+# tail's W e) and its 3xTF32 drive, as the port's plain version emulates
+# them
 rna_tf32 = ssn_solve.rna_tf32
 drive_1xtf32 = ssn_solve.drive_1xtf32
-
-
-def drive_3xtf32(W: torch.Tensor, r: torch.Tensor,
-                 I_ext: torch.Tensor) -> torch.Tensor:
-    """u = r @ W^T + I with the kernel's 3xTF32 products."""
-    Wt = W.transpose(-1, -2)
-    W_hi, r_hi = rna_tf32(Wt), rna_tf32(r)
-    W_lo, r_lo = rna_tf32(Wt - W_hi), rna_tf32(r - r_hi)
-    hh = torch.matmul(r_hi, W_hi)
-    hl = torch.matmul(r_lo, W_hi)
-    lh = torch.matmul(r_hi, W_lo)
-    return hh + (hl + lh) + I_ext
+drive_3xtf32 = ssn_solve.drive_3xtf32
 
 
 def _base_problem(B=5, seed=11):
@@ -270,7 +260,9 @@ def test_shared_memory_layout_admits_every_earlier_shape(accel):
 def _solve_kernel_arithmetic(monkeypatch, cfg, W, I, check_every,
                              accel=False, stats=None):
     """The two-phase plain version computing what the kernel computes:
-    phase 1 in one TF32 pass (``drive_1xtf32``), phase 2 in 3xTF32."""
+    phase 1 in one TF32 pass (``drive_1xtf32``), phase 2 in 3xTF32 or, in
+    the refinement tail, its anchor in 3xTF32 and its ``W e`` in one TF32
+    pass."""
     with monkeypatch.context() as m:
         m.setattr(tfp, "recurrent_drive", drive_3xtf32)
         return ssn_solve.solve_fixed_point_plain(
@@ -278,16 +270,20 @@ def _solve_kernel_arithmetic(monkeypatch, cfg, W, I, check_every,
             fast_drive=drive_1xtf32, stats=stats)
 
 
+@pytest.mark.parametrize("refine", [True, False], ids=["refine", "3xtf32"])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_two_phase_kernel_arithmetic_matches_jax(monkeypatch, case):
+def test_two_phase_kernel_arithmetic_matches_jax(monkeypatch, case, refine):
     """The kernel's two-phase arithmetic (phase 1 one TF32 pass, phase 2
-    3xTF32) against the reference's two-phase kernel in interpret mode at
-    block_b=1 (phase 1 in fp32 on the CPU): flags equal, rates within
-    rtol/atol, iters within two strides."""
+    3xTF32, or the refinement tail: a 3xTF32 anchor and ``W e`` in one
+    TF32 pass) against the reference's two-phase kernel with the same
+    ``refine`` in interpret mode at block_b=1 (its default-precision
+    passes in fp32 on the CPU): flags equal, rates within rtol/atol, iters
+    within two strides."""
     from tcgan_tpu.ops.pallas import solve_fixed_point_pallas
 
     cfg_kw, check_every, accel = CASES[case]
-    kw = {**BASE, **cfg_kw, "pallas_two_phase": True}
+    kw = {**BASE, **cfg_kw, "pallas_two_phase": True,
+          "pallas_refine": refine}
     W, I = _base_problem()
     out = _solve_kernel_arithmetic(monkeypatch, tssn.SSNConfig(**kw),
                                    torch.tensor(W), torch.tensor(I),
@@ -295,7 +291,7 @@ def test_two_phase_kernel_arithmetic_matches_jax(monkeypatch, case):
     ref = solve_fixed_point_pallas(jssn.SSNConfig(**kw), jnp.asarray(W),
                                    jnp.asarray(I), block_b=1,
                                    check_every=check_every, interpret=True,
-                                   accel=accel)
+                                   refine=refine, accel=accel)
     assert out.converged.all()
     _assert_match(out, ref, check_every)
 
@@ -303,13 +299,14 @@ def test_two_phase_kernel_arithmetic_matches_jax(monkeypatch, case):
 def test_two_phase_holds_the_flags_one_tf32_pass_breaks(monkeypatch):
     """Where one TF32 pass over the whole solve changes flags
     (``TF32_FLIP_CIRCUITS``, the GAN battery at atol 1e-5), the two-phase
-    schedule with a TF32 first phase gives the fp32 flags: phase 2 decides
-    every flag again at full precision. Its iters are the fp32 two-phase
-    solve's within two strides, and phase 1 runs a share of the substeps
-    (``pytest -s`` prints it)."""
+    schedule with a TF32 first phase and the 3xTF32 tail gives the fp32
+    flags: phase 2 decides every flag again at full precision. Its iters
+    are the fp32 two-phase solve's within two strides, and phase 1 runs a
+    share of the substeps (``pytest -s`` prints it)."""
     cfg, W, I = _slice_problem(TF32_FLIP_CIRCUITS,
                                contrasts=(5.0, ab.CONTRAST), atol=1e-5,
-                               max_iter=4096, pallas_two_phase=True)
+                               max_iter=4096, pallas_two_phase=True,
+                               pallas_refine=False)
     fp32 = ssn_solve.solve_fixed_point_plain(cfg, W, I, 32)
     one_phase = ssn_solve.solve_fixed_point_plain(
         dataclasses.replace(cfg, pallas_two_phase=False), W, I, 32)
@@ -322,4 +319,33 @@ def test_two_phase_holds_the_flags_one_tf32_pass_breaks(monkeypatch):
     print(f"two phases, TF32 phase 1: phase 1's share of the substeps "
           f"{float(p1 / (p1 + p2)):.4f}, max |dr| from fp32 "
           f"{float((out.r - fp32.r).abs().max()):.3e}")
+    assert p1 > 0 and p2 > 0
+
+
+@pytest.mark.parametrize("circuits", [TF32_FLIP_CIRCUITS, tuple(range(16))],
+                         ids=["flip_circuits", "all16"])
+def test_refine_holds_the_flags_one_tf32_pass_breaks(monkeypatch, circuits):
+    """The refinement tail in the kernel's arithmetic (phase 1 and ``W e``
+    in one TF32 pass, the anchor in 3xTF32) where one TF32 pass over the
+    whole solve changes flags (``TF32_FLIP_CIRCUITS``, the GAN battery at
+    atol 1e-5; and all 16 circuits of the draw): the flags of the fp32
+    two-phase solve with the 3xTF32 tail, rates within rtol/atol, iters
+    within two strides; the one-pass rounding of ``W e`` is relative to
+    the correction, not the rates (``pytest -s`` prints the counts)."""
+    cfg, W, I = _slice_problem(circuits, contrasts=(5.0, ab.CONTRAST),
+                               atol=1e-5, max_iter=4096,
+                               pallas_two_phase=True)
+    fp32 = ssn_solve.solve_fixed_point_plain(
+        dataclasses.replace(cfg, pallas_refine=False), W, I, 32)
+    assert bool(fp32.converged.all())
+    stats = {}
+    out = _solve_kernel_arithmetic(monkeypatch, cfg, W, I, 32, stats=stats)
+    p1, p2 = stats["phase1_substeps"].sum(), stats["phase2_substeps"].sum()
+    print(f"refinement tail, kernel arithmetic, {len(circuits)} circuits: "
+          f"flags differing {int((out.converged != fp32.converged).sum())}"
+          f" + {int((out.diverged != fp32.diverged).sum())}, max |dr| "
+          f"{float((out.r - fp32.r).abs().max()):.3e}, max |d iters| "
+          f"{int((out.iters - fp32.iters).abs().max())}, phase 1's share of "
+          f"the substeps {float(p1 / (p1 + p2)):.4f}")
+    _assert_match(out, fp32, 32)
     assert p1 > 0 and p2 > 0

@@ -15,6 +15,8 @@ tolerance of tests/test_pallas_solver.py), iters within one check stride
 chunk).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -62,11 +64,11 @@ def _assert_match(out, ref, stride):
 def test_cpu_path_matches_pallas_two_phase(case, refine):
     """The two-phase twin of test_torch_ssn_solve.py::
     test_cpu_path_matches_pallas_interpret: the port's default schedule
-    against the reference's, refinement tail on and off (it computes the
-    same Euler iterate as the plain tail)."""
+    against the reference's, with the refinement tail (the default) and
+    without, each held to the reference with the same ``refine``."""
     cfg_kw, check_every, accel, B = CASES[case]
     W, I = _runaway_problem() if case == "diverge" else _problem(B)
-    kw = {**BASE, **cfg_kw}
+    kw = {**BASE, **cfg_kw, "pallas_refine": refine}
     ref = _reference(kw, W, I, check_every, accel, refine)
     out = _port(kw, W, I, check_every, accel)
     _assert_match(out, ref, check_every)
@@ -79,16 +81,22 @@ def test_cpu_path_matches_pallas_two_phase(case, refine):
 def test_default_schedule_iters_are_the_references():
     """``_problem(B=4)`` at check stride 8: the reference's two-phase iters
     (208 216 216 216 208 216 208 216 at any block_b), which one phase gives
-    8 substeps fewer on the rows that wait for their circuit's other row."""
+    8 substeps fewer on the rows that wait for their circuit's other row;
+    the same with the refinement tail (the default) and without."""
     W, I = _problem(B=4)
     out = _port(BASE, W, I, 8)
-    assert out.iters.flatten().tolist() == [208, 216, 216, 216, 208, 216,
-                                            208, 216]
+    plain_tail = _port({**BASE, "pallas_refine": False}, W, I, 8)
+    for o in (out, plain_tail):
+        assert o.iters.flatten().tolist() == [208, 216, 216, 216, 208, 216,
+                                              208, 216]
     one = _port({**BASE, "pallas_two_phase": False}, W, I, 8)
     assert one.iters.flatten().tolist() == [200, 216, 208, 216, 200, 216,
                                             200, 216]
-    # the same fixed point: each row runs the same fp32 iterates, paused
-    torch.testing.assert_close(out.r, one.r, rtol=0, atol=0)
+    # the same fixed point: without the refinement tail each row runs the
+    # same fp32 iterates, paused; the tail rounds r_base + e apart
+    torch.testing.assert_close(plain_tail.r, one.r, rtol=0, atol=0)
+    torch.testing.assert_close(out.r, one.r, rtol=RTOL, atol=ATOL)
+    assert not torch.equal(out.r, one.r)
 
 
 @pytest.mark.parametrize("margin,want", [(0.0, [64, 64]), (2.0, [32, 32])])
@@ -138,28 +146,33 @@ def test_reopen_margin_same_flags_fewer_iters():
                                       np.asarray(ref.iters))
 
 
-def test_row_chunks_are_the_tiles():
+@pytest.mark.parametrize("refine,rows", [(True, 88), (False, 128)],
+                         ids=["refine", "no_refine"])
+def test_row_chunks_are_the_tiles(refine, rows):
     """2N=102 with a 256-row battery (32 contrasts of 8 bandwidths): the
-    plan cuts it into 2 chunks of 128 rows, and each chunk switches phase
-    on its own rows, as the reference does with each chunk as its battery
-    at block_b=1."""
+    plan cuts it into 2 chunks of 128 rows (3 of 88 in the refinement
+    tail's layout), and each chunk switches phase on its own rows, as the
+    reference does with each chunk as its battery at block_b=1."""
     from tcgan_torch.tools import ssn_solve_ab as ab
 
     from tests.test_torch_ssn_solve import _circuit
 
-    assert ssn_solve.plan(102, 256, False) == (1, 128, 2, False)
+    chunks = -(-256 // rows)
+    assert ssn_solve.plan(102, 256, False, refine=refine) == (
+        1, rows, chunks, False)
     W, I, kw = _circuit(51, ab.BANDWIDTHS,
                         tuple(0.3125 * k for k in range(1, 33)))
+    kw = {**kw, "pallas_refine": refine}
     out = _port(kw, W, I, ab.CHECK_EVERY)
-    parts = [_reference(kw, W, I[a:a + 128], ab.CHECK_EVERY)
-             for a in (0, 128)]
+    parts = [_reference(kw, W, I[a:a + rows], ab.CHECK_EVERY, refine=refine)
+             for a in range(0, 256, rows)]
     ref = type(parts[0])(*(np.concatenate([np.asarray(getattr(p, f))
                                            for p in parts], axis=1)
                            for f in parts[0]._fields))
     _assert_match(out, ref, ab.CHECK_EVERY)
     assert float(out.converged.float().mean()) > 0.9
     # with the whole battery as one tile, rows wait for other rows
-    whole = _reference(kw, W, I, ab.CHECK_EVERY)
+    whole = _reference(kw, W, I, ab.CHECK_EVERY, refine=refine)
     assert (out.iters.numpy() != np.asarray(whole.iters)).any()
 
 
@@ -174,17 +187,25 @@ def test_schedule_flags_are_checked():
         with pytest.raises(ValueError, match="pallas_"):
             _port({**BASE, **bad}, W, I, 8)
     s = ssn_solve.schedule(tssn.SSNConfig(**BASE, pallas_reopen_margin=2.0))
-    assert s == (True, 1e-2, 2000, 400.0)
+    assert s == (True, 1e-2, 2000, 400.0, True)
     s = ssn_solve.schedule(tssn.SSNConfig(atol=1e-3))
     assert (s.coarse, s.reopen_at) == (0.1, 0.0)
+    # the refinement tail acts in two phases only, as in the reference
+    for two, refine in ((True, False), (False, True), (False, False)):
+        s = ssn_solve.schedule(tssn.SSNConfig(pallas_two_phase=two,
+                                              pallas_refine=refine))
+        assert (s.two_phase, s.refine) == (two, False)
 
 
-def test_two_phase_cpu_path_launches_nothing():
+@pytest.mark.parametrize("refine", [True, False], ids=["refine", "no_refine"])
+def test_two_phase_cpu_path_launches_nothing(refine):
     """The two-phase CPU path is the plain version (``stats``: the substeps
     of each phase) and counts no launch."""
     W, I = _problem(B=3)
-    before = (ssn_solve.launches, ssn_solve.launches_two_phase)
-    cfg = tssn.SSNConfig(**BASE)
+    counts = lambda: (ssn_solve.launches, ssn_solve.launches_two_phase,  # noqa: E731
+                      ssn_solve.launches_refine)
+    before = counts()
+    cfg = tssn.SSNConfig(**BASE, pallas_refine=refine)
     out = ssn_solve.solve_fixed_point_cuda(cfg, torch.tensor(W),
                                            torch.tensor(I), check_every=8)
     stats = {}
@@ -192,9 +213,54 @@ def test_two_phase_cpu_path_launches_nothing():
                                             torch.tensor(I), 8, stats=stats)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
-    assert (ssn_solve.launches, ssn_solve.launches_two_phase) == before
+    assert counts() == before
     p1, p2 = stats["phase1_substeps"], stats["phase2_substeps"]
     assert p1.shape == p2.shape == out.iters.shape
     # a row runs until it resolves in each phase, paused in between
     assert ((p1 > 0) & (p2 > 0)).all() and (p1 + p2 <= out.iters).all()
 
+
+
+def test_refine_tail_runs_in_the_one_lockstep_loop():
+    """The refinement tail is the TPU kernel's (``_solver_kernel``
+    :252-273) in ``fixed_point.solve_fixed_point``: a one-substep chunk
+    from r_base = f(I) (feedforward init) is r_base + min(alpha delta,
+    ceiling - r_base) with delta = f(W r_base + I) - r_base (the 3xTF32
+    tail's: min(r + alpha delta, ceiling)); over more substeps the two
+    round apart. Where one tile of a battery is still in phase 1 while
+    another has switched, the rows in phase 1 run the same bits with the
+    tail on or off."""
+    from tcgan_torch.ops import fixed_point as tfp
+
+    W, I = (torch.tensor(a) for a in _problem(B=2))
+    cfg = tssn.SSNConfig(**BASE, init="feedforward")
+    f, alpha = cfg.io_fun(), cfg.step_gain(dtype=torch.float32)
+    tail = tfp.TwoPhase(rows=1, coarse=1e-2, max_iter1=0, reopen_at=0.0,
+                        refine=True)
+    one = [tfp.solve_fixed_point(dataclasses.replace(cfg, max_iter=1), W, I,
+                                 check_every=1, two_phase=sched)
+           for sched in (tail, tail._replace(refine=False))]
+    r0 = f(I).expand_as(one[0].r)
+    delta = f(tssn.recurrent_drive(W, r0, I)) - r0
+    assert torch.equal(one[0].r, r0 + torch.minimum(
+        alpha * delta, 10.0 * cfg.rate_stop_at - r0))
+    assert torch.equal(one[1].r, torch.minimum(
+        r0 + alpha * delta, torch.tensor(10.0 * cfg.rate_stop_at)))
+
+    # each row its own tile: stop the solve where some rows have switched
+    # and others are still in phase 1
+    stats = {}
+    sched = tail._replace(coarse=1e-3, max_iter1=2000)
+    tfp.solve_fixed_point(cfg, W, I, check_every=8, two_phase=sched,
+                          stats=stats)
+    p1 = stats["phase1_substeps"]
+    stop = int(p1.min()) + 16
+    assert int(p1.max()) > stop
+    early = dataclasses.replace(cfg, max_iter=stop)
+    on, off = (tfp.solve_fixed_point(early, W, I, check_every=8,
+                                     two_phase=sched._replace(refine=r))
+               for r in (True, False))
+    in_phase1 = p1 > stop
+    assert torch.equal(on.r[in_phase1], off.r[in_phase1])
+    assert not torch.equal(on.r[~in_phase1], off.r[~in_phase1])
+    torch.testing.assert_close(on.r, off.r, rtol=RTOL, atol=ATOL)

@@ -7,6 +7,9 @@ the slice's N=51.
 Tolerance: a replay to a solve's own stopping substeps is bit-equal to the
 solve (the same operations on the same state); the one-phase replay of a
 row alone runs another batch shape of the same operations (1e-6).
+
+Schedules: ``one`` phase, ``two`` (the default: two phases, the refinement
+tail) and ``two_3xtf32`` (``pallas_refine`` off).
 """
 
 import pytest
@@ -18,15 +21,20 @@ from tcgan_torch.tools import ssn_solve_ab as ab
 CHECK_EVERY = 16
 
 
+SCHEDULES = {"one": dict(two_phase=False), "two": dict(two_phase=True),
+             "two_3xtf32": dict(two_phase=True, pallas_refine=False)}
+
+
 def _problem(B=3, two_phase=True, **kw):
     return ab.problem(B, (5.0, 10.0), kw, seed=3, device="cpu",
                       two_phase=two_phase)
 
 
-@pytest.mark.parametrize("two_phase", [False, True], ids=["one", "two"])
+@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
 @pytest.mark.parametrize("accel", [False, True], ids=["plain", "anderson"])
-def test_stop_at_own_iters_replays_the_solve(two_phase, accel):
-    cfg, W, I = _problem(two_phase=two_phase)
+def test_stop_at_own_iters_replays_the_solve(schedule, accel):
+    cfg, W, I = _problem(**SCHEDULES[schedule])
+    two_phase = cfg.pallas_two_phase
     fast = ssn_solve.drive_1xtf32 if two_phase else None
     out = ssn_solve.solve_fixed_point_plain(cfg, W, I, CHECK_EVERY, accel,
                                             fast_drive=fast)
@@ -56,9 +64,10 @@ def test_stop_at_moves_only_its_row():
     assert torch.equal(rerun.iters[0, others], out.iters[0, others])
 
 
-@pytest.mark.parametrize("two_phase", [False, True], ids=["one", "two"])
-def test_own_trajectory_to_own_iters_is_the_row(two_phase):
-    cfg, W, I = _problem(B=1, two_phase=two_phase)
+@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
+def test_own_trajectory_to_own_iters_is_the_row(schedule):
+    cfg, W, I = _problem(B=1, **SCHEDULES[schedule])
+    two_phase = cfg.pallas_two_phase
     fast = ssn_solve.drive_1xtf32 if two_phase else None
     out = ssn_solve.solve_fixed_point_plain(cfg, W, I, CHECK_EVERY,
                                             fast_drive=fast)
