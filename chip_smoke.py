@@ -1293,6 +1293,7 @@ def phase_ift(card: str) -> None:
     from tcgan_torch.models import generator as gen_lib
     from tcgan_torch.ops import ift, weights
     from tcgan_torch.ops.cuda import ssn_solve
+    from tcgan_torch.utils import profiling
 
     cfg, params, z = _gan_problem(GAN_BATCH, GAN_SSN, GAN_CONTRASTS)
 
@@ -1302,11 +1303,15 @@ def phase_ift(card: str) -> None:
         leaves = {k: v.clone().requires_grad_(True)
                   for k, v in params.items()}
         out = gen_lib.sample_tuning_curves(c, leaves, GAN_BATCH, z=z)
-        ift.adjoint_iterations = ift.host_syncs = 0
-        g = torch.autograd.grad(out.tc.mean(), list(leaves.values()))
-        torch.cuda.synchronize()
+        ift.adjoint_iterations = 0
+        # the stop test's syncs are counted while a profiler runs
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            g = torch.autograd.grad(out.tc.mean(), list(leaves.values()))
+            torch.cuda.synchronize()
         return (out, torch.cat([t.reshape(-1) for t in g]),
-                (ift.adjoint_iterations, ift.host_syncs))
+                (ift.adjoint_iterations, profiling.counters().get(
+                    "host_syncs.ift.stop_test", 0)))
 
     out_k, g_k, (iters_k, syncs_k) = grads("cuda")
     with _plain_kernel():
@@ -1536,6 +1541,7 @@ def _time_steps(name, card, wcfg, state, real, gen):
 
     from tcgan_torch.models import wgan
     from tcgan_torch.ops import ift
+    from tcgan_torch.utils import profiling
 
     def run(reps):
         nonlocal state
@@ -1548,7 +1554,7 @@ def _time_steps(name, card, wcfg, state, real, gen):
         return time.perf_counter() - t0
 
     run(1)  # warm-up
-    ift.adjoint_iterations = ift.host_syncs = 0
+    ift.adjoint_iterations = 0
     reps = []
     for _ in range(3):  # the host clock spreads: three measurements
         t3, t9 = run(3), run(9)
@@ -1560,7 +1566,7 @@ def _time_steps(name, card, wcfg, state, real, gen):
           f"warm steps, (t9 - t3) / 6; B={wcfg.batch_size}, S={g.n_stim}, "
           f"N={g.ssn.N}, atol {g.ssn.atol}, n_critic {wcfg.n_critic}; "
           f"{card}); adjoint {ift.adjoint_iterations / 36:.1f} iterations "
-          f"and {ift.host_syncs / 36:.1f} host syncs per step")
+          "per step")
     n_prof = 3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1575,6 +1581,9 @@ def _time_steps(name, card, wcfg, state, real, gen):
     split["idle_vs_step"] = round(step_ms - split["device_busy"], 3)
     split["idle_share_vs_step"] = round(1 - split["device_busy"] / step_ms, 4)
     split["profiled_step_wall"] = round(wall_ms, 3)
+    counts = profiling.counters()
+    split["host_syncs"] = sum(v for k, v in counts.items()
+                              if k.startswith("host_syncs.")) / n_prof
     _line(f"[wgan] {name} device-time split per step (ms; torch.profiler "
           f"over {n_prof} warm steps; {card}): {json.dumps(split)}")
     return step_ms

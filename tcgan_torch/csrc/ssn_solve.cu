@@ -224,6 +224,9 @@ struct Params {
   // <= 0: every row reopens)
   float coarse, reopen_at;
   int max_iter1;
+  // null, or two totals the launch adds its row-substeps into, phase 1's
+  // and phase 2's (one phase: all in phase 2)
+  unsigned long long* substeps;
 };
 
 // Stores v at the same shared-memory offset as p in every block of the
@@ -868,6 +871,13 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
     }
     __syncthreads();
     if (tid == 0) {
+      // the rows that ran this chunk, by phase; in a cluster every block
+      // holds the same flags and rank 0 counts them. Once a chunk, not
+      // once a block at its end: a count kept to the end would hold two
+      // registers of every thread through the substep loop.
+      if (p.substeps != nullptr && rank == 0)
+        atomicAdd(p.substeps + (phase1 ? 0 : 1),
+                  (unsigned long long)*n_active * p.check_every);
       int n = 0;
       for (int s = 0; s < S; ++s) n += flag[s] == 0;
       *n_active = n;
@@ -1093,17 +1103,20 @@ extern "C" {
 // schedule: phase 1 to `coarse` within `max_iter1` substeps, phase-1
 // diverged rows whose peak passes `reopen_at` (> 0) kept diverged; with 2,
 // the same with phase 2 in the refinement tail (and its layout's plan).
+// `substeps`: null, or two int64 totals on the device to which the launch
+// adds the substeps its rows ran in phase 1 and in phase 2 (in one phase,
+// all in phase 2), counted a chunk of check_every substeps at a time.
 // Returns the cudaError_t of the attribute call, of the cluster occupancy
 // check (cluster sizes > 1: cudaErrorLaunchOutOfResources when not one
 // cluster fits the device) or of the launch (cudaGetLastError), 0 on
 // success; cudaErrorInvalidValue when no layout fits.
-int ssn_solve_launch_schedule(const void* W, const void* I, const void* alpha, void* r,
-                              void* conv, void* div, void* iters, int B, int n2, int S,
-                              int io_type, float k, float n, float r0, float r1,
-                              float u0, float slope, float atol, float rate_stop_at,
-                              float ceiling, int max_iter, int check_every, int init_ff,
-                              int accel, void* stream, int rows, int wglobal, int two_phase,
-                              float coarse, int max_iter1, float reopen_at) {
+int ssn_solve_launch_counted(const void* W, const void* I, const void* alpha, void* r,
+                             void* conv, void* div, void* iters, int B, int n2, int S,
+                             int io_type, float k, float n, float r0, float r1,
+                             float u0, float slope, float atol, float rate_stop_at,
+                             float ceiling, int max_iter, int check_every, int init_ff,
+                             int accel, void* stream, int rows, int wglobal, int two_phase,
+                             float coarse, int max_iter1, float reopen_at, void* substeps) {
   Plan P;
   Kernel kernel;
   cudaError_t err = prepare(n2, S, accel, rows, wglobal, two_phase, &P, &kernel);
@@ -1139,6 +1152,7 @@ int ssn_solve_launch_schedule(const void* W, const void* I, const void* alpha, v
   p.coarse = coarse;
   p.reopen_at = reopen_at;
   p.max_iter1 = max_iter1;
+  p.substeps = static_cast<unsigned long long*>(substeps);
   const float* Wf = static_cast<const float*>(W);
   const float* If = static_cast<const float*>(I);
   const float* af = static_cast<const float*>(alpha);
@@ -1161,6 +1175,20 @@ int ssn_solve_launch_schedule(const void* W, const void* I, const void* alpha, v
   err = cudaLaunchKernelEx(&cfg, kernel, Wf, If, af, rf, cf, df, itf, p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// ssn_solve_launch_counted counting nothing.
+int ssn_solve_launch_schedule(const void* W, const void* I, const void* alpha, void* r,
+                              void* conv, void* div, void* iters, int B, int n2, int S,
+                              int io_type, float k, float n, float r0, float r1,
+                              float u0, float slope, float atol, float rate_stop_at,
+                              float ceiling, int max_iter, int check_every, int init_ff,
+                              int accel, void* stream, int rows, int wglobal, int two_phase,
+                              float coarse, int max_iter1, float reopen_at) {
+  return ssn_solve_launch_counted(W, I, alpha, r, conv, div, iters, B, n2, S, io_type, k, n,
+                                  r0, r1, u0, slope, atol, rate_stop_at, ceiling, max_iter,
+                                  check_every, init_ff, accel, stream, rows, wglobal, two_phase,
+                                  coarse, max_iter1, reopen_at, nullptr);
 }
 
 // ssn_solve_launch_schedule in one phase.

@@ -47,6 +47,7 @@ from tcgan_torch.ops.ssn import (
     SSNConfig,
 )
 from tcgan_torch.parallel import mesh as mesh_lib
+from tcgan_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,6 +194,12 @@ def sample_tuning_curves(cfg: GeneratorConfig, params: Dict[str, torch.Tensor],
     """
     if cfg.solver not in ("ift", "bptt"):
         raise ValueError(f"unknown solver {cfg.solver!r}")
+    with profiling.span("generator.sample"):
+        return _sample(cfg, params, batch, z, generator)
+
+
+def _sample(cfg, params, batch, z, generator) -> GeneratorOutput:
+    """:func:`sample_tuning_curves` inside its span, a span a stage."""
     mesh = _active_mesh(cfg)
     J, D, S = param_values(cfg, params)
     lead = J.shape[:-2]  # member axes
@@ -223,33 +230,37 @@ def sample_tuning_curves(cfg: GeneratorConfig, params: Dict[str, torch.Tensor],
             z = z[..., model.rows(z.shape[-3]), :, :]
             split = dataclasses.replace(split, model=None)
             model, row_model = None, model
-    if lead:  # one (2, 2) block per member, broadcast over its circuits
-        J, D, S = (p.unsqueeze(-3) for p in (J, D, S))
-    x = cfg.ssn.site_pos(dtype=cfg.dtype, device=device)
-    W = weights.build_weight(J, D, S, z, x)
-    if model is not None:  # this rank's presynaptic columns
-        W = W[..., model.cols(W.shape[-1])]
-    I_ext = cfg.stimulus_battery(device)
-    if cfg.solver == "ift":
-        res = ift.solve_fixed_point_implicit(cfg.ssn, W, I_ext,
-                                             grad_method=cfg.grad_method,
-                                             group_axes=len(lead),
-                                             split=split)
-    else:
-        res = euler.solve_dynamics(
-            cfg.ssn, W, I_ext,
-            checkpoint_chunk=cfg.bptt_checkpoint_chunk or None, model=model)
-    if row_model is not None:
-        res = _gather_rows(row_model, res)
-    if mesh is not None and cfg.mesh_axis:
-        res = _gather_rows(mesh, res)
-
-    tc = res.r[..., cfg.probe_indices(device)]  # (..., B, S, P)
-    if cfg.track_offset_identity:
-        tc = tc.reshape(lead + (batch, -1))  # (..., B, S*P)
-    else:
-        tc = tc.transpose(-1, -2).reshape(
-            lead + (batch * cfg.n_probe, cfg.n_stim))
+    with profiling.span("generator.weights"):
+        if lead:  # one (2, 2) block per member, broadcast over its circuits
+            J, D, S = (p.unsqueeze(-3) for p in (J, D, S))
+        x = cfg.ssn.site_pos(dtype=cfg.dtype, device=device)
+        W = weights.build_weight(J, D, S, z, x)
+        if model is not None:  # this rank's presynaptic columns
+            W = W[..., model.cols(W.shape[-1])]
+    with profiling.span("generator.battery"):
+        I_ext = cfg.stimulus_battery(device)
+    with profiling.span("generator.solve"):
+        if cfg.solver == "ift":
+            res = ift.solve_fixed_point_implicit(cfg.ssn, W, I_ext,
+                                                 grad_method=cfg.grad_method,
+                                                 group_axes=len(lead),
+                                                 split=split)
+        else:
+            res = euler.solve_dynamics(
+                cfg.ssn, W, I_ext,
+                checkpoint_chunk=cfg.bptt_checkpoint_chunk or None,
+                model=model)
+    with profiling.span("generator.readout"):
+        if row_model is not None:
+            res = _gather_rows(row_model, res)
+        if mesh is not None and cfg.mesh_axis:
+            res = _gather_rows(mesh, res)
+        tc = res.r[..., cfg.probe_indices(device)]  # (..., B, S, P)
+        if cfg.track_offset_identity:
+            tc = tc.reshape(lead + (batch, -1))  # (..., B, S*P)
+        else:
+            tc = tc.transpose(-1, -2).reshape(
+                lead + (batch * cfg.n_probe, cfg.n_stim))
     return GeneratorOutput(tc, res.r, res.converged, res.diverged, res.iters)
 
 

@@ -49,7 +49,6 @@ from typing import Any, Callable, Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from tcgan_torch.models import critic as critic_lib
 from tcgan_torch.models import generator as gen_lib
@@ -58,6 +57,7 @@ from tcgan_torch.models.generator import GeneratorConfig
 from tcgan_torch.models.moments import (data_moments, effective_gamma,
                                         survivor_chain)
 from tcgan_torch.ops import weights
+from tcgan_torch.utils import profiling
 
 Params = Dict[str, torch.Tensor]
 _INT32_MAX = 2**31 - 1
@@ -781,11 +781,16 @@ def run_step(cfg: WGANConfig, n_critic: int, state: TrainState,
     for i in range(n_critic):
         real = real_stack[i]
         # the fake batch is data to the critic: no graph through the solve
-        with record_function("wgan.critic_solve"), torch.no_grad():
+        with profiling.span("wgan.critic_solve"), torch.no_grad():
             fake, fake_w = fake_batch(noise.critic_z[i])
-        with record_function("wgan.critic_update"):
-            eps = torch.as_tensor(noise.gp_eps[i], dtype=real.dtype,
-                                  device=real.device)
+        with profiling.span("wgan.critic_update"):
+            eps = noise.gp_eps[i]
+            if torch.is_tensor(eps) and eps.device == real.device:
+                eps = eps.to(real.dtype)
+            else:  # from host memory: a blocking copy to the device
+                with profiling.host_sync("wgan.gp_eps"):
+                    eps = torch.as_tensor(eps, dtype=real.dtype,
+                                          device=real.device)
             leaves = _leaves(critic_params)
             loss, (w, gp, acc) = critic_loss(cfg, leaves, real, fake, eps,
                                              fake_w=fake_w)
@@ -797,17 +802,17 @@ def run_step(cfg: WGANConfig, n_critic: int, state: TrainState,
         gps.append(gp.detach())
         accs.append(acc.detach())
 
-    with record_function("wgan.gen_forward"):
+    with profiling.span("wgan.gen_forward"):
         leaves = _leaves(state.gen_params)
         g_loss, (pen, fconv, fdiv, miters, cyield) = gen_loss(
             cfg, leaves, critic_params, z=noise.gen_z)
-    with record_function("wgan.gen_backward"):
+    with profiling.span("wgan.gen_backward"):
         g_grads = _grad(g_loss, leaves)
-    with record_function("wgan.gen_update"):
+    with profiling.span("wgan.gen_update"):
         g_updates, gen_opt = gen_tx.update(g_grads, state.gen_opt)
         g_updates = scale_updates_for_endgame(cfg, state, g_updates)
         gen_params = apply_updates(state.gen_params, g_updates)
-    with record_function("wgan.anchor"):
+    with profiling.span("wgan.anchor"):
         gen_params, anchor_state, a_res = apply_anchor_update(
             cfg, state, gen_params, anchor_z=noise.anchor_z,
             gen_cfg=anchor_gen_cfg)

@@ -74,6 +74,7 @@ import torch
 
 from tcgan_torch.ops import fixed_point, io_funs
 from tcgan_torch.ops.ssn import SSNConfig
+from tcgan_torch.utils import profiling
 
 KERNEL_PRECISION = "3xtf32"
 # Largest dynamic shared memory a block may use on Hopper (227 KB).
@@ -90,6 +91,10 @@ _IO_CODES = {"asym_power": 0, "asym_tanh": 1, "asym_linear": 2}
 launches = 0
 launches_two_phase = 0
 launches_refine = 0
+# While a profiler runs (tcgan_torch.utils.profiling), the solves' rows
+# (host counter ``ssn_solve.rows``) and the substeps they ran by phase (a
+# device total each, added by the kernel).
+SUBSTEPS = ("ssn_solve.phase1_substeps", "ssn_solve.phase2_substeps")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -336,6 +341,11 @@ def bind(path) -> ctypes.CDLL:
     if fn is not None:
         fn.argtypes = lib.ssn_solve_launch.argtypes + [i, i, i, f, i, f]
         fn.restype = i
+    # absent from earlier builds: the launch that counts its substeps
+    fn = getattr(lib, "ssn_solve_launch_counted", None)
+    if fn is not None:
+        fn.argtypes = lib.ssn_solve_launch.argtypes + [i, i, i, f, i, f, p]
+        fn.restype = i
     # absent from earlier builds: the plan and occupancy in a schedule (and
     # the refinement tail's launch, schedule 2); earlier builds answer with
     # ssn_solve_blocks_per_sm, _cluster_size, _rows_per_chunk, _w_global
@@ -415,7 +425,10 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
     iters (B, S), on the inputs' device, one launch for any S, in the
     schedule of :func:`schedule`. Raises ``ValueError`` past 2N = 2048
     (:func:`plan`; every S is solved below) or on a bad schedule flag, and
-    ``RuntimeError`` when the launch fails.
+    ``RuntimeError`` when the launch fails. While a profiler runs it counts
+    the rows and their substeps by phase (:data:`SUBSTEPS`), on the CPU
+    from the plain version's ``stats``, and spans the launch's host side
+    (``ssn_solve.launch``).
     """
     global launches, launches_two_phase, launches_refine
     if (W.ndim != 3 or I_ext.ndim != 2 or W.shape[1] != W.shape[2]
@@ -429,7 +442,16 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
     sched = schedule(cfg)  # raises on a bad flag
     plan(n2, S, accel, refine=sched.refine)  # raises past 2N = 2048
     if W.device.type == "cpu" and I_ext.device.type == "cpu":
-        return solve_fixed_point_plain(cfg, W, I_ext, check_every, accel)
+        if not profiling.enabled():
+            return solve_fixed_point_plain(cfg, W, I_ext, check_every, accel)
+        stats = {}
+        out = solve_fixed_point_plain(cfg, W, I_ext, check_every, accel,
+                                      stats=stats)
+        profiling.device_totals(SUBSTEPS, W.device).add_(torch.stack(
+            [stats[k].sum(dtype=torch.int64)
+             for k in ("phase1_substeps", "phase2_substeps")]))
+        profiling.add("ssn_solve.rows", B * S)
+        return out
     if W.device.type != "cuda" or I_ext.device != W.device:
         raise ValueError("W and I_ext must both be CPU tensors or both lie on "
                          f"one CUDA device; got {W.device} and "
@@ -437,7 +459,13 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
 
     if B == 0 or S == 0:
         return _outputs(B, S, n2, W.device)
-    result = launch(_library(), cfg, W, I_ext, check_every, accel)
+    with profiling.span("ssn_solve.launch"):
+        substeps = None
+        if profiling.enabled():
+            substeps = profiling.device_totals(SUBSTEPS, W.device)
+            profiling.add("ssn_solve.rows", B * S)
+        result = launch(_library(), cfg, W, I_ext, check_every, accel,
+                        substeps=substeps)
     launches += 1
     launches_two_phase += sched.two_phase
     launches_refine += sched.refine
@@ -455,7 +483,9 @@ def _outputs(B: int, S: int, n2: int, device) -> fixed_point.FixedPointResult:
 def launch(lib: ctypes.CDLL, cfg: SSNConfig, W: torch.Tensor,
            I_ext: torch.Tensor, check_every: int, accel: bool,
            rows_per_chunk: int | None = None, w_global: bool = False,
-           sched: Schedule | None = None) -> fixed_point.FixedPointResult:
+           sched: Schedule | None = None,
+           substeps: torch.Tensor | None = None
+           ) -> fixed_point.FixedPointResult:
     """One launch of the solver in ``lib`` (see :func:`bind`) on CUDA
     tensors that :func:`solve_fixed_point_cuda` has checked, in the
     schedule of :func:`schedule`; raises if the launch fails, and where
@@ -466,7 +496,10 @@ def launch(lib: ctypes.CDLL, cfg: SSNConfig, W: torch.Tensor,
     split launch can be held to an unsplit one; ``w_global`` forces W from
     device memory at the plan's cluster size (``plan(..., w_global=)``), so
     that the W-global path can be held to the shared-W one. ``sched``
-    replaces ``schedule(cfg)`` (a tool's phase budget, for example)."""
+    replaces ``schedule(cfg)`` (a tool's phase budget, for example).
+    ``substeps``: an int64 buffer of two on the device to which the launch
+    adds its rows' substeps in phase 1 and in phase 2 (one phase: all in
+    phase 2); it needs a library with ``ssn_solve_launch_counted``."""
     B, n2, S = W.shape[0], W.shape[2], I_ext.shape[0]
     sched = sched or schedule(cfg)
     device = W.device
@@ -483,7 +516,15 @@ def launch(lib: ctypes.CDLL, cfg: SSNConfig, W: torch.Tensor,
             check_every, int(cfg.init == "feedforward"), int(accel),
             ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)]
     with torch.cuda.device(device):
-        if sched.two_phase:
+        if substeps is not None:
+            if not hasattr(lib, "ssn_solve_launch_counted"):
+                raise RuntimeError("this solver library counts no substeps")
+            err = lib.ssn_solve_launch_counted(
+                *args, rows_per_chunk or 0, int(w_global),
+                (2 if sched.refine else 1) if sched.two_phase else 0,
+                sched.coarse, sched.max_iter1, sched.reopen_at,
+                ptr(substeps))
+        elif sched.two_phase:
             if not hasattr(lib, "ssn_solve_launch_schedule"):
                 raise RuntimeError("this solver library has no two-phase "
                                    "schedule; set pallas_two_phase=False")

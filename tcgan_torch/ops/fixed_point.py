@@ -141,8 +141,9 @@ def solve_fixed_point(
         as converged at the first check at or past it (in phase 2 under
         ``two_phase``) unless it diverged, whatever its residual; it
         replays another solve's row to that solve's stopping substep.
-      stats: where given, with ``two_phase``, receives the substeps each
-        row ran in each phase (``phase1_substeps``, ``phase2_substeps``).
+      stats: where given, receives the substeps each row ran in each phase
+        (``phase1_substeps``, ``phase2_substeps``); in one phase every
+        substep counts as phase 2, the full-precision phase.
 
     Returns:
       FixedPointResult on W's device, rates in W's dtype. Not
@@ -194,6 +195,9 @@ def solve_fixed_point(
                        device=device)
     r_in_prev = f_prev = torch.zeros_like(r) if anderson else None
     ph = None  # the rows in phase 1 (two phases only)
+    if stats is not None:  # by phase 1, 2
+        steps = torch.zeros((2,) + lead + (S,), dtype=torch.int32,
+                            device=device)
     if two_phase is not None:
         rows = two_phase.rows
         K = -(-S // rows)
@@ -201,8 +205,6 @@ def solve_fixed_point(
         phase1 = torch.full(lead + (K,), two_phase.max_iter1 > 0,
                             device=device)
         nhist = torch.zeros(lead + (K,), dtype=torch.int32, device=device)
-        steps = torch.zeros((2,) + lead + (S,), dtype=torch.int32,
-                            device=device)
         atols = torch.tensor([cfg.atol, two_phase.coarse], dtype=dtype,
                              device=device)  # by phase 2, 1
     it = 0
@@ -288,15 +290,19 @@ def solve_fixed_point(
                               min(it_next, cfg.max_iter)).to(torch.int32)
         iters = torch.where(resolved_now, cap, iters)
         it = it_next
+        if stats is not None:
+            if ph is None:
+                steps[1] += active * check_every
+            else:
+                steps[0] += (active & ph) * check_every
+                steps[1] += (active & ~ph) * check_every
         if two_phase is not None:
-            steps[0] += (active & ph) * check_every
-            steps[1] += (active & ~ph) * check_every
             nhist += 1
             (converged, diverged, iters, nhist, r_in_prev, f_prev,
              phase1) = _phase_boundary(
                 cfg, two_phase, it, tile, r, converged, diverged, iters,
                 nhist, r_in_prev, f_prev, phase1)
-    if stats is not None and two_phase is not None:
+    if stats is not None:
         stats["phase1_substeps"], stats["phase2_substeps"] = steps
     return FixedPointResult(r, converged, diverged, iters)
 

@@ -52,15 +52,15 @@ import torch
 
 from tcgan_torch.ops.fixed_point import FixedPointResult, solve_any
 from tcgan_torch.ops.ssn import SSNConfig, recurrent_drive
+from tcgan_torch.utils import profiling
 
 GRAD_METHODS = ("iterative", "direct", "jfb")
 # Adjoint iterations per host sync of the iterative method's stop test.
 DEFAULT_CHECK_STRIDE = 64
 
-# Iterative-adjoint iterations and stop-test host syncs since import (or
-# since a caller reset them to 0).
+# Iterative-adjoint iterations since import (or since a caller reset it to
+# 0).
 adjoint_iterations = 0
-host_syncs = 0
 
 
 def _bwd(cfg: SSNConfig, grad_method: str, bwd_max_iter: int,
@@ -83,7 +83,7 @@ def _adjoint(cfg: SSNConfig, grad_method: str, bwd_max_iter: int,
     residuals, not reduced; the iterative method's stop rule runs per group
     of the ``group_axes`` leading axes (over every rank's circuits of a
     ``split``)."""
-    global adjoint_iterations, host_syncs
+    global adjoint_iterations
     W, I_ext, r_star, converged = residuals
     model = None if split is None else split.model
     dtype = W.dtype
@@ -146,11 +146,11 @@ def _adjoint(cfg: SSNConfig, grad_method: str, bwd_max_iter: int,
                     iteration, lam, delta_norm, steps, bwd_atol, split)
                 iters = iters + applied
             done += check_stride
-            host_syncs += 1
             # one copy: "any group active" and the slowest group's count
-            more, n_it = torch.stack(
-                [(delta_norm >= bwd_atol).any().to(dtype),
-                 iters.max()]).tolist()
+            flags = torch.stack([(delta_norm >= bwd_atol).any().to(dtype),
+                                 iters.max()])
+            with profiling.host_sync("ift.stop_test"):
+                more, n_it = flags.tolist()
             if not more:
                 break
         adjoint_iterations += int(n_it)
@@ -177,7 +177,6 @@ def _chunk_over_ranks(iteration, lam, delta_norm, steps: int,
     is replayed from its start with those decisions. lam is then the
     unsharded loop's (the same arithmetic up to each stop). Returns (lam,
     delta_norm, iterations applied per group)."""
-    global host_syncs
     start, live = lam, delta_norm >= bwd_atol
     norms = []
     for _ in range(steps):
@@ -187,8 +186,10 @@ def _chunk_over_ranks(iteration, lam, delta_norm, steps: int,
     before = torch.cat([delta_norm[None], norms[:-1]])
     active = torch.cumprod((before >= bwd_atol).to(torch.int32), 0) > 0
     applied = active.sum(0)
-    host_syncs += 1
-    if bool((live & ~active[-1]).any()):
+    replay = (live & ~active[-1]).any()
+    with profiling.host_sync("ift.chunk_over_ranks"):
+        replay = bool(replay)
+    if replay:
         lam = start
         for i in range(steps):
             lam, _ = iteration(lam, active[i])
@@ -238,7 +239,7 @@ class FixedPointRates(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_r, _g_conv, _g_div, _g_iters):
         W, I_ext, r, converged = ctx.saved_tensors
-        with torch.profiler.record_function("ift.adjoint"):
+        with profiling.span("ift.adjoint"):
             W_bar, I_bar = _bwd(*ctx.args, (W, I_ext, r, converged), g_r,
                                 ctx.check_stride, ctx.group_axes, ctx.split)
         return (W_bar if ctx.needs_input_grad[0] else None,
@@ -280,7 +281,7 @@ def vjp_W_batched(cfg: SSNConfig, W: torch.Tensor, I_ext: torch.Tensor,
     its own solo backward (the reference's ``vmap`` over ``vjp``)."""
     if grad_method not in GRAD_METHODS:
         raise ValueError(f"grad_method must be one of {GRAD_METHODS}")
-    with torch.profiler.record_function("ift.adjoint"), torch.no_grad():
+    with profiling.span("ift.adjoint"), torch.no_grad():
         W_bar, _ = _adjoint(cfg, grad_method, bwd_max_iter, bwd_atol,
                             (W, I_ext, res.r, res.converged), g,
                             check_stride, group_axes=1)

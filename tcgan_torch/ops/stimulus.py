@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from tcgan_torch.utils import profiling
+
 
 def _sigmoid(y):
     return 0.5 * (torch.tanh(y / 2.0) + 1.0)
@@ -36,8 +38,12 @@ def stimulus_battery(bandwidths, contrasts, x, smoothness) -> torch.Tensor:
       I_ext: (n_c * n_b, 2N), one row per stimulus condition, contrast-major
       (condition index ``s = ic * n_b + ib``), duplicated over E and I.
     """
-    bandwidths = torch.as_tensor(bandwidths, dtype=x.dtype, device=x.device)
-    contrasts = torch.as_tensor(contrasts, dtype=x.dtype, device=x.device)
+    # two copies from host memory, each a blocking transfer to a device
+    with profiling.host_sync("generator.battery"):
+        bandwidths = torch.as_tensor(bandwidths, dtype=x.dtype,
+                                     device=x.device)
+    with profiling.host_sync("generator.battery"):
+        contrasts = torch.as_tensor(contrasts, dtype=x.dtype, device=x.device)
     box = smooth_box(x[None, :], bandwidths[:, None], smoothness)  # (n_b, N)
     per_cond = contrasts[:, None, None] * box[None, :, :]  # (n_c, n_b, N)
     flat = per_cond.reshape(-1, x.shape[0])  # (n_c*n_b, N)

@@ -166,8 +166,11 @@ def add_run_flags(p: argparse.ArgumentParser):
                         "one rank per visible CUDA device (or per torchrun "
                         "process; one on the CPU)")
     g.add_argument("--profile-dir", type=str, default=None,
-                   help="write a torch.profiler trace of the run here "
-                        "(training entry points)")
+                   help="write a torch.profiler trace of the run here, "
+                        "trace.json, and the program's counters of the "
+                        "traced run (host syncs and their wait, the "
+                        "solver's rows and substeps by phase), "
+                        "counters.json (training entry points)")
     g.add_argument("--dtype", choices=("float32", "bfloat16", "float64"),
                    default="float32")
     g.add_argument("--device", type=str, default="cuda",

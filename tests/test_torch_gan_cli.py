@@ -85,6 +85,8 @@ def test_tiny_cpu_fit_reads_like_a_jax_run_and_resumes(tmp_path):
     assert rc == 0
     assert _steps(port) == [0, 1, 2]
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    counts = json.loads((tmp_path / "prof" / "counters.json").read_text())
+    assert counts["host_syncs.generator.battery"] > 0
     assert json.loads((port / "info.json").read_text())["status"] == \
         "finished"
 

@@ -19,6 +19,7 @@ import torch
 from tcgan_torch.models import generator as gen_lib
 from tcgan_torch.ops import ift, weights
 from tcgan_torch.ops.ssn import SSNConfig
+from tcgan_torch.utils import profiling
 
 TRUE = (((0.045, 0.04), (0.05, 0.035)), ((0.1, 0.08), (0.1, 0.08)),
         ((0.25, 0.1), (0.25, 0.1)))
@@ -49,9 +50,13 @@ def _grads(device, backend, B=16):
 
 @pytest.mark.cuda
 def test_kernel_forward_gradients_match_plain_forward(cuda_device):
-    ift.adjoint_iterations = ift.host_syncs = 0
-    out_k, g_k = _grads(cuda_device, "cuda")
-    iters, syncs = ift.adjoint_iterations, ift.host_syncs
+    ift.adjoint_iterations = 0
+    # the stop test's syncs are counted while a profiler runs
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        out_k, g_k = _grads(cuda_device, "cuda")
+    iters = ift.adjoint_iterations
+    syncs = profiling.counters()["host_syncs.ift.stop_test"]
     out_p, g_p = _grads(cuda_device, "torch")
     assert out_k.rates.dtype == torch.float32
     assert torch.equal(out_k.converged, out_p.converged)
