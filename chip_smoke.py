@@ -86,10 +86,13 @@ no result line):
    rate with respect to the log-space (J, D, S), with the kernel forward
    and with the plain forward under the same adjoint, held to a relative
    tolerance (the plain forward: the kernel's plain version, phase 1 in
-   emulated TF32); the adjoint's iterations and host syncs; the times of
-   the
-   forward kernel and of the adjoint; the kernel's blocks per SM at that
-   battery and the waves a 256-circuit batch takes;
+   emulated TF32); the adjoint's iterations and host syncs; the forward
+   kernel's time; the adjoint kernel against the plain loop on the same
+   inputs at that shape and at 2N=600 (W in device memory): W_bar and
+   I_bar held to a relative tolerance, iterations equal, one launch an
+   adjoint, the kernel's time beside its bound and the whole adjoint's
+   through the kernel and through the plain loop; the solver kernel's
+   blocks per SM at that battery and the waves a 256-circuit batch takes;
 6. the training path: ``python -m tcgan_torch.run.gan`` (through its
    ``main``) at the round-2 GAN configuration (N=51, 16 conditions, 256
    circuits per batch, fake truth, start +30% J and -30% D off truth) for 6
@@ -178,13 +181,16 @@ refinement tail, but phase 4's runs with ``--pallas-refine off`` and
 in the schedule of the config it is given. Each path reads the wrapper's
 counts where it ran (``_count_launches``; a rank worker returns them) and
 checks that every launch of it ran in the path's schedule; the kernels
-line sums them by schedule.
+line sums them by schedule. Each fit path also counts the adjoint
+kernel's launches and checks one an unsplit iterative adjoint
+(``_adjoint_launches``).
 
-The line before the last is a JSON object describing the kernel's
+The line before the last is a JSON object describing the solver kernel's
 instantiations, one entry each for one phase, two phases with the 3xTF32
 tail and two with the refinement tail (route, source, the TPU kernel code
-it replaces, launches on the main paths by path, error and times); the
-last line is ``{"ok": true, "device": {...}}``.
+it replaces, launches on the main paths by path, error and times), and
+the adjoint kernel (phase 5's error, times and bound by shape); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -229,6 +235,13 @@ START_D = tuple(round(0.7 * v, 6) for v in TRUE_D)
 # 1e-4 and the adjoint stops at an absolute 1e-6; 1e-2 leaves room for
 # the adjoint to amplify the forward difference near criticality.
 GRAD_RTOL = 1e-2
+# Phase 5: the adjoint kernel against the plain loop on the same inputs,
+# W_bar and I_bar to 1e-4 of the largest entry (only the mat-vec's
+# summation order differs; the card tests' tolerance), at the fit's shape
+# and at 2N=600 (W in device memory, ADJ_WIDE_BATCH circuits).
+ADJ_RTOL = 1e-4
+ADJ_ATOL, ADJ_MAX_ITER = 1e-6, 20000
+ADJ_WIDE_BATCH = 16
 DEVICE = "cuda"
 # Phase 7: the BPTT gradient on the card (fp32) against float64 on the CPU,
 # max |dg| / max |g|: 4000 fp32 steps of a contracting map keep ~1e-5.
@@ -324,6 +337,45 @@ def _plain_kernel():
         yield calls
     finally:
         ssn_solve.solve_fixed_point_cuda = real
+
+
+@contextlib.contextmanager
+def _adjoint_launches(where: str):
+    """The adjoint kernel's count set to 0 while the block runs, and each
+    iterative adjoint in it counted: on the ``cuda`` backend one launch an
+    unsplit adjoint and at least one a split one (its chunks and replays),
+    none elsewhere; raises otherwise. Yields the list of launches per
+    adjoint."""
+    import inspect
+
+    from tcgan_torch.ops import ift
+    from tcgan_torch.ops.cuda import ift_adjoint
+
+    real, per, bad = ift._adjoint, [], []
+    sig = inspect.signature(real)
+
+    def counted(*args, **kw):
+        a = sig.bind(*args, **kw).arguments
+        n0 = ift_adjoint.launches
+        out = real(*args, **kw)
+        if a["grad_method"] == "iterative":
+            n = ift_adjoint.launches - n0
+            per.append(n)
+            if a["cfg"].backend != "cuda":
+                bad.append(n != 0)
+            else:
+                bad.append(n != 1 if a.get("split") is None else n < 1)
+        return out
+
+    ift_adjoint.launches = 0
+    ift._adjoint = counted
+    try:
+        yield per
+    finally:
+        ift._adjoint = real
+    if any(bad) or ift_adjoint.launches != sum(per):
+        raise AssertionError(f"{where}: adjoint-kernel launches per adjoint "
+                             f"{per}, {ift_adjoint.launches} in all")
 
 
 def _compare(name, cfg, W, I, check_every, accel=False, witness=False,
@@ -1287,7 +1339,68 @@ def _gan_problem(batch, ssn_kw, contrasts, seed=SEED, **gen_kw):
     return cfg, params, z
 
 
-def phase_ift(card: str) -> None:
+def _adjoint_kernel(card: str, cfg, W, I, res) -> dict:
+    """The iterative adjoint at the fixed point ``res`` of (W, I) with a
+    random cotangent, through the adjoint kernel and through the plain loop
+    (the ``torch`` backend) on the same inputs: W_bar and I_bar within
+    ``ADJ_RTOL`` of the largest entry, the iterations equal, one kernel
+    launch and none; then the kernel alone, the whole adjoint through it and
+    the plain loop, timed. Returns the shape's row of the kernels line."""
+    import torch
+
+    from tcgan_torch.ops import ift
+    from tcgan_torch.ops.cuda import ift_adjoint
+    from tcgan_torch.ops.ssn import recurrent_drive
+
+    B, S, n2 = W.shape[0], I.shape[0], W.shape[-1]
+    g = 1e-3 * torch.randn(res.r.shape, device=W.device,
+                           generator=torch.Generator(W.device).manual_seed(
+                               SEED + 2))
+    saved = (W, I, res.r, res.converged)
+    bwd = {b: (lambda c=dataclasses.replace(cfg, backend=b): ift._bwd(
+        c, "iterative", ADJ_MAX_ITER, ADJ_ATOL, saved, g))
+        for b in ("cuda", "torch")}
+    out, iters, launched = {}, {}, {}
+    for b, fn in bwd.items():
+        ift.adjoint_iterations = ift_adjoint.launches = 0
+        out[b] = fn()
+        torch.cuda.synchronize()
+        iters[b], launched[b] = ift.adjoint_iterations, ift_adjoint.launches
+    err = max(float((k - p).abs().max() / p.abs().max())
+              for k, p in zip(out["cuda"], out["torch"]))
+    # the kernel alone, on the operands the adjoint hands it
+    ok = res.converged[..., None]
+    phi = torch.where(ok, cfg.io_deriv()(recurrent_drive(W, res.r, I)), 0.0)
+    alpha = cfg.step_gain(device=W.device)
+    kernel = lambda: ift_adjoint.solve(  # noqa: E731
+        W, phi, torch.where(ok, g, 0.0), alpha, ADJ_ATOL, ADJ_MAX_ITER)
+    n = int(kernel()[2])
+    ms = _median_ms(kernel)
+    adj_ms, plain_ms = (_median_ms(fn, reps=3) for fn in bwd.values())
+    bound_ms = 1e3 * 2 * S * n2 * n2 * B * n / ab.PEAK_FP32_FLOPS
+    plan = ift_adjoint.query(B, S, n2, device=W.device)
+    shape = (f"2N={n2} S={S} B={B}, W in "
+             f"{'shared' if plan.w_shared else 'device'} memory")
+    _line(f"[ift] adjoint {shape}: kernel against plain loop W_bar, I_bar "
+          f"max |diff| / max |plain| {err:.3e} (tolerance {ADJ_RTOL}), "
+          f"iterations {iters['cuda']} / {iters['torch']}, kernel launches "
+          f"{launched['cuda']} / {launched['torch']}; the kernel alone "
+          f"{ms:.3f} ms for {n} iterations ({1e3 * ms / n:.2f} us an "
+          f"iteration; median of 5), bound {bound_ms:.4f} ms (2 S (2N)^2 "
+          f"FLOP a circuit an iteration at {ab.PEAK_FP32_FLOPS / 1e12:.0f} "
+          f"TFLOP/s fp32), share {bound_ms / ms:.4f}; the whole adjoint "
+          f"{adj_ms:.3f} ms through the kernel, {plain_ms:.3f} ms through "
+          f"the plain loop (median of 3; {card})")
+    if not (err <= ADJ_RTOL and iters["cuda"] == iters["torch"] == n
+            and launched == {"cuda": 1, "torch": 0}):
+        raise AssertionError(f"ift: the adjoint kernel at {shape} differs "
+                             "from the plain loop")
+    return {"shape": shape, "iterations": n, "max_rel_err": err, "ms": ms,
+            "adjoint_ms": adj_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations (fp32 FFMA)"}
+
+
+def phase_ift(card: str) -> dict:
     import torch
 
     from tcgan_torch.models import generator as gen_lib
@@ -1331,24 +1444,33 @@ def phase_ift(card: str) -> None:
     if not rel <= GRAD_RTOL:
         raise AssertionError(f"ift: gradient rel err {rel} > {GRAD_RTOL}")
 
-    # times: the forward kernel alone, and the adjoint alone on the saved
-    # fixed point with the cotangent of the mean probe rate
+    # the forward kernel's time; then the adjoint kernel against the plain
+    # loop at the fit's shape and with W in device memory
     c, dev = cfg.ssn, z.device
     with torch.no_grad():
         W = weights.build_weight(*gen_lib.param_values(cfg, params), z,
                                  c.site_pos(device=dev))
         I = cfg.stimulus_battery(dev)
         res = ssn_solve.solve_fixed_point_cuda(c, W, I, CHECK_EVERY)
-    g = torch.zeros_like(res.r)
-    g[..., cfg.probe_indices(dev)] = 1.0 / (GAN_BATCH * cfg.n_stim)
     fwd_ms = _median_ms(lambda: ssn_solve.solve_fixed_point_cuda(
         c, W, I, CHECK_EVERY), reps=3)
-    adj_ms = _median_ms(lambda: ift._bwd(
-        c, "iterative", 20000, 1e-6, (W, I, res.r, res.converged), g),
-        reps=3)
-    _line(f"[ift] forward kernel {fwd_ms:.3f} ms, iterative adjoint "
-          f"{adj_ms:.3f} ms (median of 3; B={GAN_BATCH} S={cfg.n_stim}; "
-          f"{card})")
+    _line(f"[ift] forward kernel {fwd_ms:.3f} ms (median of 3; "
+          f"B={GAN_BATCH} S={cfg.n_stim}; {card})")
+    wide = ab.problem(ADJ_WIDE_BATCH, GAN_CONTRASTS, N=GLOBAL_FWD_N,
+                      ssn_overrides={k: v for k, v in GAN_SSN.items()
+                                     if k != "N"}, two_phase=True)
+    shapes = [_adjoint_kernel(card, c, W, I, res)]
+    with torch.no_grad():
+        res = ssn_solve.solve_fixed_point_cuda(*wide, CHECK_EVERY)
+    shapes.append(_adjoint_kernel(card, *wide, res))
+    fit = shapes[0]
+    entry = {"name": "ift_adjoint", "route": "cuda",
+             "source": "tcgan_torch/csrc/ift_adjoint.cu",
+             "replaces": None, "reference": "tcgan_tpu/ops/ift.py:132 "
+             "(_bwd, a lax.while_loop in plain XLA)",
+             **{k: fit[k] for k in ("max_rel_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by")},
+             "library_ms": None, "shapes": shapes}
 
     # Waves at the GAN battery, read from the card: the runtime's blocks
     # per SM, then copies of one circuit (every block the same work) at
@@ -1373,6 +1495,7 @@ def phase_ift(card: str) -> None:
           f"{GAN_BATCH} circuits in {math.ceil(GAN_BATCH / cap)} wave(s); "
           f"copies of one circuit {t_one:.3f} ms at {sms}, {t_cap:.3f} ms at "
           f"{cap}, {t_over:.3f} ms at {cap + 1} (median of 3; {card})")
+    return entry
 
 
 def _gan_argv(datastore, n_steps, *extra, N=GAN_SSN["N"], batch=GAN_BATCH):
@@ -1407,7 +1530,8 @@ def _run_entry(entry, argv, store, steps, schedule):
     args = entry.make_parser().parse_args(argv)
     counts = _count_launches()
     t0 = time.perf_counter()
-    rc = entry.main(argv)
+    with _adjoint_launches(f"{entry.__name__} {store.name}") as adjoints:
+        rc = entry.main(argv)
     launches = _default_launches(entry.__name__, counts)
     if rc != 0:
         raise AssertionError(f"{entry.__name__}.main returned {rc}")
@@ -1420,7 +1544,9 @@ def _run_entry(entry, argv, store, steps, schedule):
           f"{len(steps)} steps from {steps[0]} in "
           f"{time.perf_counter() - t0:.1f} s; kernel launches {launches} = "
           f"fake truth {truth} + training {launches - truth} (schedule "
-          f"implies {expected}); status {info.get('status')}")
+          f"implies {expected}); iterative adjoints {len(adjoints)}, "
+          f"adjoint-kernel launches {sum(adjoints)}; status "
+          f"{info.get('status')}")
     if launches - truth != expected or truth < min_truth:
         raise AssertionError(f"{entry.__name__}: kernel launches do not "
                              "match the step schedule")
@@ -1965,7 +2091,8 @@ def _run_ensemble(argv, store, steps, per_step):
     args = ensemble.make_parser().parse_args(argv)
     counts = _count_launches()
     t0 = time.perf_counter()
-    rc = ensemble.main(argv)
+    with _adjoint_launches(f"run.ensemble {store.name}") as adjoints:
+        rc = ensemble.main(argv)
     launches = _default_launches(f"run.ensemble {store.name}", counts)
     info = json.loads((store / "info.json").read_text())
     truth = info["kernel_launches_fake_truth"]
@@ -1974,7 +2101,9 @@ def _run_ensemble(argv, store, steps, per_step):
           f"{len(steps)} steps from {steps[0]} in "
           f"{time.perf_counter() - t0:.1f} s; kernel launches {launches} = "
           f"fake truth {truth} + training {launches - truth} (one fit's "
-          f"schedule implies {expected}); status {info.get('status')}")
+          f"schedule implies {expected}); iterative adjoints "
+          f"{len(adjoints)}, adjoint-kernel launches {sum(adjoints)}; "
+          f"status {info.get('status')}")
     if rc != 0 or info.get("status") != "finished":
         raise AssertionError(f"run.ensemble {store.name}: rc {rc}, status "
                              f"{info.get('status')}")
@@ -2913,7 +3042,7 @@ def main() -> int:
         "4c", phase_split_forward, card)
     by_path["run.forward + run.gan --N 300, W from device memory"] = _timed(
         "4d", phase_global_forward, card)
-    _timed(5, phase_ift, card)
+    adjoint = _timed(5, phase_ift, card)
     with tempfile.TemporaryDirectory() as work:
         work = Path(work)
         by_path["run.gan"] = _timed(6, phase_gan, card, work)
@@ -2931,6 +3060,7 @@ def main() -> int:
     for entry, paths in zip(kernels, (one_by_path, two_by_path, by_path)):
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
+    kernels.append(adjoint)
     _line(f"[smoke] all phases took {time.perf_counter() - t_start:.1f} s")
     import torch
 

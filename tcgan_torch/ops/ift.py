@@ -20,17 +20,24 @@ adjoint system by one of three methods:
   :func:`vjp_W_batched`) each keep their own residual, stop test and
   iteration count, and a converged group is frozen while the others go on,
   which is what ``lax.while_loop`` under ``vmap`` does in the reference.
-  The reference tests its stop rule on every iteration on the device; here
-  the loop runs ``check_stride`` iterations per host sync, and an
-  iteration after the stop rule held leaves lam unchanged, so the result
-  does not depend on the stride.
+  With the ``cuda`` backend on CUDA tensors the loop is one launch of the
+  adjoint kernel (:mod:`tcgan_torch.ops.cuda.ift_adjoint`), which tests
+  the stop rule on every iteration on the device, as the reference does;
+  the host reads its iteration count once (half types run it in float32,
+  as the solver kernel does; what the kernel does not take raises: nothing
+  falls back). Elsewhere, CPU tensors included, the plain
+  loop runs, ``check_stride`` iterations per host sync; an iteration after
+  the stop rule held leaves lam unchanged, so the result does not depend
+  on the stride. ``check_stride`` applies to the plain loop alone.
 - ``"direct"``: batched dense solve of the transposed system.
 - ``"jfb"``: Jacobian-free backprop, lam = g.
 
 Split over ranks (``split``, a :class:`tcgan_torch.parallel.mesh.Split`),
 the iterative adjoint's stop test takes its max over every rank's
 circuits, one all-reduce per check stride (:func:`_chunk_over_ranks`), so
-each rank stops on the iteration the unsharded batch would. With a model
+each rank stops on the iteration the unsharded batch would; the chunk and
+its replay run through the kernel on the ``cuda`` backend's CUDA tensors
+and through the plain loop elsewhere. With a model
 axis (``split.model``) W holds this rank's columns only: the forward is
 the lockstep solve with the drive summed over the model group, the
 iterative adjoint gathers each rank's columns of ``(phi * lam) @ W`` (lam
@@ -50,12 +57,13 @@ from __future__ import annotations
 
 import torch
 
+from tcgan_torch.ops.cuda import ift_adjoint
 from tcgan_torch.ops.fixed_point import FixedPointResult, solve_any
 from tcgan_torch.ops.ssn import SSNConfig, recurrent_drive
 from tcgan_torch.utils import profiling
 
 GRAD_METHODS = ("iterative", "direct", "jfb")
-# Adjoint iterations per host sync of the iterative method's stop test.
+# Adjoint iterations per host sync of the plain loop's stop test.
 DEFAULT_CHECK_STRIDE = 64
 
 # Iterative-adjoint iterations since import (or since a caller reset it to
@@ -113,13 +121,13 @@ def _adjoint(cfg: SSNConfig, grad_method: str, bwd_max_iter: int,
         if check_stride < 1:
             raise ValueError(f"check_stride must be >= 1; got {check_stride}")
         alpha = cfg.step_gain(dtype=dtype, device=W.device)
-        lam = g
         shape = torch.broadcast_shapes(g.shape, phi.shape)
         groups, per_group = shape[:group_axes], tuple(
             range(group_axes, len(shape)))
-        delta_norm = torch.full(groups, float("inf"), dtype=dtype,
-                                device=W.device)
-        iters = torch.zeros(groups, dtype=dtype, device=W.device)
+        kernel = cfg.backend == "cuda" and W.device.type == "cuda"
+        if kernel and model is not None:
+            raise ValueError("the adjoint kernel takes whole rows of W; the "
+                             "cuda backend splits circuits, not columns")
 
         def iteration(lam, active):
             """One damped step where ``active``; (lam, this rank's
@@ -132,27 +140,57 @@ def _adjoint(cfg: SSNConfig, grad_method: str, bwd_max_iter: int,
                               lam + alpha * delta, lam)
             return lam, delta.abs().amax(per_group)
 
-        done, n_it = 0, 0.0
-        while done < bwd_max_iter:
-            steps = min(check_stride, bwd_max_iter - done)
-            if split is None:
-                for _ in range(steps):
-                    active = delta_norm >= bwd_atol
-                    lam, norm = iteration(lam, active)
-                    delta_norm = torch.where(active, norm, delta_norm)
-                    iters = iters + active
-            else:
-                lam, delta_norm, applied = _chunk_over_ranks(
-                    iteration, lam, delta_norm, steps, bwd_atol, split)
-                iters = iters + applied
-            done += check_stride
-            # one copy: "any group active" and the slowest group's count
-            flags = torch.stack([(delta_norm >= bwd_atol).any().to(dtype),
-                                 iters.max()])
+        def run(start, counts, steps: int, norms: bool = True):
+            """``steps`` iterations from ``start``, group k's first
+            ``counts[k]`` applied: (lam, this rank's max |delta| per
+            iteration and group, or None without ``norms``)."""
+            if kernel:
+                profiling.add("ift.adjoint_kernel_launches")
+                lam, out = ift_adjoint.iterate(W, phi, g, alpha, start,
+                                               counts, steps, group_axes,
+                                               norms)
+                return lam.to(dtype), out
+            profiling.add("ift.adjoint_eager_iterations", steps)
+            lam, out = start, []
+            for i in range(steps):
+                lam, norm = iteration(lam, counts > i)
+                out.append(norm)
+            return lam, torch.stack(out) if norms else None
+
+        if kernel and split is None:
+            profiling.add("ift.adjoint_kernel_launches")
+            lam, _, n_dev = ift_adjoint.solve(W, phi, g, alpha, bwd_atol,
+                                              bwd_max_iter, group_axes)
+            lam = lam.to(dtype)
             with profiling.host_sync("ift.stop_test"):
-                more, n_it = flags.tolist()
-            if not more:
-                break
+                n_it = n_dev.item()
+        else:
+            lam = g
+            delta_norm = torch.full(groups, float("inf"), dtype=dtype,
+                                    device=W.device)
+            iters = torch.zeros(groups, dtype=dtype, device=W.device)
+            done, n_it = 0, 0.0
+            while done < bwd_max_iter:
+                steps = min(check_stride, bwd_max_iter - done)
+                if split is None:
+                    profiling.add("ift.adjoint_eager_iterations", steps)
+                    for _ in range(steps):
+                        active = delta_norm >= bwd_atol
+                        lam, norm = iteration(lam, active)
+                        delta_norm = torch.where(active, norm, delta_norm)
+                        iters = iters + active
+                else:
+                    lam, delta_norm, applied = _chunk_over_ranks(
+                        run, lam, delta_norm, steps, bwd_atol, split)
+                    iters = iters + applied
+                done += check_stride
+                # one copy: "any group active" and the slowest group's count
+                flags = torch.stack([(delta_norm >= bwd_atol).any().to(dtype),
+                                     iters.max()])
+                with profiling.host_sync("ift.stop_test"):
+                    more, n_it = flags.tolist()
+                if not more:
+                    break
         adjoint_iterations += int(n_it)
         # a non-finite lam of a trusted sample is left in place, so the
         # optimizer's finite-update guard skips the step visibly
@@ -167,22 +205,21 @@ def _adjoint(cfg: SSNConfig, grad_method: str, bwd_max_iter: int,
     return torch.matmul(philam.transpose(-1, -2), r_ok), philam
 
 
-def _chunk_over_ranks(iteration, lam, delta_norm, steps: int,
-                      bwd_atol: float, split):
+def _chunk_over_ranks(run, lam, delta_norm, steps: int, bwd_atol: float,
+                      split):
     """``steps`` adjoint iterations on this rank's circuits under the
     stop rule of the whole split batch, at one collective: the chunk runs
     as if no group stopped, recording this rank's max |delta| per
     iteration; one all-reduce gives the batch's, hence the iteration at
     which each group stops; where one stopped inside the chunk, the chunk
     is replayed from its start with those decisions. lam is then the
-    unsharded loop's (the same arithmetic up to each stop). Returns (lam,
+    unsharded loop's (the same arithmetic up to each stop). ``run(start,
+    counts, steps, norms)`` runs the iterations, group k's first
+    ``counts[k]`` applied (the plain loop or the kernel). Returns (lam,
     delta_norm, iterations applied per group)."""
     start, live = lam, delta_norm >= bwd_atol
-    norms = []
-    for _ in range(steps):
-        lam, norm = iteration(lam, live)
-        norms.append(norm)
-    norms = split.max(torch.stack(norms))  # (steps,) + groups
+    lam, norms = run(start, live.to(torch.int32) * steps, steps)
+    norms = split.max(norms)  # (steps,) + groups
     before = torch.cat([delta_norm[None], norms[:-1]])
     active = torch.cumprod((before >= bwd_atol).to(torch.int32), 0) > 0
     applied = active.sum(0)
@@ -190,9 +227,7 @@ def _chunk_over_ranks(iteration, lam, delta_norm, steps: int,
     with profiling.host_sync("ift.chunk_over_ranks"):
         replay = bool(replay)
     if replay:
-        lam = start
-        for i in range(steps):
-            lam, _ = iteration(lam, active[i])
+        lam, _ = run(start, applied, steps, norms=False)
     last = norms.gather(0, (applied - 1).clamp(min=0).unsqueeze(0))[0]
     return lam, torch.where(applied > 0, last, delta_norm), applied
 

@@ -241,3 +241,104 @@ def test_invalid_arguments_raise():
                   (W, I, torch.zeros((1, 2, 12)),
                    torch.ones((1, 2), dtype=torch.bool)),
                   torch.ones((1, 2, 12)), check_stride=0)
+
+
+# -- the cuda backend's iterative adjoint off the card ---------------------
+
+
+def _saved(cfg, z, dtype=torch.float64):
+    """The residuals of one solve and a cotangent: ((W, I, r, conv), g)."""
+    x = cfg.site_pos(dtype=dtype)
+    I = tstim.stimulus_battery(BW, CT, x, cfg.smoothness).to(dtype)
+    W = tweights.build_weight(*(torch.tensor(p, dtype=dtype)
+                                for p in (J0, D0, S0)),
+                              torch.tensor(z, dtype=dtype), x)
+    res = tift.solve_fixed_point_implicit(cfg, W, I, bwd_atol=BWD_ATOL)
+    g = torch.randn(res.r.shape, dtype=dtype,
+                    generator=torch.Generator().manual_seed(4))
+    return (W, I, res.r, res.converged), g
+
+
+def test_cuda_backend_on_cpu_tensors_runs_the_plain_loop():
+    """CPU tensors take the plain loop whatever the backend: the same
+    result and count as the ``torch`` backend's, every iteration eager, no
+    kernel launch."""
+    from tcgan_torch.ops.cuda import ift_adjoint
+
+    cfg = tssn.SSNConfig(**SSN)
+    saved, g = _saved(cfg, _z())
+    out, counts = {}, {}
+    for backend in ("torch", "cuda"):
+        c = tssn.SSNConfig(**SSN, backend=backend)
+        tift.adjoint_iterations = 0
+        n0 = ift_adjoint.launches
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            out[backend] = tift._bwd(c, "iterative", 20000, BWD_ATOL, saved,
+                                     g, check_stride=16)
+        counts[backend] = (tift.adjoint_iterations, profiling.counters())
+        assert ift_adjoint.launches == n0
+    for a, b in zip(out["torch"], out["cuda"]):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    n, rec = counts["cuda"]
+    assert n == counts["torch"][0] > 0
+    assert "ift.adjoint_kernel_launches" not in rec
+    assert rec["ift.adjoint_eager_iterations"] == 16 * -(-n // 16)
+    assert rec["host_syncs.ift.stop_test"] == -(-n // 16)
+
+
+@pytest.mark.parametrize("entry", ["solve", "iterate"])
+def test_adjoint_kernel_refuses_cpu_tensors(entry):
+    """The kernel's entry points raise on CPU tensors before any launch or
+    build, and run no plain loop in their place."""
+    from tcgan_torch.ops.cuda import ift_adjoint
+
+    cfg = tssn.SSNConfig(**SSN, backend="cuda")
+    (W, I, r, conv), g = _saved(cfg, _z())
+    phi = cfg.io_deriv()(tssn.recurrent_drive(W, r.to(W.dtype), I))
+    alpha = cfg.step_gain(dtype=W.dtype)
+    n0, lib = ift_adjoint.launches, ift_adjoint._library.cache_info()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with pytest.raises(ValueError, match="CUDA"):
+            if entry == "solve":
+                ift_adjoint.solve(W, phi, g, alpha, BWD_ATOL, 100)
+            else:
+                ift_adjoint.iterate(W, phi, g, alpha, g,
+                                    torch.full((), 5), 5)
+        assert profiling.counters() == {}
+    assert ift_adjoint.launches == n0
+    assert ift_adjoint._library.cache_info() == lib
+
+
+class _OneRank:
+    """A split of one rank: its max over ranks is the value itself."""
+
+    model = None
+
+    def max(self, x):
+        return x
+
+
+@pytest.mark.parametrize("stride", [1, 7, 64])
+def test_chunk_over_ranks_plain_equals_unsplit(stride):
+    """``_chunk_over_ranks`` on the plain loop, at a split of one rank,
+    gives the unsplit loop's result and count bit for bit, per group (two
+    members, one nearer criticality)."""
+    cfg = tssn.SSNConfig(**SSN)
+    z = _z()
+    saved, g = _saved(cfg, z)
+    W, I, r, conv = saved
+    W2 = torch.stack([W, 1.3 * W])
+    res = tift.solve_fixed_point_implicit(cfg, W2, I)
+    saved2 = (W2, I, res.r, res.converged)
+    g2 = torch.stack([g, g])
+    out, n = [], []
+    for split in (None, _OneRank()):
+        tift.adjoint_iterations = 0
+        out.append(tift._adjoint(cfg, "iterative", 20000, BWD_ATOL, saved2,
+                                 g2, stride, 1, split=split))
+        n.append(tift.adjoint_iterations)
+    assert n[0] == n[1] > 0
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
