@@ -34,6 +34,8 @@ from typing import NamedTuple
 
 import torch
 
+from tcgan_torch.utils import profiling
+
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 _BITS = {torch.float32: torch.int32, torch.float64: torch.int64}
 # The kernel's arithmetic for each dtype it takes: half types widened to
@@ -41,7 +43,9 @@ _BITS = {torch.float32: torch.int32, torch.float64: torch.int64}
 _COMPUTE = {torch.float32: torch.float32, torch.float64: torch.float64,
             torch.bfloat16: torch.float32, torch.float16: torch.float32}
 
-# Kernel launches since import (or since a caller reset it to 0).
+# Kernel launches since import (or since a caller reset it to 0). While a
+# profiler runs (tcgan_torch.utils.profiling), the launches whose plan reads
+# W from device memory are counted as ``ift.adjoint_w_device_launches``.
 launches = 0
 
 
@@ -192,6 +196,10 @@ def _launch(pr: Problem, lam0: torch.Tensor, max_iter: int, atol: float,
     global launches
     lam = torch.empty_like(pr.g)
     slots, iters, iters_max = stop_outputs or (None,) * 3
+    if profiling.enabled() and not query(
+            pr.circuits, pr.shape[-2], pr.shape[-1], pr.W.dtype,
+            pr.W.device).w_shared:
+        profiling.add("ift.adjoint_w_device_launches")
     torch.ops.tcgan.ift_adjoint(
         pr.W, pr.w_index, pr.phi, pr.g, pr.alpha, lam0, lam, pr.circuits,
         pr.groups, max_iter, float(atol), slots, iters, iters_max, counts,

@@ -92,8 +92,9 @@ launches = 0
 launches_two_phase = 0
 launches_refine = 0
 # While a profiler runs (tcgan_torch.utils.profiling), the solves' rows
-# (host counter ``ssn_solve.rows``) and the substeps they ran by phase (a
-# device total each, added by the kernel).
+# (host counter ``ssn_solve.rows``), the solves by the plan's cluster size
+# (``ssn_solve.launches_cluster.<1, 2, 4 or 8>``) and the substeps they ran
+# by phase (a device total each, added by the kernel).
 SUBSTEPS = ("ssn_solve.phase1_substeps", "ssn_solve.phase2_substeps")
 
 
@@ -426,8 +427,9 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
     schedule of :func:`schedule`. Raises ``ValueError`` past 2N = 2048
     (:func:`plan`; every S is solved below) or on a bad schedule flag, and
     ``RuntimeError`` when the launch fails. While a profiler runs it counts
-    the rows and their substeps by phase (:data:`SUBSTEPS`), on the CPU
-    from the plain version's ``stats``, and spans the launch's host side
+    the rows, the solve under its plan's cluster size and the rows'
+    substeps by phase (:data:`SUBSTEPS`), on the CPU from the plain
+    version's ``stats``, and spans the launch's host side
     (``ssn_solve.launch``).
     """
     global launches, launches_two_phase, launches_refine
@@ -440,7 +442,8 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
     B, n2 = W.shape[0], W.shape[2]
     S = I_ext.shape[0]
     sched = schedule(cfg)  # raises on a bad flag
-    plan(n2, S, accel, refine=sched.refine)  # raises past 2N = 2048
+    # raises past 2N = 2048
+    cluster = plan(n2, S, accel, refine=sched.refine).cluster
     if W.device.type == "cpu" and I_ext.device.type == "cpu":
         if not profiling.enabled():
             return solve_fixed_point_plain(cfg, W, I_ext, check_every, accel)
@@ -451,6 +454,7 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
             [stats[k].sum(dtype=torch.int64)
              for k in ("phase1_substeps", "phase2_substeps")]))
         profiling.add("ssn_solve.rows", B * S)
+        profiling.add(f"ssn_solve.launches_cluster.{cluster}")
         return out
     if W.device.type != "cuda" or I_ext.device != W.device:
         raise ValueError("W and I_ext must both be CPU tensors or both lie on "
@@ -464,6 +468,7 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
         if profiling.enabled():
             substeps = profiling.device_totals(SUBSTEPS, W.device)
             profiling.add("ssn_solve.rows", B * S)
+            profiling.add(f"ssn_solve.launches_cluster.{cluster}")
         result = launch(_library(), cfg, W, I_ext, check_every, accel,
                         substeps=substeps)
     launches += 1

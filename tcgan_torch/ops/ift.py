@@ -46,6 +46,11 @@ solves the dense system, and W's cotangent comes back for this rank's
 columns. (On the kernel backend the model group splits the circuits
 instead, and ``split.model`` is None: ``models/generator.py``.)
 
+While a profiler runs (:mod:`tcgan_torch.utils.profiling`) each adjoint,
+whatever its method, adds its rows to ``ift.adjoint_rows.<2N>`` and its
+circuits (the W matrices it reads) to ``ift.adjoint_circuits.<2N>``: what
+the adjoint's least work and the bytes of W read once are counted from.
+
 Cotangents, io slopes, adjoints and rates of samples whose forward solve did
 not converge are zeroed with ``torch.where`` (not a multiply: NaN * 0 is
 NaN), so an excluded sample is inert in every method and cannot poison the
@@ -54,6 +59,8 @@ returned (the kernel returns fp32 rates).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -103,6 +110,11 @@ def _adjoint(cfg: SSNConfig, grad_method: str, bwd_max_iter: int,
     zero = torch.zeros((), dtype=dtype, device=W.device)
     g = torch.where(ok, g, zero)
     phi = torch.where(ok, phi, zero)
+    if profiling.enabled():
+        n2 = W.shape[-2]
+        profiling.add(f"ift.adjoint_rows.{n2}", math.prod(
+            torch.broadcast_shapes(g.shape, phi.shape)[:-1]))
+        profiling.add(f"ift.adjoint_circuits.{n2}", math.prod(W.shape[:-2]))
 
     if grad_method == "jfb":
         lam = g

@@ -7,8 +7,9 @@ solve), as ``chip_smoke.py`` phase 5 does at 256 circuits; then the
 adjoint kernel (``tcgan_torch.ops.cuda.ift_adjoint``, the ``cuda``
 backend's iterative adjoint) against the plain loop (the ``torch``
 backend's) on the same CUDA inputs, at the fit's shape, per ensemble
-member, per cotangent, with W in device memory (at 2N=600, and at 2N=102
-past one wave of co-resident blocks), in float64 and bfloat16, at the
+member, per cotangent, with W in device memory (at 2N=600, at 2N=102
+past one wave of co-resident blocks, and at the paper's 2N=402 with the
+fit's 256 circuits), in float64 and bfloat16, at the
 iteration cap, with a non-finite sample and with excluded rows. Every test
 carries the ``cuda`` marker and skips where no CUDA device is visible; the
 file imports no jax:
@@ -263,6 +264,32 @@ def test_adjoint_kernel_with_w_in_device_memory(cuda_device, shape):
 
 
 @pytest.mark.cuda
+def test_adjoint_kernel_at_the_paper_width_and_fit_batch(cuda_device):
+    """The round-2 fit's adjoint at the paper's width: C=256 circuits of
+    S=16 rows at 2N=402, one group. A circuit's W (646 KB) passes a
+    block's shared memory, so the plan reads W from device memory and the
+    occupancy-sized cooperative grid walks the 256 circuits; against the
+    plain loop, iterations equal. Under a profiler the launch counts as
+    one that reads W from device memory, beside the adjoint's rows and
+    circuits at 2N=402."""
+    cfg, W, I, r, conv = _fixed_point(cuda_device, 256, N=201)
+    plan = ift_adjoint.query(256, 16, 402, device=cuda_device)
+    assert not plan.w_shared
+    assert plan.grid * plan.circuits_per_block >= 256
+    assert float(conv.float().mean()) > 0.5
+    g = _cotangent(cuda_device, r.shape)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        k = _adjoint(cfg, "cuda", (W, I, r, conv), g)
+    counts = profiling.counters()
+    assert counts["ift.adjoint_kernel_launches"] == 1
+    assert counts["ift.adjoint_w_device_launches"] == 1
+    assert counts["ift.adjoint_rows.402"] == 256 * 16
+    assert counts["ift.adjoint_circuits.402"] == 256
+    _assert_match(k, _adjoint(cfg, "torch", (W, I, r, conv), g))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
 def test_adjoint_kernel_in_w_dtype(cuda_device, dtype):
     """The backward runs in W's dtype: float64 in float64, against the
@@ -348,6 +375,9 @@ def test_adjoint_is_one_launch_and_one_sync(cuda_device):
     assert counts["ift.adjoint_kernel_launches"] == 1
     assert counts["host_syncs.ift.stop_test"] == 1
     assert "ift.adjoint_eager_iterations" not in counts
+    # the fit's 2N=102: W in shared memory
+    assert "ift.adjoint_w_device_launches" not in counts
+    assert counts["ift.adjoint_rows.102"] == 16 * 16
 
 
 class _OneRank:

@@ -543,6 +543,24 @@ def test_refine_cluster_blocks_agree(cuda_device):
 
 
 @pytest.mark.cuda
+def test_fit_battery_at_the_paper_width_on_clusters_of_8(cuda_device):
+    """The round-2 fit's solve at the paper's width: B=256 circuits of S=16
+    rows (contrasts 5 and 10) at 2N=402 and atol 1e-5, in the default
+    schedule (two phases, the refinement tail), one launch on clusters of
+    8 (2,048 blocks), against the plain version: flags equal, rates within
+    tolerance where both converged (a row off it stopped at another
+    substep, which its own fp32 trajectory witnesses, as above)."""
+    cfg, W, I = ab.problem(256, (5.0, 10.0), dict(atol=1e-5, max_iter=10000),
+                           N=201, seed=4, two_phase=True)
+    assert ssn_solve.schedule(cfg).refine
+    assert ssn_solve.plan(402, 16, False, refine=True) == ssn_solve.Plan(
+        8, 16, 1, False)
+    out = _check(cfg, W, I, 32, False, converged_rows_only=True,
+                 witness=True)
+    assert float(out.converged.float().mean()) > 0.5
+
+
+@pytest.mark.cuda
 def test_refine_needs_the_refine_entry(cuda_device):
     """A library without the refinement tail (an earlier build) refuses a
     launch that asks for it: it never runs the 3xTF32 tail in its place."""
