@@ -52,6 +52,20 @@
 // 1.8-3.3 us on an H100 at 700 W against 3.9-5.9 us for the fp32
 // CUDA-core kernel this design replaced (PERF.md), far from the
 // bound: the mma chain's latency and issue rate, not its FLOP, set it.
+// Past the register path a warp's chain is 2N/8 k-steps long (51 at the
+// paper's 2N=402), and on clusters of 8 a block has 4 warps, one an SM
+// scheduler, so nothing hides that latency. Where the plan gives a cluster
+// such blocks of at most 4 warps (their layout holds W, so one block an SM)
+// or reads W from device memory, the refinement-tail kernels therefore run
+// the one-pass loop (phase 1 and the tail's corrections, ~97% of the
+// substeps) as kPartials independent partial sums per n8 tile, operands
+// loaded a turn ahead (mma_partials_1x, kPartialSums): at the N=201 fit's
+// shape (2N=402, S=16, clusters of 8) its substep costs 0.66-0.68 of the
+// single chain's, at 2N=600 S=8 (W from device memory) 0.69-0.72.
+// Elsewhere other warps hide the single chain: at 2N=402 S=8 on clusters
+// of 4 (7 warps an SM) the partial sums cost 0.99 of it, at 2N=240 S=8 on
+// clusters of 2 (8 warps) 1.05-1.12, so the plan keeps the single chain
+// (PERF.md, H100 at 700 W). The 3xTF32 loop keeps three chains, hh, hl and lh.
 //
 // Precision: 3xTF32. Each operand x is split into x_hi = rna_tf32(x) and
 // x_lo = rna_tf32(x - x_hi); hi*hi, hi*lo and lo*hi go to three fp32
@@ -330,6 +344,117 @@ __device__ __forceinline__ void mma_kstep_1x(float (&hh)[NT][4], const uint32_t 
   }
 }
 
+// The refinement-tail kernels' one-pass loop as partial sums (kPartialSums)
+// keeps kPartials independent accumulators per n8 tile, one for each class
+// of k-steps kt mod kPartials, so that each warp runs that many mma chains
+// at once, not one chain of all 2N/8 k-steps: four up to two row tiles, two
+// past them, where the operands in flight take the registers.
+template <int NT>
+constexpr int kPartials = NT <= 2 ? 4 : 2;
+
+// The operands of one k-step in one TF32 pass: this thread's four W values
+// and its two rates of each n8 tile, rounded to TF32.
+template <int NT>
+struct Kstep1x {
+  uint32_t a[4];
+  uint32_t b[NT][2];
+};
+
+// Loads k-step kt into o as the one-pass loop reads it (W from Ws or, on
+// the W-global path, device memory, where column j + t may pass n2 and
+// there is no zero padding); a k-step that is not live, and the rates of a
+// tile that is off (it may lie past the rate plane), read nothing and hold
+// zeros. (Pointing an off tile at the group's first instead, an address
+// chosen once a group, ran 5-7% faster but made ptxas spill on the
+// W-global path: PERF.md.)
+template <int NT, bool kWGlobal, typename WPtr>
+__device__ __forceinline__ void load_kstep_1x(Kstep1x<NT>& o, WPtr w0, WPtr w1, const float* rb,
+                                              int tile_stride, int kt, bool live, int n2, int t,
+                                              bool in0, bool in1, const bool (&on)[NT]) {
+  const int j = kt * kTileK;
+  const bool in4 = live && j + t + 4 < n2;
+  const bool inj = live && (!kWGlobal || j + t < n2);
+  o.a[0] = rna_tf32(in0 && inj ? w0[j] : 0.0f);
+  o.a[1] = rna_tf32(in1 && inj ? w1[j] : 0.0f);
+  o.a[2] = rna_tf32(in0 && in4 ? w0[j + 4] : 0.0f);
+  o.a[3] = rna_tf32(in1 && in4 ? w1[j + 4] : 0.0f);
+#pragma unroll
+  for (int q = 0; q < NT; ++q) {
+    o.b[q][0] = rna_tf32(live && on[q] ? rb[q * tile_stride + j] : 0.0f);
+    o.b[q][1] = rna_tf32(in4 && on[q] ? rb[q * tile_stride + j + 4] : 0.0f);
+  }
+}
+
+// One k-step's products into acc, for the n8 tiles that are on.
+template <int NT>
+__device__ __forceinline__ void mma_1x(float (&acc)[NT][4], const Kstep1x<NT>& o,
+                                       const bool (&on)[NT]) {
+#pragma unroll
+  for (int q = 0; q < NT; ++q)
+    if (on[q]) mma_tf32(acc[q], o.a, o.b[q][0], o.b[q][1]);
+}
+
+// U += W R^T in one TF32 pass into hh, as independent partial sums: k-step
+// kt goes into partial kt mod kPartials, and the loop runs kPartials
+// k-steps a turn, loading the next turn's operands before this turn's
+// mma.sync are issued, so no load or rounding sits on an accumulator's
+// chain. At the end the partials are added in one fixed order, ((p0 + p1) +
+// (p2 + p3)) or (p0 + p1), into hh (zero on entry). The products are those
+// of mma_kstep_1x. (Unrolling the turns by two, or folding the last turns
+// into a loop, made ptxas spill at two row tiles and ran slower: PERF.md.)
+template <int NT, bool kWGlobal, typename WPtr>
+__device__ __forceinline__ void mma_partials_1x(float (&hh)[NT][4], WPtr w0, WPtr w1,
+                                                const float* rb, int tile_stride, int ktiles,
+                                                int n2, int t, bool in0, bool in1,
+                                                const bool (&on)[NT]) {
+  constexpr int P = kPartials<NT>;
+  float acc[P][NT][4];
+#pragma unroll
+  for (int k = 0; k < P; ++k)
+#pragma unroll
+    for (int q = 0; q < NT; ++q)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[k][q][c] = 0.0f;
+  Kstep1x<NT> op[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k)
+    load_kstep_1x<NT, kWGlobal>(op[k], w0, w1, rb, tile_stride, k, k < ktiles, n2, t, in0, in1,
+                                on);
+  // whole turns whose next turn lies inside 2N as well: no bound to test
+  int kt0 = 0;
+  for (; kt0 + 2 * P <= ktiles; kt0 += P) {
+    Kstep1x<NT> nx[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k)
+      load_kstep_1x<NT, kWGlobal>(nx[k], w0, w1, rb, tile_stride, kt0 + P + k, true, n2, t, in0,
+                                  in1, on);
+#pragma unroll
+    for (int k = 0; k < P; ++k) mma_1x<NT>(acc[k], op[k], on);
+#pragma unroll
+    for (int k = 0; k < P; ++k) op[k] = nx[k];
+  }
+  // the last k-steps, kt0 .. ktiles - 1: fewer than two turns
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    if (kt0 + k < ktiles) mma_1x<NT>(acc[k], op[k], on);
+    const int kt = kt0 + P + k;
+    load_kstep_1x<NT, kWGlobal>(op[k], w0, w1, rb, tile_stride, kt, kt < ktiles, n2, t, in0, in1,
+                                on);
+  }
+#pragma unroll
+  for (int k = 0; k < P; ++k)
+    if (kt0 + P + k < ktiles) mma_1x<NT>(acc[k], op[k], on);
+#pragma unroll
+  for (int q = 0; q < NT; ++q)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if constexpr (P == 4)
+        hh[q][c] = (acc[0][q][c] + acc[1][q][c]) + (acc[2][q][c] + acc[3][q][c]);
+      else
+        hh[q][c] = acc[0][q][c] + acc[1][q][c];
+    }
+}
+
 // io_fun on four independent inputs in one straight line, so that their
 // exp/log chains overlap.
 __device__ __forceinline__ void io_fun4(const float (&u)[4], float (&f)[4], const Params& p) {
@@ -393,8 +518,11 @@ __device__ __forceinline__ void phase_boundary(const Params& p, const float* cur
 // one circuit (the header's cluster path). kWGlobal (with kCluster only):
 // W is read from device memory in the k-loop, not from shared memory.
 // kTwoPhase: the header's two-phase schedule; kRefine (with kTwoPhase): its
-// phase 2 in the refinement tail.
-template <int NT, bool kRegA, bool kCluster, bool kWGlobal, bool kTwoPhase, bool kRefine>
+// phase 2 in the refinement tail. kPartialSums (with kRefine and kCluster):
+// the one-pass loop as independent partial sums (mma_partials_1x; the
+// header, Plan::partials).
+template <int NT, bool kRegA, bool kCluster, bool kWGlobal, bool kTwoPhase, bool kRefine,
+          bool kPartialSums>
 __global__ void __launch_bounds__(kRegA ? 32 * kRegK / 2 : kMaxThreads, kRegA ? 2 : 1)
 ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
                  const float* __restrict__ alpha, float* __restrict__ r_out,
@@ -422,6 +550,7 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
 
   static_assert(!kWGlobal || (kCluster && !kRegA), "W-global is a cluster path");
   static_assert(!kRefine || kTwoPhase, "the refinement tail is phase 2");
+  static_assert(!kPartialSums || (kRefine && kCluster), "partial sums: the tail's clusters");
   float* Ws = smem;
   float* Is = kWGlobal ? smem : Ws + (size_t)(kCluster ? p.wrows : n2) * ld;
   float* cur = Is + splane;
@@ -561,6 +690,9 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
               const int j = kt * kTileK;
               mma_kstep_1x<NT>(hh, ahr[kt], rb + j, kTileN * ld, j + t + 4 < n2, on);
             }
+          } else if constexpr (kPartialSums) {
+            mma_partials_1x<NT, kWGlobal>(hh, w0, w1, rb, kTileN * ld, p.ktiles, n2, t, in0, in1,
+                                          on);
           } else if constexpr (kTwoPhase) {
 #pragma unroll 2
             for (int kt = 0; kt < p.ktiles; ++kt) {
@@ -939,30 +1071,38 @@ ssn_solve_kernel(const float* __restrict__ W, const float* __restrict__ I,
 using Kernel = void (*)(const float*, const float*, const float*, float*,
                         uint8_t*, uint8_t*, int*, Params);
 
-template <bool kRegA, bool kCluster, bool kWGlobal, bool kTwoPhase, bool kRefine>
+template <bool kRegA, bool kCluster, bool kWGlobal, bool kTwoPhase, bool kRefine,
+          bool kPartialSums = false>
 Kernel kernel_for_rows(int ntiles) {
   switch (ntiles < kMaxGroupN ? ntiles : kMaxGroupN) {
-    case 1: return ssn_solve_kernel<1, kRegA, kCluster, kWGlobal, kTwoPhase, kRefine>;
-    case 2: return ssn_solve_kernel<2, kRegA, kCluster, kWGlobal, kTwoPhase, kRefine>;
-    case 3: return ssn_solve_kernel<3, kRegA, kCluster, kWGlobal, kTwoPhase, kRefine>;
-    default: return ssn_solve_kernel<kMaxGroupN, kRegA, kCluster, kWGlobal, kTwoPhase, kRefine>;
+    case 1: return ssn_solve_kernel<1, kRegA, kCluster, kWGlobal, kTwoPhase, kRefine, kPartialSums>;
+    case 2: return ssn_solve_kernel<2, kRegA, kCluster, kWGlobal, kTwoPhase, kRefine, kPartialSums>;
+    case 3: return ssn_solve_kernel<3, kRegA, kCluster, kWGlobal, kTwoPhase, kRefine, kPartialSums>;
+    default:
+      return ssn_solve_kernel<kMaxGroupN, kRegA, kCluster, kWGlobal, kTwoPhase, kRefine,
+                              kPartialSums>;
   }
 }
 
 template <bool kTwoPhase, bool kRefine>
-Kernel kernel_for_path(int n2, int ntiles, int cluster, bool wglobal) {
+Kernel kernel_for_path(int n2, int ntiles, int cluster, bool wglobal, bool partials) {
+  if constexpr (kRefine)
+    if (partials)
+      return wglobal ? kernel_for_rows<false, true, true, true, true, true>(ntiles)
+                     : kernel_for_rows<false, true, false, true, true, true>(ntiles);
   if (wglobal) return kernel_for_rows<false, true, true, kTwoPhase, kRefine>(ntiles);
   if (cluster > 1) return kernel_for_rows<false, true, false, kTwoPhase, kRefine>(ntiles);
   return n2 <= kRegK * kTileK ? kernel_for_rows<true, false, false, kTwoPhase, kRefine>(ntiles)
                               : kernel_for_rows<false, false, false, kTwoPhase, kRefine>(ntiles);
 }
 
-// schedule: 0 one phase, 1 two phases, 2 two phases with the refinement tail
-Kernel kernel_for(int n2, int S, int cluster, bool wglobal, int schedule) {
+// schedule: 0 one phase, 1 two phases, 2 two phases with the refinement
+// tail; partials: its one-pass loop as partial sums (Plan::partials)
+Kernel kernel_for(int n2, int S, int cluster, bool wglobal, int schedule, bool partials) {
   const int ntiles = round_up(S, kTileN) / kTileN;
-  if (schedule == 2) return kernel_for_path<true, true>(n2, ntiles, cluster, wglobal);
-  return schedule ? kernel_for_path<true, false>(n2, ntiles, cluster, wglobal)
-                  : kernel_for_path<false, false>(n2, ntiles, cluster, wglobal);
+  if (schedule == 2) return kernel_for_path<true, true>(n2, ntiles, cluster, wglobal, partials);
+  return schedule ? kernel_for_path<true, false>(n2, ntiles, cluster, wglobal, false)
+                  : kernel_for_path<false, false>(n2, ntiles, cluster, wglobal, false);
 }
 
 // Neurons per block of a cluster of c: one warp per m16 slab of them.
@@ -1027,6 +1167,8 @@ Layout layout(int n2, int R, int accel, bool wglobal, bool refine) {
 struct Plan {
   Layout L;
   int rows, chunks;
+  // the refinement tail's one-pass loop as partial sums (set by plan())
+  bool partials;
 };
 
 // The plan at one kind of layout, W in shared memory or not: the least
@@ -1049,7 +1191,11 @@ Plan plan_at(int n2, int S, int accel, bool wglobal, bool refine) {
 // R (the least cluster that fits it with W in shared memory; none where
 // none does); `wglobal` forces W from device memory at the plan's cluster
 // size (c > 1), so that the two paths can be held to each other bit for
-// bit. `refine`: the same rule on the refinement tail's layout.
+// bit. `refine`: the same rule on the refinement tail's layout, where the
+// one-pass loop runs as partial sums on a cluster whose blocks have at most
+// 4 warps (such a layout holds W: one block, one warp a scheduler, an SM)
+// or whose W the plan reads from device memory; decided before a forced
+// W-global, so that it runs the shared-W launch's sums.
 Plan plan(int n2, int S, int accel, int rows, int wglobal, bool refine) {
   Plan P;
   if (rows > 0) {
@@ -1058,6 +1204,7 @@ Plan plan(int n2, int S, int accel, int rows, int wglobal, bool refine) {
     P = plan_at(n2, S, accel, false, refine);
     if (!P.L.cluster) P = plan_at(n2, S, accel, true, refine);
   }
+  P.partials = refine && P.L.cluster > 1 && (P.L.wglobal || slab(n2, P.L.cluster) <= 4 * kTileM);
   if (wglobal && P.L.cluster && !P.L.wglobal)
     P.L = layout_at(n2, P.rows, accel, P.L.cluster, true, refine);
   return P;
@@ -1088,7 +1235,7 @@ cudaError_t prepare(int n2, int S, int accel, int rows, int wglobal, int schedul
                     Kernel* kernel) {
   *P = plan(n2, S, accel, rows, wglobal, schedule == 2);
   if (P->L.cluster == 0) return cudaErrorInvalidValue;
-  *kernel = kernel_for(n2, P->rows, P->L.cluster, P->L.wglobal, schedule);
+  *kernel = kernel_for(n2, P->rows, P->L.cluster, P->L.wglobal, schedule, P->partials);
   return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)P->L.bytes);
 }
@@ -1220,7 +1367,8 @@ int ssn_solve_launch(const void* W, const void* I, const void* alpha, void* r,
 // phases with the refinement tail, whose layout may plan otherwise) and its
 // kernel's occupancy on the current device: out = {cluster size, rows per
 // chunk, chunks, W-global, dynamic shared memory per block, blocks per SM,
-// chunks at once (clusters; at cluster size 1, blocks per SM times SMs)}.
+// chunks at once (clusters; at cluster size 1, blocks per SM times SMs),
+// the one-pass loop as partial sums}.
 // Returns 0, cudaErrorInvalidValue where no layout fits, or the cudaError_t
 // of a query that failed.
 int ssn_solve_query(int n2, int S, int accel, int schedule, int* out) {
@@ -1233,6 +1381,7 @@ int ssn_solve_query(int n2, int S, int accel, int schedule, int* out) {
   out[2] = P.chunks;
   out[3] = P.L.wglobal;
   out[4] = (int)P.L.bytes;
+  out[7] = P.partials;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &out[5], kernel, 32 * slab(n2, P.L.cluster) / kTileM, P.L.bytes);
   if (err != cudaSuccess) return (int)err;

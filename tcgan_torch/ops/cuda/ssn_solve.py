@@ -93,8 +93,10 @@ launches_two_phase = 0
 launches_refine = 0
 # While a profiler runs (tcgan_torch.utils.profiling), the solves' rows
 # (host counter ``ssn_solve.rows``), the solves by the plan's cluster size
-# (``ssn_solve.launches_cluster.<1, 2, 4 or 8>``) and the substeps they ran
-# by phase (a device total each, added by the kernel).
+# (``ssn_solve.launches_cluster.<1, 2, 4 or 8>``), the solves whose
+# one-TF32-pass loop runs as independent partial sums
+# (``ssn_solve.launches_partial_sums``, :func:`partial_sums`) and the
+# substeps they ran by phase (a device total each, added by the kernel).
 SUBSTEPS = ("ssn_solve.phase1_substeps", "ssn_solve.phase2_substeps")
 
 
@@ -183,6 +185,15 @@ def _plan_at(n2: int, S: int, accel: bool, w_global: bool,
         return None
     chunks = -(-S // _max_rows(n2, accel, c, w_global, refine))
     return Plan(c, _round_up(-(-S // chunks), TILE_N), chunks, w_global)
+
+
+def partial_sums(n2: int, p: Plan) -> bool:
+    """Whether the kernel in the refinement tail, at its plan ``p`` in that
+    schedule, runs the one-pass loop as independent partial sums
+    (``Plan::partials`` in ``ssn_solve.cu``): on a cluster whose blocks have
+    at most 4 warps, one an SM scheduler, or whose W the plan reads from
+    device memory. Elsewhere other warps hide the single chain (PERF.md)."""
+    return p.cluster > 1 and (p.w_global or slab(n2, p.cluster) <= 4 * TILE_M)
 
 
 def plan(n2: int, S: int, accel: bool, rows: int | None = None,
@@ -368,13 +379,16 @@ def _library() -> ctypes.CDLL:
 
 class Query(NamedTuple):
     """The compiled kernel's plan of a shape in a schedule (``ssn_solve_query``
-    in ``ssn_solve.cu``), its shared memory per block, and its occupancy
-    on the current device: blocks per SM and chunks of rows at once."""
+    in ``ssn_solve.cu``), its shared memory per block, its occupancy on the
+    current device (blocks per SM and chunks of rows at once), and whether
+    its one-pass loop runs as partial sums (:func:`partial_sums`; False in
+    builds before them)."""
 
     plan: Plan
     smem_bytes: int
     blocks_per_sm: int
     chunks_at_once: int
+    partial_sums: bool
 
 
 def query(n2: int, S: int, accel: bool = False, refine: bool = False,
@@ -384,7 +398,7 @@ def query(n2: int, S: int, accel: bool = False, refine: bool = False,
     two phases with the refinement tail; raises ``ValueError`` where no
     layout fits, ``RuntimeError`` where the runtime's query fails."""
     lib = lib or _library()
-    out = (ctypes.c_int * 7)()
+    out = (ctypes.c_int * 8)()
     with torch.cuda.device(device):
         err = lib.ssn_solve_query(n2, S, int(accel), 2 if refine else 0, out)
     if err == 1:  # cudaErrorInvalidValue: no layout fits
@@ -392,8 +406,9 @@ def query(n2: int, S: int, accel: bool = False, refine: bool = False,
     if err:
         raise RuntimeError(f"occupancy query failed: cudaError {err} "
                            f"({lib.ssn_solve_error_string(err).decode()})")
-    c, rows, chunks, wg, nbytes, blocks, at_once = out
-    return Query(Plan(c, rows, chunks, bool(wg)), nbytes, blocks, at_once)
+    c, rows, chunks, wg, nbytes, blocks, at_once, partials = out
+    return Query(Plan(c, rows, chunks, bool(wg)), nbytes, blocks, at_once,
+                 bool(partials))
 
 
 def blocks_per_sm(n2: int, S: int, accel: bool = False,
@@ -427,8 +442,9 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
     schedule of :func:`schedule`. Raises ``ValueError`` past 2N = 2048
     (:func:`plan`; every S is solved below) or on a bad schedule flag, and
     ``RuntimeError`` when the launch fails. While a profiler runs it counts
-    the rows, the solve under its plan's cluster size and the rows'
-    substeps by phase (:data:`SUBSTEPS`), on the CPU from the plain
+    the rows, the solve under its plan's cluster size, the solve again if
+    its one-pass loop runs as partial sums, and the rows' substeps by
+    phase (:data:`SUBSTEPS`), on the CPU from the plain
     version's ``stats``, and spans the launch's host side
     (``ssn_solve.launch``).
     """
@@ -442,8 +458,8 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
     B, n2 = W.shape[0], W.shape[2]
     S = I_ext.shape[0]
     sched = schedule(cfg)  # raises on a bad flag
-    # raises past 2N = 2048
-    cluster = plan(n2, S, accel, refine=sched.refine).cluster
+    p = plan(n2, S, accel, refine=sched.refine)  # raises past 2N = 2048
+    cluster, partial = p.cluster, sched.refine and partial_sums(n2, p)
     if W.device.type == "cpu" and I_ext.device.type == "cpu":
         if not profiling.enabled():
             return solve_fixed_point_plain(cfg, W, I_ext, check_every, accel)
@@ -455,6 +471,8 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
              for k in ("phase1_substeps", "phase2_substeps")]))
         profiling.add("ssn_solve.rows", B * S)
         profiling.add(f"ssn_solve.launches_cluster.{cluster}")
+        if partial:
+            profiling.add("ssn_solve.launches_partial_sums")
         return out
     if W.device.type != "cuda" or I_ext.device != W.device:
         raise ValueError("W and I_ext must both be CPU tensors or both lie on "
@@ -469,6 +487,8 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
             substeps = profiling.device_totals(SUBSTEPS, W.device)
             profiling.add("ssn_solve.rows", B * S)
             profiling.add(f"ssn_solve.launches_cluster.{cluster}")
+            if partial:
+                profiling.add("ssn_solve.launches_partial_sums")
         result = launch(_library(), cfg, W, I_ext, check_every, accel,
                         substeps=substeps)
     launches += 1

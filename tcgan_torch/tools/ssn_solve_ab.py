@@ -459,7 +459,8 @@ def _schedules(lib, shape, spec, reps, name, baseline=None) -> dict:
 
 # The substep's cost in each arithmetic (``_substep_costs``): name ->
 # (N, circuits, contrasts, accel, substeps), the register path at 1-4 row
-# tiles, one block past it, a cluster, W from device memory.
+# tiles, one block past it, a cluster, the N=201 fit's solve (clusters of
+# 8), W from device memory.
 SUBSTEP_SHAPES = {
     "S=8 B=32": (51, 32, (CONTRAST,), False, 1024),
     "S=8 B=512": (51, 512, (CONTRAST,), False, 1024),
@@ -468,6 +469,7 @@ SUBSTEP_SHAPES = {
     "S=32 B=256": (51, 256, (2.5, 5.0, 7.5, CONTRAST), False, 1024),
     "2N=240 S=8 B=64": (120, 64, (CONTRAST,), False, 512),
     "2N=402 S=8 B=64": (201, 64, (CONTRAST,), False, 512),
+    "2N=402 S=16 B=256": (201, 256, (5.0, CONTRAST), False, 512),
     "2N=600 S=8 B=64": (300, 64, (CONTRAST,), False, 256),
 }
 

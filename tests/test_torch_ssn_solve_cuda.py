@@ -276,6 +276,44 @@ def test_forced_global_w_is_bit_equal(cuda_device, case):
     assert float(a.converged.float().mean()) > 0.5
 
 
+# name: (N, circuits, contrasts, the shared-W plan, its one-pass loop as
+# partial sums) in the default schedule, the refinement tail:
+# n201_forward's plan (7 warps a block: the single chain), 3 row tiles on
+# clusters of 8 (2 partials), and 7 row tiles on blocks of 4 warps (two
+# groups of 4 tiles, the last with a tile off, past the rate plane)
+GLOBAL_FORCED_REFINE = {
+    "2N402_S8_clusters4": (201, 16, (10.0,), (4, 8, 1), False),
+    "2N402_S24_clusters8": (201, 8, (5.0, 10.0, 13.0), (8, 24, 1), True),
+    "2N194_S56_clusters4": (97, 8, (2.5, 4.0, 5.0, 6.5, 8.0, 10.0, 13.0),
+                            (4, 56, 1), True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GLOBAL_FORCED_REFINE))
+def test_forced_global_w_is_bit_equal_in_the_refinement_tail(cuda_device,
+                                                             case):
+    """The W-global path forced at the shared-W plan in two phases with the
+    refinement tail: its one-pass loop reads W from device memory into the
+    same sums in the same order (the single chain, or the same partial
+    sums), so rates, flags and iters are bit-equal."""
+    N, B, contrasts, shared, partials = GLOBAL_FORCED_REFINE[case]
+    cfg, W, I = ab.problem(B, contrasts, {}, N=N, seed=2, two_phase=True)
+    S = I.shape[0]
+    assert ssn_solve.schedule(cfg).refine
+    assert ssn_solve.plan(2 * N, S, False, refine=True) == (*shared, False)
+    assert ssn_solve.query(2 * N, S, False, True).partial_sums == partials
+    assert ssn_solve.plan(2 * N, S, False, w_global=True,
+                          refine=True) == (*shared, True)
+    lib = ssn_solve._library()
+    a = ssn_solve.launch(lib, cfg, W, I, 32, False)
+    b = ssn_solve.launch(lib, cfg, W, I, 32, False, w_global=True)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert float(a.converged.float().mean()) > 0.5
+
+
 # name: (N, circuits, contrasts, accel): past a cluster of 8's shared memory
 # at 8 rows, W read from device memory; contrasts to 10 (past it the
 # stopping chunk of slow rows is not stable under rounding, PERF.md)
@@ -305,7 +343,8 @@ def test_plan_matches_the_kernel(cuda_device):
     """The wrapper's plan is the kernel's: cluster size, rows per chunk,
     chunks, where W is read from and the shared memory, from the C entry
     point (``ssn_solve_query``) over a grid of shapes, in one phase and in
-    the refinement tail's layout, both refusing past 2N=2048."""
+    the refinement tail's layout, both refusing past 2N=2048; and, in the
+    refinement tail, whether the one-pass loop runs as partial sums."""
     for n2 in (2, 26, 102, 224, 240, 402, 512, 576, 578, 596, 598, 600, 640,
                1024, 1500, 2048, 2050):
         for S in (1, 8, 17, 24, 32, 48, 64, 96, 184, 256, 1000):
@@ -321,6 +360,8 @@ def test_plan_matches_the_kernel(cuda_device):
                     assert q.plan == p, (n2, S, accel, refine)
                     assert q.smem_bytes == ssn_solve.smem_bytes(
                         n2, p.rows, accel, p.cluster, p.w_global, refine)
+                    assert q.partial_sums == (
+                        refine and ssn_solve.partial_sums(n2, p))
 
 
 @pytest.mark.cuda
