@@ -535,8 +535,8 @@ def _chunks_alone(lib, name, cfg, W, I, accel, out, plan) -> None:
     R = plan.rows
     for k in range(plan.chunks):
         rows = I[k * R:(k + 1) * R].contiguous()
-        alone = ssn_solve.launch(lib, cfg, W, rows, CHECK_EVERY, accel,
-                                 rows_per_chunk=R)
+        alone, _, _ = ssn_solve.launch(lib, cfg, W, rows, CHECK_EVERY,
+                                       accel, rows_per_chunk=R)
         torch.cuda.synchronize()
         if not all(torch.equal(x[:, k * R:(k + 1) * R], y)
                    for x, y in zip(out, alone)):
@@ -627,9 +627,9 @@ def _forced_split(lib) -> None:
         split = ssn_solve.plan(102, 32, accel, rows=8)
         if whole != (1, 32, 1, False) or split != (1, 8, 4, False):
             raise AssertionError(f"forced split: plans {whole}, {split}")
-        a = ssn_solve.launch(lib, c, W, I, CHECK_EVERY, accel)
-        b = ssn_solve.launch(lib, c, W, I, CHECK_EVERY, accel,
-                             rows_per_chunk=8)
+        a, _, _ = ssn_solve.launch(lib, c, W, I, CHECK_EVERY, accel)
+        b, _, _ = ssn_solve.launch(lib, c, W, I, CHECK_EVERY, accel,
+                                   rows_per_chunk=8)
         torch.cuda.synchronize()
         same = [torch.equal(x, y) for x, y in zip(a, b)]
         _line(f"[kernel] forced split 2N=102 S=32 B=32"
@@ -658,8 +658,9 @@ def _forced_global(card: str, lib) -> None:
         forced = ssn_solve.plan(402, S, accel, w_global=True)
         if shared.w_global or forced != shared._replace(w_global=True):
             raise AssertionError(f"forced W-global: plans {shared}, {forced}")
-        a = ssn_solve.launch(lib, c, W, I, CHECK_EVERY, accel)
-        b = ssn_solve.launch(lib, c, W, I, CHECK_EVERY, accel, w_global=True)
+        a, _, _ = ssn_solve.launch(lib, c, W, I, CHECK_EVERY, accel)
+        b, _, _ = ssn_solve.launch(lib, c, W, I, CHECK_EVERY, accel,
+                                   w_global=True)
         torch.cuda.synchronize()
         same = [torch.equal(x, y) for x, y in zip(a, b)]
         ms = [_median_ms(lambda wg=wg: ssn_solve.launch(
@@ -1479,7 +1480,7 @@ def phase_ift(card: str) -> dict:
     n2, S = W.shape[-1], I.shape[0]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     refine = ssn_solve.schedule(c).refine
-    per_sm = ssn_solve.blocks_per_sm(n2, S, device=dev, refine=refine)
+    per_sm = ssn_solve.query(n2, S, refine=refine, device=dev).blocks_per_sm
     cap = per_sm * sms
 
     def copies_ms(b):

@@ -1246,28 +1246,37 @@ extern "C" {
 
 // Launches the solve of B circuits on `stream` with R = `rows` rows per
 // chunk (0: the plan's) and, with `wglobal`, W read from device memory at
-// the plan's cluster size; with `two_phase` 1, the header's two-phase
-// schedule: phase 1 to `coarse` within `max_iter1` substeps, phase-1
-// diverged rows whose peak passes `reopen_at` (> 0) kept diverged; with 2,
-// the same with phase 2 in the refinement tail (and its layout's plan).
+// the plan's cluster size, in a `schedule`: 0 one phase; 1 the header's
+// two-phase schedule, phase 1 to `coarse` within `max_iter1` substeps,
+// phase-1 diverged rows whose peak passes `reopen_at` (> 0) kept diverged;
+// 2 the same with phase 2 in the refinement tail (and its layout's plan).
 // `substeps`: null, or two int64 totals on the device to which the launch
 // adds the substeps its rows ran in phase 1 and in phase 2 (in one phase,
 // all in phase 2), counted a chunk of check_every substeps at a time.
+// `plan_out`: null, or five ints in host memory that receive the plan the
+// launch takes: {cluster size, rows per chunk, chunks, W-global, the
+// one-pass loop as partial sums}.
 // Returns the cudaError_t of the attribute call, of the cluster occupancy
 // check (cluster sizes > 1: cudaErrorLaunchOutOfResources when not one
 // cluster fits the device) or of the launch (cudaGetLastError), 0 on
 // success; cudaErrorInvalidValue when no layout fits.
-int ssn_solve_launch_counted(const void* W, const void* I, const void* alpha, void* r,
-                             void* conv, void* div, void* iters, int B, int n2, int S,
-                             int io_type, float k, float n, float r0, float r1,
-                             float u0, float slope, float atol, float rate_stop_at,
-                             float ceiling, int max_iter, int check_every, int init_ff,
-                             int accel, void* stream, int rows, int wglobal, int two_phase,
-                             float coarse, int max_iter1, float reopen_at, void* substeps) {
+int ssn_solve_run(const void* W, const void* I, const void* alpha, void* r, void* conv,
+                  void* div, void* iters, int B, int n2, int S, int io_type, float k, float n,
+                  float r0, float r1, float u0, float slope, float atol, float rate_stop_at,
+                  float ceiling, int max_iter, int check_every, int init_ff, int accel,
+                  void* stream, int rows, int wglobal, int schedule, float coarse,
+                  int max_iter1, float reopen_at, void* substeps, int* plan_out) {
   Plan P;
   Kernel kernel;
-  cudaError_t err = prepare(n2, S, accel, rows, wglobal, two_phase, &P, &kernel);
+  cudaError_t err = prepare(n2, S, accel, rows, wglobal, schedule, &P, &kernel);
   if (err != cudaSuccess) return (int)err;
+  if (plan_out) {
+    plan_out[0] = P.L.cluster;
+    plan_out[1] = P.rows;
+    plan_out[2] = P.chunks;
+    plan_out[3] = P.L.wglobal;
+    plan_out[4] = P.partials;
+  }
   const Layout& L = P.L;
   Params p;
   p.n2 = n2;
@@ -1322,45 +1331,6 @@ int ssn_solve_launch_counted(const void* W, const void* I, const void* alpha, vo
   err = cudaLaunchKernelEx(&cfg, kernel, Wf, If, af, rf, cf, df, itf, p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
-}
-
-// ssn_solve_launch_counted counting nothing.
-int ssn_solve_launch_schedule(const void* W, const void* I, const void* alpha, void* r,
-                              void* conv, void* div, void* iters, int B, int n2, int S,
-                              int io_type, float k, float n, float r0, float r1,
-                              float u0, float slope, float atol, float rate_stop_at,
-                              float ceiling, int max_iter, int check_every, int init_ff,
-                              int accel, void* stream, int rows, int wglobal, int two_phase,
-                              float coarse, int max_iter1, float reopen_at) {
-  return ssn_solve_launch_counted(W, I, alpha, r, conv, div, iters, B, n2, S, io_type, k, n,
-                                  r0, r1, u0, slope, atol, rate_stop_at, ceiling, max_iter,
-                                  check_every, init_ff, accel, stream, rows, wglobal, two_phase,
-                                  coarse, max_iter1, reopen_at, nullptr);
-}
-
-// ssn_solve_launch_schedule in one phase.
-int ssn_solve_launch_plan(const void* W, const void* I, const void* alpha, void* r,
-                          void* conv, void* div, void* iters, int B, int n2, int S,
-                          int io_type, float k, float n, float r0, float r1,
-                          float u0, float slope, float atol, float rate_stop_at,
-                          float ceiling, int max_iter, int check_every, int init_ff,
-                          int accel, void* stream, int rows, int wglobal) {
-  return ssn_solve_launch_schedule(W, I, alpha, r, conv, div, iters, B, n2, S, io_type, k, n,
-                                   r0, r1, u0, slope, atol, rate_stop_at, ceiling, max_iter,
-                                   check_every, init_ff, accel, stream, rows, wglobal, 0, atol,
-                                   0, 0.0f);
-}
-
-// ssn_solve_launch_plan at the plan's rows per chunk and W.
-int ssn_solve_launch(const void* W, const void* I, const void* alpha, void* r,
-                     void* conv, void* div, void* iters, int B, int n2, int S,
-                     int io_type, float k, float n, float r0, float r1,
-                     float u0, float slope, float atol, float rate_stop_at,
-                     float ceiling, int max_iter, int check_every, int init_ff,
-                     int accel, void* stream) {
-  return ssn_solve_launch_plan(W, I, alpha, r, conv, div, iters, B, n2, S, io_type, k, n, r0,
-                               r1, u0, slope, atol, rate_stop_at, ceiling, max_iter,
-                               check_every, init_ff, accel, stream, 0, 0);
 }
 
 // The plan of this shape in a schedule (0 one phase, 1 two phases, 2 two

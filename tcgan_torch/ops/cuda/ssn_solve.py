@@ -93,10 +93,12 @@ launches_two_phase = 0
 launches_refine = 0
 # While a profiler runs (tcgan_torch.utils.profiling), the solves' rows
 # (host counter ``ssn_solve.rows``), the solves by the plan's cluster size
-# (``ssn_solve.launches_cluster.<1, 2, 4 or 8>``), the solves whose
-# one-TF32-pass loop runs as independent partial sums
-# (``ssn_solve.launches_partial_sums``, :func:`partial_sums`) and the
-# substeps they ran by phase (a device total each, added by the kernel).
+# (``ssn_solve.launches_cluster.<1, 2, 4 or 8>``), the launches whose
+# one-TF32-pass loop ran as independent partial sums
+# (``ssn_solve.launches_partial_sums``; both from the plan the launch
+# reports, on the CPU from the plain version's plan, with no partial sums)
+# and the substeps they ran by phase (a device total each, added by the
+# kernel).
 SUBSTEPS = ("ssn_solve.phase1_substeps", "ssn_solve.phase2_substeps")
 
 
@@ -185,15 +187,6 @@ def _plan_at(n2: int, S: int, accel: bool, w_global: bool,
         return None
     chunks = -(-S // _max_rows(n2, accel, c, w_global, refine))
     return Plan(c, _round_up(-(-S // chunks), TILE_N), chunks, w_global)
-
-
-def partial_sums(n2: int, p: Plan) -> bool:
-    """Whether the kernel in the refinement tail, at its plan ``p`` in that
-    schedule, runs the one-pass loop as independent partial sums
-    (``Plan::partials`` in ``ssn_solve.cu``): on a cluster whose blocks have
-    at most 4 warps, one an SM scheduler, or whose W the plan reads from
-    device memory. Elsewhere other warps hide the single chain (PERF.md)."""
-    return p.cluster > 1 and (p.w_global or slab(n2, p.cluster) <= 4 * TILE_M)
 
 
 def plan(n2: int, S: int, accel: bool, rows: int | None = None,
@@ -319,16 +312,19 @@ def solve_fixed_point_plain(cfg: SSNConfig, W: torch.Tensor,
     (default: the fp32 drive; :func:`drive_1xtf32` computes the kernel's).
     ``stop_at`` (B, S) replays a launch's rows to their ``iters``, and
     ``stats`` receives the substeps each row ran in each phase, as
-    ``solve_fixed_point`` takes them."""
+    ``solve_fixed_point`` takes them, and under ``plan`` the launch's
+    :func:`plan`. Raises ``ValueError`` where the kernel has no plan."""
     cfg = dataclasses.replace(cfg, accel="anderson" if accel else "none")
     W, I_ext = W.to(torch.float32), I_ext.to(torch.float32)
     sched = schedule(cfg)
+    p = plan(W.shape[-1], I_ext.shape[-2], accel, refine=sched.refine)
+    if stats is not None:
+        stats["plan"] = p
     two_phase = None
     if sched.two_phase:
-        two_phase = fixed_point.TwoPhase(
-            plan(W.shape[-1], I_ext.shape[-2], accel,
-                 refine=sched.refine).rows, sched.coarse, sched.max_iter1,
-            sched.reopen_at, fast_drive, sched.refine)
+        two_phase = fixed_point.TwoPhase(p.rows, sched.coarse,
+                                         sched.max_iter1, sched.reopen_at,
+                                         fast_drive, sched.refine)
     return fixed_point.solve_fixed_point(
         cfg, W, I_ext, check_every=check_every, two_phase=two_phase,
         stop_at=stop_at, stats=stats)
@@ -338,34 +334,13 @@ def bind(path) -> ctypes.CDLL:
     """Load a built solver library and declare its C interface."""
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ssn_solve_launch.argtypes = ([p] * 7 + [i] * 4 + [f] * 9 + [i] * 4
-                                     + [p])
-    lib.ssn_solve_launch.restype = i
+    lib.ssn_solve_run.argtypes = ([p] * 7 + [i] * 4 + [f] * 9 + [i] * 4
+                                  + [p] + [i, i, i, f, i, f, p, p])
+    lib.ssn_solve_run.restype = i
+    lib.ssn_solve_query.argtypes = [i, i, i, i, p]
+    lib.ssn_solve_query.restype = i
     lib.ssn_solve_error_string.argtypes = [i]
     lib.ssn_solve_error_string.restype = ctypes.c_char_p
-    # absent from earlier builds: forced rows per chunk and W-global path;
-    # the two-phase schedule
-    fn = getattr(lib, "ssn_solve_launch_plan", None)
-    if fn is not None:
-        fn.argtypes = lib.ssn_solve_launch.argtypes + [i, i]
-        fn.restype = i
-    fn = getattr(lib, "ssn_solve_launch_schedule", None)
-    if fn is not None:
-        fn.argtypes = lib.ssn_solve_launch.argtypes + [i, i, i, f, i, f]
-        fn.restype = i
-    # absent from earlier builds: the launch that counts its substeps
-    fn = getattr(lib, "ssn_solve_launch_counted", None)
-    if fn is not None:
-        fn.argtypes = lib.ssn_solve_launch.argtypes + [i, i, i, f, i, f, p]
-        fn.restype = i
-    # absent from earlier builds: the plan and occupancy in a schedule (and
-    # the refinement tail's launch, schedule 2); earlier builds answer with
-    # ssn_solve_blocks_per_sm, _cluster_size, _rows_per_chunk, _w_global
-    # and _active_clusters (n2, S, accel), in one phase
-    fn = getattr(lib, "ssn_solve_query", None)
-    if fn is not None:
-        fn.argtypes = [i, i, i, i, p]
-        fn.restype = i
     return lib
 
 
@@ -381,8 +356,7 @@ class Query(NamedTuple):
     """The compiled kernel's plan of a shape in a schedule (``ssn_solve_query``
     in ``ssn_solve.cu``), its shared memory per block, its occupancy on the
     current device (blocks per SM and chunks of rows at once), and whether
-    its one-pass loop runs as partial sums (:func:`partial_sums`; False in
-    builds before them)."""
+    its one-pass loop runs as partial sums."""
 
     plan: Plan
     smem_bytes: int
@@ -411,26 +385,6 @@ def query(n2: int, S: int, accel: bool = False, refine: bool = False,
                  bool(partials))
 
 
-def blocks_per_sm(n2: int, S: int, accel: bool = False,
-                  device: torch.device | str = "cuda",
-                  refine: bool = False) -> int:
-    """Blocks of the compiled kernel that one SM of ``device`` holds at this
-    shape (in the refinement tail's layout with ``refine``), by the CUDA
-    runtime's occupancy calculation; a batch of B circuits runs in ceil(B /
-    (blocks_per_sm * SMs)) waves."""
-    return query(n2, S, accel, refine, device).blocks_per_sm
-
-
-def active_clusters(n2: int, S: int, accel: bool = False,
-                    device: torch.device | str = "cuda") -> tuple[int, int]:
-    """(blocks per chunk of rows, chunks ``device`` solves at once) at this
-    shape's one-phase plan, by the CUDA runtime (at one block per chunk:
-    blocks per SM times SMs); a batch of B circuits in K chunks each runs
-    in ceil(B K / that) waves."""
-    q = query(n2, S, accel, device=device)
-    return q.plan.cluster, q.chunks_at_once
-
-
 def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
                            I_ext: torch.Tensor, check_every: int = 1,
                            accel: bool = False
@@ -442,10 +396,11 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
     schedule of :func:`schedule`. Raises ``ValueError`` past 2N = 2048
     (:func:`plan`; every S is solved below) or on a bad schedule flag, and
     ``RuntimeError`` when the launch fails. While a profiler runs it counts
-    the rows, the solve under its plan's cluster size, the solve again if
-    its one-pass loop runs as partial sums, and the rows' substeps by
-    phase (:data:`SUBSTEPS`), on the CPU from the plain
-    version's ``stats``, and spans the launch's host side
+    the rows, the solve under its plan's cluster size, the launch again if
+    its one-pass loop ran as partial sums, and the rows' substeps by phase
+    (:data:`SUBSTEPS`): on the card from the plan the launch reports and the
+    kernel's totals, on the CPU from the plain version's plan and ``stats``
+    (no kernel, so no partial sums); and it spans the launch's host side
     (``ssn_solve.launch``).
     """
     global launches, launches_two_phase, launches_refine
@@ -458,8 +413,6 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
     B, n2 = W.shape[0], W.shape[2]
     S = I_ext.shape[0]
     sched = schedule(cfg)  # raises on a bad flag
-    p = plan(n2, S, accel, refine=sched.refine)  # raises past 2N = 2048
-    cluster, partial = p.cluster, sched.refine and partial_sums(n2, p)
     if W.device.type == "cpu" and I_ext.device.type == "cpu":
         if not profiling.enabled():
             return solve_fixed_point_plain(cfg, W, I_ext, check_every, accel)
@@ -469,32 +422,27 @@ def solve_fixed_point_cuda(cfg: SSNConfig, W: torch.Tensor,
         profiling.device_totals(SUBSTEPS, W.device).add_(torch.stack(
             [stats[k].sum(dtype=torch.int64)
              for k in ("phase1_substeps", "phase2_substeps")]))
-        profiling.add("ssn_solve.rows", B * S)
-        profiling.add(f"ssn_solve.launches_cluster.{cluster}")
-        if partial:
-            profiling.add("ssn_solve.launches_partial_sums")
-        return out
-    if W.device.type != "cuda" or I_ext.device != W.device:
-        raise ValueError("W and I_ext must both be CPU tensors or both lie on "
-                         f"one CUDA device; got {W.device} and "
-                         f"{I_ext.device}")
-
-    if B == 0 or S == 0:
-        return _outputs(B, S, n2, W.device)
-    with profiling.span("ssn_solve.launch"):
-        substeps = None
-        if profiling.enabled():
-            substeps = profiling.device_totals(SUBSTEPS, W.device)
-            profiling.add("ssn_solve.rows", B * S)
-            profiling.add(f"ssn_solve.launches_cluster.{cluster}")
-            if partial:
-                profiling.add("ssn_solve.launches_partial_sums")
-        result = launch(_library(), cfg, W, I_ext, check_every, accel,
-                        substeps=substeps)
-    launches += 1
-    launches_two_phase += sched.two_phase
-    launches_refine += sched.refine
-    return result
+        p, partials = stats["plan"], False
+    else:
+        if W.device.type != "cuda" or I_ext.device != W.device:
+            raise ValueError("W and I_ext must both be CPU tensors or both "
+                             f"lie on one CUDA device; got {W.device} and "
+                             f"{I_ext.device}")
+        if B == 0 or S == 0:
+            return _outputs(B, S, n2, W.device)
+        with profiling.span("ssn_solve.launch"):
+            substeps = (profiling.device_totals(SUBSTEPS, W.device)
+                        if profiling.enabled() else None)
+            out, p, partials = launch(_library(), cfg, W, I_ext, check_every,
+                                      accel, substeps=substeps)
+        launches += 1
+        launches_two_phase += sched.two_phase
+        launches_refine += sched.refine
+    profiling.add("ssn_solve.rows", B * S)
+    profiling.add(f"ssn_solve.launches_cluster.{p.cluster}")
+    if partials:
+        profiling.add("ssn_solve.launches_partial_sums")
+    return out
 
 
 def _outputs(B: int, S: int, n2: int, device) -> fixed_point.FixedPointResult:
@@ -510,21 +458,20 @@ def launch(lib: ctypes.CDLL, cfg: SSNConfig, W: torch.Tensor,
            rows_per_chunk: int | None = None, w_global: bool = False,
            sched: Schedule | None = None,
            substeps: torch.Tensor | None = None
-           ) -> fixed_point.FixedPointResult:
+           ) -> tuple[fixed_point.FixedPointResult, Plan, bool]:
     """One launch of the solver in ``lib`` (see :func:`bind`) on CUDA
     tensors that :func:`solve_fixed_point_cuda` has checked, in the
-    schedule of :func:`schedule`; raises if the launch fails, and where
-    ``lib`` (an earlier build) has no two-phase entry and ``cfg`` asks for
-    two phases, or no refinement tail and ``cfg`` asks for it: nothing runs
-    another schedule in its place. Counts nothing. ``rows_per_chunk``
-    forces the plan's rows per chunk (``plan(..., rows=)``), so that a
-    split launch can be held to an unsplit one; ``w_global`` forces W from
-    device memory at the plan's cluster size (``plan(..., w_global=)``), so
-    that the W-global path can be held to the shared-W one. ``sched``
-    replaces ``schedule(cfg)`` (a tool's phase budget, for example).
-    ``substeps``: an int64 buffer of two on the device to which the launch
-    adds its rows' substeps in phase 1 and in phase 2 (one phase: all in
-    phase 2); it needs a library with ``ssn_solve_launch_counted``."""
+    schedule of :func:`schedule`: (outputs, the plan the kernel took,
+    whether its one-pass loop ran as partial sums). Raises ``ValueError``
+    where no layout fits (the message of :func:`plan`), ``RuntimeError``
+    where the launch fails. Counts nothing. ``rows_per_chunk`` forces the
+    plan's rows per chunk (``plan(..., rows=)``), so that a split launch can
+    be held to an unsplit one; ``w_global`` forces W from device memory at
+    the plan's cluster size (``plan(..., w_global=)``), so that the W-global
+    path can be held to the shared-W one. ``sched`` replaces
+    ``schedule(cfg)`` (a tool's phase budget, for example). ``substeps``: an
+    int64 buffer of two on the device to which the launch adds its rows'
+    substeps in phase 1 and in phase 2 (one phase: all in phase 2)."""
     B, n2, S = W.shape[0], W.shape[2], I_ext.shape[0]
     sched = sched or schedule(cfg)
     device = W.device
@@ -534,39 +481,24 @@ def launch(lib: ctypes.CDLL, cfg: SSNConfig, W: torch.Tensor,
     r, conv, div, iters = out = _outputs(B, S, n2, device)
     u0, slope = io_funs.linear_knee(cfg.k, cfg.n, cfg.rate_soft_bound)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    args = [ptr(W32), ptr(I32), ptr(alpha), ptr(r), ptr(conv), ptr(div),
+    taken = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        err = lib.ssn_solve_run(
+            ptr(W32), ptr(I32), ptr(alpha), ptr(r), ptr(conv), ptr(div),
             ptr(iters), B, n2, S, _IO_CODES[cfg.io_type], cfg.k, cfg.n,
             cfg.rate_soft_bound, cfg.rate_hard_bound, u0, slope, cfg.atol,
             cfg.rate_stop_at, 10.0 * cfg.rate_stop_at, cfg.max_iter,
             check_every, int(cfg.init == "feedforward"), int(accel),
-            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)]
-    with torch.cuda.device(device):
-        if substeps is not None:
-            if not hasattr(lib, "ssn_solve_launch_counted"):
-                raise RuntimeError("this solver library counts no substeps")
-            err = lib.ssn_solve_launch_counted(
-                *args, rows_per_chunk or 0, int(w_global),
-                (2 if sched.refine else 1) if sched.two_phase else 0,
-                sched.coarse, sched.max_iter1, sched.reopen_at,
-                ptr(substeps))
-        elif sched.two_phase:
-            if not hasattr(lib, "ssn_solve_launch_schedule"):
-                raise RuntimeError("this solver library has no two-phase "
-                                   "schedule; set pallas_two_phase=False")
-            if sched.refine and not hasattr(lib, "ssn_solve_query"):
-                raise RuntimeError("this solver library has no refinement "
-                                   "tail; set pallas_refine=False")
-            err = lib.ssn_solve_launch_schedule(
-                *args, rows_per_chunk or 0, int(w_global),
-                2 if sched.refine else 1, sched.coarse, sched.max_iter1,
-                sched.reopen_at)
-        elif rows_per_chunk is None and not w_global:
-            err = lib.ssn_solve_launch(*args)
-        else:
-            err = lib.ssn_solve_launch_plan(*args, rows_per_chunk or 0,
-                                            int(w_global))
+            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),
+            rows_per_chunk or 0, int(w_global),
+            (2 if sched.refine else 1) if sched.two_phase else 0,
+            sched.coarse, sched.max_iter1, sched.reopen_at,
+            None if substeps is None else ptr(substeps), taken)
+    if err == 1:  # cudaErrorInvalidValue: no layout fits; plan() says why
+        plan(n2, S, accel, rows_per_chunk, w_global, sched.refine)
     if err:
         raise RuntimeError(
             f"ssn_solve launch failed: cudaError {err} "
             f"({lib.ssn_solve_error_string(err).decode()})")
-    return out
+    c, rows, chunks, wg, partials = taken
+    return out, Plan(c, rows, chunks, bool(wg)), bool(partials)

@@ -12,20 +12,21 @@ with one CUDA device, from the repository root:
     python -m tcgan_torch.tools.ssn_solve_ab --baseline OLD/ssn_solve.cu \\
         [--out runs/ssn_solve_ab.json]
 
-``OLD/ssn_solve.cu`` is an earlier version of ``tcgan_torch/csrc/
-ssn_solve.cu`` with the same C interface (for example unpacked from git into
-a git-ignored directory); it is compiled with the flags of
-``tcgan_torch/ops/cuda/build.py``. At each shape of :data:`SHAPES` both
-kernels solve the same inputs in turns: baseline, this, this, baseline, each
-turn the median of ``--reps`` launches timed with CUDA events (at
-:data:`CLUSTER_SHAPES`, :data:`SPLIT_SHAPES` and :data:`GLOBAL_SHAPES`,
-which a baseline without thread-block clusters, row chunks or W read from
-device memory refuses, this kernel alone); these shapes run one phase, as
-they did before the two-phase schedule. At :data:`TWO_PHASE_SHAPES` this
-kernel alone runs in its three schedules, in turns (one phase, two with
-the 3xTF32 tail, two with the refinement tail, and back), and, where the
-baseline has two phases, the baseline's two-phase launch is held bit for
-bit to this one's with the 3xTF32 tail and timed against it in turns.
+``OLD/ssn_solve.cu`` is another version of ``tcgan_torch/csrc/
+ssn_solve.cu`` with the same C interface (one launch entry,
+``ssn_solve_run``, beside ``ssn_solve_query``: a source from the one that
+introduced that entry on; for example unpacked from git into a git-ignored
+directory); it is compiled with the flags of
+``tcgan_torch/ops/cuda/build.py``. At each shape of :data:`SHAPES`,
+:data:`CLUSTER_SHAPES`, :data:`SPLIT_SHAPES` and :data:`GLOBAL_SHAPES`
+both kernels solve the same inputs in turns: baseline, this, this,
+baseline, each turn the median of ``--reps`` launches timed with CUDA
+events; these shapes run one phase, as they did before the two-phase
+schedule. At :data:`TWO_PHASE_SHAPES` this kernel alone runs in its three
+schedules, in turns (one phase, two with the 3xTF32 tail, two with the
+refinement tail, and back), and the baseline's two-phase launch is held
+bit for bit to this one's with the 3xTF32 tail and timed against it in
+turns.
 Printed per shape and kernel:
 the time, the bound from the run's own ``iters`` and its share, the
 slowest circuit's time per substep (launch time / max iters) and the plan
@@ -332,7 +333,7 @@ def _sass_report(lib_path: Path) -> dict | None:
 
 
 def _build_baseline(src: Path) -> tuple[Path, str]:
-    """Compile an earlier ssn_solve.cu with build.py's flags, unless a
+    """Compile another ssn_solve.cu with build.py's flags, unless a
     library of the same source is built already; (library, nvcc's
     output)."""
     key = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
@@ -347,19 +348,6 @@ def _build_baseline(src: Path) -> tuple[Path, str]:
         raise RuntimeError(f"nvcc failed building {src}:\n{proc.stderr}")
     log.write_text(proc.stdout + proc.stderr)
     return out, proc.stdout + proc.stderr
-
-
-def _build_plan(lib, n2: int, S: int, accel: bool) -> tuple:
-    """(cluster size, rows per chunk, blocks per SM) of a build's one-phase
-    plan from its own C entry points: ``ssn_solve_query`` or, in builds
-    before it, the single queries; () where it has neither."""
-    if hasattr(lib, "ssn_solve_query"):
-        q = ssn_solve.query(n2, S, accel, lib=lib)
-        return q.plan.cluster, q.plan.rows, q.blocks_per_sm
-    if not hasattr(lib, "ssn_solve_cluster_size"):
-        return ()
-    return tuple(getattr(lib, f"ssn_solve_{q}")(n2, S, int(accel)) for q in (
-        "cluster_size", "rows_per_chunk", "blocks_per_sm"))
 
 
 def _rows_off_plain(out, plain) -> list[dict]:
@@ -381,22 +369,22 @@ SCHEDULES = {"one": dict(pallas_two_phase=False),
              "refine": dict(pallas_two_phase=True, pallas_refine=True)}
 
 
-def _schedules(lib, shape, spec, reps, name, baseline=None) -> dict:
+def _schedules(lib, shape, spec, reps, name, baseline) -> dict:
     """This kernel at one of :data:`TWO_PHASE_SHAPES` in its three
     schedules (:data:`SCHEDULES`), in turns (one, two, refine, refine, two,
     one): each one's time, bound and share, iters, the share of the
     two-phase substeps run in phase 1 (from the plain version on the same
     inputs, in each schedule), and the flags and rates of each against one
-    phase. With ``baseline`` (an earlier build's library), its two-phase
-    launch against this one's with the 3xTF32 tail: bit-equal, and their
-    times in turns."""
+    phase; and ``baseline``'s (another build's library) two-phase launch
+    against this one's with the 3xTF32 tail: bit-equal, and their times in
+    turns."""
     N, batch, contrasts, overrides, accel = spec
     cfg, W, I = problem(batch, contrasts, overrides, N=N, two_phase=True)
     cfgs = {k: dataclasses.replace(cfg, **kw) for k, kw in SCHEDULES.items()}
     solve = {k: (lambda c=c: ssn_solve.launch(lib, c, W, I, CHECK_EVERY,
                                               accel))
              for k, c in cfgs.items()}
-    outs = {k: fn() for k, fn in solve.items()}
+    outs = {k: fn()[0] for k, fn in solve.items()}
     steps = {}
     for k in ("two", "refine"):
         stats = {}
@@ -439,21 +427,20 @@ def _schedules(lib, shape, spec, reps, name, baseline=None) -> dict:
         + f"; two / refine {rows['two']['ms'] / rows['refine']['ms']:.3f}, "
         f"one / refine {rows['one']['ms'] / rows['refine']['ms']:.3f}; "
         f"{name}", flush=True)
-    if baseline is not None:
-        two = cfgs["two"]
-        old = ssn_solve.launch(baseline, two, W, I, CHECK_EVERY, accel)
-        torch.cuda.synchronize()
-        same = all(torch.equal(x, y) for x, y in zip(old, outs["two"]))
-        bt = [median_ms(lambda b=b: ssn_solve.launch(b, two, W, I,
-                                                     CHECK_EVERY, accel),
-                        reps) for b in (baseline, lib, lib, baseline)]
-        rows["baseline_two"] = dict(bit_equal=same, turns_ms=bt,
-                                    speedup=(bt[0] + bt[3]) / (bt[1] + bt[2]))
-        print(f"[ab] schedules {shape}: the baseline's two phases against "
-              f"this build's 3xTF32 tail: (r, flags, iters) bit-equal "
-              f"{same}; turns baseline, this, this, baseline "
-              f"{', '.join(f'{t:.3f}' for t in bt)} ms, baseline / this "
-              f"{rows['baseline_two']['speedup']:.3f}; {name}", flush=True)
+    two = cfgs["two"]
+    old, _, _ = ssn_solve.launch(baseline, two, W, I, CHECK_EVERY, accel)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(old, outs["two"]))
+    bt = [median_ms(lambda b=b: ssn_solve.launch(b, two, W, I,
+                                                 CHECK_EVERY, accel),
+                    reps) for b in (baseline, lib, lib, baseline)]
+    rows["baseline_two"] = dict(bit_equal=same, turns_ms=bt,
+                                speedup=(bt[0] + bt[3]) / (bt[1] + bt[2]))
+    print(f"[ab] schedules {shape}: the baseline's two phases against "
+          f"this build's 3xTF32 tail: (r, flags, iters) bit-equal "
+          f"{same}; turns baseline, this, this, baseline "
+          f"{', '.join(f'{t:.3f}' for t in bt)} ms, baseline / this "
+          f"{rows['baseline_two']['speedup']:.3f}; {name}", flush=True)
     return rows
 
 
@@ -512,7 +499,7 @@ def _substep_costs(lib, shape, spec, reps, name) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", required=True, type=Path,
-                    help="an earlier ssn_solve.cu with the same C interface")
+                    help="another ssn_solve.cu with the same C interface")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
@@ -526,8 +513,8 @@ def main(argv=None) -> int:
         lib = ssn_solve.bind(path)
         kernels[label] = dict(
             lib=lib, ptxas=_ptxas_report(log), sass=_sass_report(path),
-            blocks_per_sm={f"2N=102 S={S}": _build_plan(lib, 102, S, False)[2]
-                           for S in (8, 16)})
+            blocks_per_sm={f"2N=102 S={S}": ssn_solve.query(
+                102, S, lib=lib).blocks_per_sm for S in (8, 16)})
         print(f"[ab] {label}: ptxas {kernels[label]['ptxas']}; SASS "
               f"{kernels[label]['sass']}; blocks per SM "
               f"{kernels[label]['blocks_per_sm']}; {name}", flush=True)
@@ -551,19 +538,12 @@ def main(argv=None) -> int:
         cfg, W, I = problem(batch, contrasts, overrides, **kw)
         solve = {k: (lambda lib=v["lib"]: ssn_solve.launch(
             lib, cfg, W, I, CHECK_EVERY, accel)) for k, v in kernels.items()}
-        outs = {}
-        for k, fn in list(solve.items()):
-            try:
-                outs[k] = fn()
-            except RuntimeError as e:  # a baseline that refuses the shape
-                print(f"[ab] {shape} {k}: refused ({e})", flush=True)
-                del solve[k]
+        outs = {k: fn()[0] for k, fn in solve.items()}
         plain = ssn_solve.solve_fixed_point_plain(cfg, W, I, CHECK_EVERY,
                                                   accel)
         torch.cuda.synchronize()
         turns = [(k, median_ms(solve[k], args.reps))
-                 for k in ("baseline", "this", "this", "baseline")
-                 if k in solve]
+                 for k in ("baseline", "this", "this", "baseline")]
         rows = {}
         for k, out in outs.items():
             ms = statistics.median(t for kk, t in turns if kk == k)
@@ -584,17 +564,15 @@ def main(argv=None) -> int:
                   f"{RTOL} atol {ATOL} of the fp32 plain solve: "
                   f"{rows[k]['rows_off_plain']}; {name}", flush=True)
         n2, S = W.shape[-1], I.shape[0]
-        _, n = ssn_solve.active_clusters(n2, S, accel)
+        n = ssn_solve.query(n2, S, accel).chunks_at_once
         rows["plan"] = ssn_solve.plan(n2, S, accel)
         rows["active_clusters"] = n
         # each build's own plan (cluster size, rows per chunk)
-        rows["kernel_plans"] = {k: _build_plan(v["lib"], n2, S, accel)[:2]
-                                for k, v in kernels.items()}
+        rows["kernel_plans"] = {
+            k: tuple(ssn_solve.query(n2, S, accel, lib=v["lib"]).plan[:2])
+            for k, v in kernels.items()}
         print(f"[ab] {shape}: plan {rows['plan']}, {n} chunks at once; "
               f"the builds' C plans {rows['kernel_plans']}", flush=True)
-        if "baseline" not in outs:
-            report["shapes"][shape] = rows
-            continue
         a, b = outs["baseline"], outs["this"]
         both = a.converged & b.converged
         rows["flag_mismatch"] = int((a.converged != b.converged).sum()
@@ -612,16 +590,14 @@ def main(argv=None) -> int:
               f"(r, flags, iters) bit-equal {rows['bit_equal']}, the same "
               f"plan {rows['same_plan']}", flush=True)
         report["shapes"][shape] = rows
-    base = kernels["baseline"]["lib"]
     report["schedules"] = {
         shape: _schedules(kernels["this"]["lib"], shape, spec, args.reps, name,
-                          base if hasattr(base, "ssn_solve_launch_schedule")
-                          else None)
+                          kernels["baseline"]["lib"])
         for shape, spec in TWO_PHASE_SHAPES.items()}
     report["substeps"] = {
         label: {shape: _substep_costs(v["lib"], shape, spec, args.reps, name)
                 for shape, spec in SUBSTEP_SHAPES.items()}
-        for label, v in kernels.items() if hasattr(v["lib"], "ssn_solve_query")}
+        for label, v in kernels.items()}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))

@@ -269,8 +269,8 @@ def test_kernel_phase_totals_equal_the_plain_replay(cuda_device, case,
                                               **ab.SCHEDULES[schedule]},
                            N=N, seed=1, two_phase=True)
     totals = torch.zeros(2, dtype=torch.int64, device=cuda_device)
-    out = ssn_solve.launch(ssn_solve._library(), cfg, W, I, 32, accel,
-                           substeps=totals)
+    out, _, _ = ssn_solve.launch(ssn_solve._library(), cfg, W, I, 32, accel,
+                                 substeps=totals)
     stats = {}
     fast = ssn_solve.drive_1xtf32 if cfg.pallas_two_phase else None
     ref = ssn_solve.solve_fixed_point_plain(cfg, W, I, 32, accel,
@@ -282,7 +282,8 @@ def test_kernel_phase_totals_equal_the_plain_replay(cuda_device, case,
         totals.tolist(), want, int((ref.iters != out.iters).sum()))
     assert (want[0] > 0) == cfg.pallas_two_phase
     # the same launch counting nothing gives the same solve
-    plain = ssn_solve.launch(ssn_solve._library(), cfg, W, I, 32, accel)
+    plain, _, _ = ssn_solve.launch(ssn_solve._library(), cfg, W, I, 32,
+                                   accel)
     for a, b in zip(out, plain):
         assert torch.equal(a, b)
 

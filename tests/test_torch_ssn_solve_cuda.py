@@ -18,10 +18,12 @@ two-phase tests hold the kernel to the plain version with the fast pass
 (``ssn_solve.drive_1xtf32``), at every path of the kernel, with the
 refinement tail (the default) and with the 3xTF32 tail. With
 ``SSN_SOLVE_BASELINE`` set to an earlier ``ssn_solve.cu`` that has the
-two-phase schedule, ``test_refine_off_is_the_baseline_two_phase`` holds
-the 3xTF32 tail bit for bit to that build's two phases.
+two-phase schedule and no refinement tail (a source from before the
+tail), ``test_refine_off_is_the_baseline_two_phase`` holds the 3xTF32 tail
+bit for bit to that build's two phases.
 """
 
+import ctypes
 import dataclasses
 import os
 from pathlib import Path
@@ -34,6 +36,7 @@ from tcgan_torch.ops import stimulus, weights
 from tcgan_torch.ops.cuda import ssn_solve
 from tcgan_torch.ops.ssn import SSNConfig
 from tcgan_torch.tools import ssn_solve_ab as ab
+from tcgan_torch.utils import profiling
 
 BASE = dict(N=8, k=0.01, n=2.2, dt=0.001, max_iter=4000, atol=1e-6,
             pallas_two_phase=False)
@@ -238,8 +241,10 @@ def test_forced_split_is_bit_equal(cuda_device, accel):
     assert ssn_solve.plan(102, 32, accel) == (1, 32, 1, False)
     assert ssn_solve.plan(102, 32, accel, rows=8) == (1, 8, 4, False)
     lib = ssn_solve._library()
-    whole = ssn_solve.launch(lib, cfg, W, I, 32, accel)
-    split = ssn_solve.launch(lib, cfg, W, I, 32, accel, rows_per_chunk=8)
+    whole, _, _ = ssn_solve.launch(lib, cfg, W, I, 32, accel)
+    split, p, _ = ssn_solve.launch(lib, cfg, W, I, 32, accel,
+                                   rows_per_chunk=8)
+    assert p == (1, 8, 4, False)
     torch.cuda.synchronize()
     for a, b in zip(whole, split):
         assert torch.equal(a, b)
@@ -268,9 +273,10 @@ def test_forced_global_w_is_bit_equal(cuda_device, case):
     assert ssn_solve.plan(2 * N, S, accel) == (*shared, False)
     assert ssn_solve.plan(2 * N, S, accel, w_global=True) == (*shared, True)
     lib = ssn_solve._library()
-    a = ssn_solve.launch(lib, cfg, W, I, 32, accel)
-    b = ssn_solve.launch(lib, cfg, W, I, 32, accel, w_global=True)
+    a, _, _ = ssn_solve.launch(lib, cfg, W, I, 32, accel)
+    b, p, _ = ssn_solve.launch(lib, cfg, W, I, 32, accel, w_global=True)
     torch.cuda.synchronize()
+    assert p == (*shared, True)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert float(a.converged.float().mean()) > 0.5
@@ -306,9 +312,11 @@ def test_forced_global_w_is_bit_equal_in_the_refinement_tail(cuda_device,
     assert ssn_solve.plan(2 * N, S, False, w_global=True,
                           refine=True) == (*shared, True)
     lib = ssn_solve._library()
-    a = ssn_solve.launch(lib, cfg, W, I, 32, False)
-    b = ssn_solve.launch(lib, cfg, W, I, 32, False, w_global=True)
+    a, pa, sa = ssn_solve.launch(lib, cfg, W, I, 32, False)
+    b, pb, sb = ssn_solve.launch(lib, cfg, W, I, 32, False, w_global=True)
     torch.cuda.synchronize()
+    assert (pa, pb, sa, sb) == ((*shared, False), (*shared, True), partials,
+                                partials)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert float(a.converged.float().mean()) > 0.5
@@ -338,13 +346,27 @@ def test_global_w_kernel_matches_plain(cuda_device, case):
     assert float(out.converged.float().mean()) > 0.5
 
 
+# name: (N, circuits, contrasts, the plan, its one-pass loop as partial
+# sums) in the default schedule, the refinement tail: the N=201 fit's solve
+# (clusters of 8), n201_forward's (clusters of 4, the single chain) and W
+# from device memory (2N=600)
+COUNTED_CASES = {
+    "fit_2N402_S16": (201, 4, (5.0, 10.0), (8, 16, 1, False), True),
+    "forward_2N402_S8": (201, 4, (10.0,), (4, 8, 1, False), False),
+    "wglobal_2N600_S8": (300, 2, (10.0,), (4, 8, 1, True), True),
+}
+
+
 @pytest.mark.cuda
 def test_plan_matches_the_kernel(cuda_device):
     """The wrapper's plan is the kernel's: cluster size, rows per chunk,
     chunks, where W is read from and the shared memory, from the C entry
     point (``ssn_solve_query``) over a grid of shapes, in one phase and in
-    the refinement tail's layout, both refusing past 2N=2048; and, in the
-    refinement tail, whether the one-pass loop runs as partial sums."""
+    the refinement tail's layout, both refusing past 2N=2048. And under a
+    profiler a solve counts the plan its launch reported
+    (:data:`COUNTED_CASES`): its cluster size and, where the one-pass loop
+    ran as partial sums, one ``launches_partial_sums``, as
+    ``ssn_solve_query`` plans the shape."""
     for n2 in (2, 26, 102, 224, 240, 402, 512, 576, 578, 596, 598, 600, 640,
                1024, 1500, 2048, 2050):
         for S in (1, 8, 17, 24, 32, 48, 64, 96, 184, 256, 1000):
@@ -360,8 +382,20 @@ def test_plan_matches_the_kernel(cuda_device):
                     assert q.plan == p, (n2, S, accel, refine)
                     assert q.smem_bytes == ssn_solve.smem_bytes(
                         n2, p.rows, accel, p.cluster, p.w_global, refine)
-                    assert q.partial_sums == (
-                        refine and ssn_solve.partial_sums(n2, p))
+    for case, (N, B, contrasts, plan, partials) in COUNTED_CASES.items():
+        cfg, W, I = ab.problem(B, contrasts, {}, N=N, seed=2, two_phase=True)
+        q = ssn_solve.query(2 * N, I.shape[0], False, True)
+        assert (q.plan, q.partial_sums) == (plan, partials), case
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            ssn_solve.solve_fixed_point_cuda(cfg, W, I, 32)
+            torch.cuda.synchronize()
+        counts = profiling.counters()
+        assert {k: v for k, v in counts.items()
+                if k.startswith("ssn_solve.launches_")} == {
+            f"ssn_solve.launches_cluster.{q.plan.cluster}": 1,
+            **({"ssn_solve.launches_partial_sums": 1} if partials else {})
+        }, case
 
 
 @pytest.mark.cuda
@@ -428,8 +462,8 @@ def test_blocks_per_sm_fits_shared_memory(cuda_device, refine):
     per_sm = getattr(props, "shared_memory_per_multiprocessor", None)
     threads = 32 * 7  # one warp per m16 slab of 102 neurons
     for S in (8, 16):
-        n = {accel: ssn_solve.blocks_per_sm(102, S, accel, cuda_device,
-                                            refine=refine)
+        n = {accel: ssn_solve.query(102, S, accel, refine,
+                                    cuda_device).blocks_per_sm
              for accel in (False, True)}
         assert 2 <= n[True] <= n[False]
         assert n[False] * threads <= getattr(
@@ -542,26 +576,6 @@ def test_two_phase_bad_margin_raises_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_two_phase_needs_the_schedule_entry(cuda_device):
-    """A library without the two-phase entry (an earlier build) refuses a
-    two-phase launch and still runs one phase."""
-    lib = ssn_solve._library()
-
-    class Earlier:
-        ssn_solve_launch = lib.ssn_solve_launch
-        ssn_solve_error_string = lib.ssn_solve_error_string
-
-    W, I = _problem(cuda_device, B=2)
-    with pytest.raises(RuntimeError, match="no two-phase"):
-        ssn_solve.launch(Earlier, SSNConfig(**{**BASE,
-                                               "pallas_two_phase": True}),
-                         W, I, 4, False)
-    out = ssn_solve.launch(Earlier, SSNConfig(**BASE), W, I, 4, False)
-    torch.cuda.synchronize()
-    assert out.converged.all()
-
-
-@pytest.mark.cuda
 def test_refine_cluster_blocks_agree(cuda_device):
     """The refinement tail on clusters of 4 (2N=402): every block decides
     the flags from its own copy of the rates, so a block that disagreed
@@ -576,7 +590,7 @@ def test_refine_cluster_blocks_agree(cuda_device):
     out = _check(cfg, W, I, 32, False, converged_rows_only=True,
                  witness=True)
     lib = ssn_solve._library()
-    forced = ssn_solve.launch(lib, cfg, W, I, 32, False, w_global=True)
+    forced, _, _ = ssn_solve.launch(lib, cfg, W, I, 32, False, w_global=True)
     torch.cuda.synchronize()
     for x, y in zip(out, forced):
         assert torch.equal(x, y)
@@ -601,25 +615,28 @@ def test_fit_battery_at_the_paper_width_on_clusters_of_8(cuda_device):
     assert float(out.converged.float().mean()) > 0.5
 
 
-@pytest.mark.cuda
-def test_refine_needs_the_refine_entry(cuda_device):
-    """A library without the refinement tail (an earlier build) refuses a
-    launch that asks for it: it never runs the 3xTF32 tail in its place."""
-    lib = ssn_solve._library()
+class _BeforeTheTail:
+    """A build of a source from before the refinement tail, launched
+    through today's :func:`ssn_solve.launch`: its two-phase entry
+    ``ssn_solve_launch_schedule`` (today's launch arguments without the
+    substep totals and the plan) answers for ``ssn_solve_run``; the one
+    place that knows that earlier interface."""
 
-    class Earlier:
-        ssn_solve_launch = lib.ssn_solve_launch
-        ssn_solve_launch_schedule = lib.ssn_solve_launch_schedule
-        ssn_solve_error_string = lib.ssn_solve_error_string
+    def __init__(self, path):
+        lib = ctypes.CDLL(str(path))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        self._launch = lib.ssn_solve_launch_schedule
+        self._launch.argtypes = ([p] * 7 + [i] * 4 + [f] * 9 + [i] * 4 + [p]
+                                 + [i, i, i, f, i, f])
+        self._launch.restype = i
+        self.ssn_solve_error_string = lib.ssn_solve_error_string
+        self.ssn_solve_error_string.argtypes = [i]
+        self.ssn_solve_error_string.restype = ctypes.c_char_p
 
-    W, I = _problem(cuda_device, B=2)
-    cfg = SSNConfig(**{**BASE, "pallas_two_phase": True})
-    with pytest.raises(RuntimeError, match="no refinement tail"):
-        ssn_solve.launch(Earlier, cfg, W, I, 4, False)
-    out = ssn_solve.launch(Earlier, dataclasses.replace(
-        cfg, pallas_refine=False), W, I, 4, False)
-    torch.cuda.synchronize()
-    assert out.converged.all()
+    def ssn_solve_run(self, *args):
+        *launch_args, substeps, _ = args
+        assert substeps is None
+        return self._launch(*launch_args)
 
 
 @pytest.mark.cuda
@@ -633,12 +650,12 @@ def test_refine_off_is_the_baseline_two_phase(cuda_device, case):
     src = os.environ.get("SSN_SOLVE_BASELINE")
     if not src:
         pytest.skip("SSN_SOLVE_BASELINE names no earlier ssn_solve.cu")
-    old = ssn_solve.bind(ab._build_baseline(Path(src))[0])
+    old = _BeforeTheTail(ab._build_baseline(Path(src))[0])
     N, B, contrasts, cfg_kw, accel = TWO_PHASE_CASES[case]
     cfg, W, I = ab.problem(B, contrasts, {**cfg_kw, "pallas_refine": False},
                            N=N, seed=1, two_phase=True)
-    a = ssn_solve.launch(old, cfg, W, I, 32, accel)
-    b = ssn_solve.launch(ssn_solve._library(), cfg, W, I, 32, accel)
+    a, _, _ = ssn_solve.launch(old, cfg, W, I, 32, accel)
+    b, _, _ = ssn_solve.launch(ssn_solve._library(), cfg, W, I, 32, accel)
     torch.cuda.synchronize()
     for x, y in zip(a, b):
         assert torch.equal(x, y)

@@ -25,6 +25,7 @@ import torch
 from tcgan_tpu.ops import fixed_point as jfp
 from tcgan_tpu.ops import ssn as jssn
 from tcgan_tpu.ops.pallas import solve_fixed_point_pallas
+from tcgan_torch.ops import fixed_point
 from tcgan_torch.ops import ssn as tssn
 from tcgan_torch.ops.cuda import ssn_solve
 from tests.test_torch_ssn_solve import (ATOL, BASE, CASES, RTOL, _problem,
@@ -146,8 +147,23 @@ def test_reopen_margin_same_flags_fewer_iters():
                                       np.asarray(ref.iters))
 
 
+@pytest.fixture
+def one_torch_thread():
+    """torch's intra-op threads at one while the test runs. The plain
+    version's lockstep solve of a 256-row battery issues thousands of small
+    ops; with other test workers busy on the same cores, each op's parallel
+    region waits for threads the scheduler has put aside (on 8 cores beside
+    five such solves: 1.6 s with one thread, not done in 10 minutes with
+    8)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("refine,rows", [(True, 88), (False, 128)],
                          ids=["refine", "no_refine"])
+@pytest.mark.usefixtures("one_torch_thread")
 def test_row_chunks_are_the_tiles(refine, rows):
     """2N=102 with a 256-row battery (32 contrasts of 8 bandwidths): the
     plan cuts it into 2 chunks of 128 rows (3 of 88 in the refinement
@@ -171,9 +187,15 @@ def test_row_chunks_are_the_tiles(refine, rows):
                            for f in parts[0]._fields))
     _assert_match(out, ref, ab.CHECK_EVERY)
     assert float(out.converged.float().mean()) > 0.9
-    # with the whole battery as one tile, rows wait for other rows
-    whole = _reference(kw, W, I, ab.CHECK_EVERY, refine=refine)
-    assert (out.iters.numpy() != np.asarray(whole.iters)).any()
+    # with the whole battery as one tile (the port's plain version), rows
+    # wait for other rows
+    cfg = tssn.SSNConfig(**kw)
+    s = ssn_solve.schedule(cfg)
+    whole = fixed_point.solve_fixed_point(
+        cfg, torch.tensor(W), torch.tensor(I), check_every=ab.CHECK_EVERY,
+        two_phase=fixed_point.TwoPhase(256, s.coarse, s.max_iter1,
+                                       s.reopen_at, refine=s.refine))
+    assert (out.iters != whole.iters).any()
 
 
 def test_schedule_flags_are_checked():
